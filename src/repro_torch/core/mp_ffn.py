@@ -3,8 +3,9 @@ serving path of the paper's MP Inference (§5.2).
 
 Per forward call:
   1. the predictor scores every FFN neuron from the block input,
-  2. the top ``k = active_ratio·f`` neurons form the active set
-     (batch-shared), sorted by score,
+  2. the top ``k = active_ratio·f`` neurons form the active set, sorted by
+     score: batch-shared, or one per batch row where each row is its own
+     request (the server's path, where the reference vmaps a one-row graph),
   3. the top ``r_fp16·k`` ranks come from the fp bank, the next
      ``r_int8·k`` ranks from the INT8 bank, the rest from the packed INT4
      bank,
@@ -18,6 +19,7 @@ from typing import Dict
 
 from repro_torch.core.predictor import predictor_scores, shared_topk_indices
 from repro_torch.kernels import ops
+from repro_torch.models.common import each_row
 
 
 def tier_sizes(f: int, cfg) -> Dict[str, int]:
@@ -29,8 +31,10 @@ def tier_sizes(f: int, cfg) -> Dict[str, int]:
     return {"k": k16 + k8 + k4, "fp16": k16, "int8": k8, "int4": k4}
 
 
-def mp_ffn_apply(cfg, banks, pred, x):
+def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
     """x: (B, S, d) — serving activations. banks/pred: one layer's params.
+    ``rows``: each batch row takes its own active set over its own S
+    positions (idx (B, k)) instead of one shared set (idx (k,)).
 
     Returns (y, info) where info carries the rank-sorted active indices and
     the per-step weight bytes the tiers move."""
@@ -38,8 +42,11 @@ def mp_ffn_apply(cfg, banks, pred, x):
     f = banks["wg_i8_s"].shape[-1]
     sizes = tier_sizes(f, cfg)
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
-    scores = predictor_scores(x, pred["A"], pred["B"])        # (B,S,f)
-    idx = shared_topk_indices(scores, k)                      # (k,) rank-sorted
+
+    def top_k(xs):                                            # rank-sorted
+        return shared_topk_indices(predictor_scores(xs, pred["A"], pred["B"]),
+                                   k)
+    idx = each_row(lambda xr: top_k(xr)[None], x) if rows else top_k(x)
     y = ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act)
     bytes_moved = 3 * d * (k16 * 2 + k8 * 1 + k4 * 0.5)
     info = {"active_idx": idx, "bytes_weights": bytes_moved, "sizes": sizes}

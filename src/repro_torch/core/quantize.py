@@ -1,5 +1,6 @@
 """Symmetric INT8 / packed-INT4 weight quantization (per-neuron scales) —
-the weight half of ``repro/core/quantize.py``, byte for byte.
+the weight half of ``repro/core/quantize.py``, byte for byte, and its
+KV-payload codec (numpy only: payloads are host arrays).
 
 A *neuron* is a column of the FFN up/gate projections and the matching row
 of the down projection; scales are therefore per-neuron:
@@ -12,8 +13,9 @@ round-half-even (``torch.round``), as ``jnp.round``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 INT8_MAX = 127.0
@@ -104,3 +106,222 @@ def bytes_per_neuron(d_model: int, precision: str) -> int:
     """Traffic cost of loading one neuron (3 vectors of length d_model)."""
     per_elt = {"fp16": 2.0, "int8": 1.0, "int4": 0.5}[precision]
     return int(3 * d_model * per_elt)
+
+
+# ---------------------------------------------------------------------------
+# KV payload quantization: the per-tier storage codec for the serving
+# cache (``serving/kv_cache.py``). A host KV payload is a flat
+# ``{keystr: ndarray}`` dict (``core/kv_payload.py``); quantizing one for
+# a colder tier produces *another flat dict of plain arrays* — so the
+# DRAM store, the SSD memmap tier and the prefix-tree checksum handshake
+# all handle quantized payloads unchanged, and the checksum covers the
+# packed form. Both codecs are symmetric with max-based scales:
+#
+# * ``int8`` (the DRAM tier): one fp32 scale per last-axis row.
+# * ``int4`` (the SSD tier): the paper's dynamic mixed-precision idea
+#   applied within a block — each last-axis row is split into groups of
+#   ``KV_INT4_GROUP`` elements; the half of the groups with the largest
+#   magnitude ("outlier" groups, which dominate attention) keep int8,
+#   the cold half is nibble-packed int4, with fp16 per-group scales.
+#   Pure max-scaled int4 measurably reorders top-k logits on flat
+#   distributions; sparing the outlier groups buys the divergence gate
+#   (``eval/divergence.py``) at ~1 byte/element stored.
+
+#: legal per-tier KV storage precisions, widest first
+KV_PRECISIONS = ("fp16", "int8", "int4")
+
+#: marker key of a quantized payload dict (value: [precision code])
+KVQ_KEY = "__kvq__"
+
+#: int4 codec: elements per scale group along the last axis
+KV_INT4_GROUP = 8
+
+_PRECISION_CODE = {"int8": 8, "int4": 4}
+_CODE_PRECISION = {v: k for k, v in _PRECISION_CODE.items()}
+
+_DTYPE_CODE = {"float32": 0, "float16": 1, "float64": 2, "bfloat16": 3}
+
+
+def _dtype_of(code: int):
+    name = {v: k for k, v in _DTYPE_CODE.items()}[int(code)]
+    if name == "bfloat16":
+        import ml_dtypes             # numpy's bfloat16, as the reference has it
+        return np.dtype(ml_dtypes.bfloat16)
+    return np.dtype(name)
+
+
+def kv_payload_precision(payload: Optional[Dict]) -> str:
+    """Storage precision of a payload dict ("fp16" = not quantized)."""
+    if payload is None or KVQ_KEY not in payload:
+        return "fp16"
+    return _CODE_PRECISION[int(np.asarray(payload[KVQ_KEY]).ravel()[0])]
+
+
+def kv_payload_nbytes(payload: Dict) -> int:
+    """Actual stored bytes of a (possibly quantized) payload dict."""
+    return sum(np.asarray(a).nbytes for a in payload.values())
+
+
+def _pack_int4_np(q: np.ndarray, axis: int = -1) -> np.ndarray:
+    """numpy :func:`pack_int4`: int4 values two per byte along ``axis``, odd
+    lengths zero-padded, low nibble = even index."""
+    q = np.asarray(q, np.int8)
+    axis = axis % q.ndim
+    if q.shape[axis] % 2:
+        pad = [(0, 0)] * q.ndim
+        pad[axis] = (0, 1)
+        q = np.pad(q, pad)
+    lo = np.take(q, np.arange(0, q.shape[axis], 2), axis=axis)
+    hi = np.take(q, np.arange(1, q.shape[axis], 2), axis=axis)
+    return ((lo & 0x0F) | (hi << 4)).astype(np.int8)
+
+
+def _unpack_int4_np(packed: np.ndarray, axis: int,
+                    orig_len: Optional[int] = None) -> np.ndarray:
+    """numpy :func:`unpack_int4` (sign-extended nibbles, optional trim)."""
+    axis = axis % packed.ndim
+    lo = (packed.astype(np.int8) << 4).astype(np.int8) >> 4
+    hi = packed.astype(np.int8) >> 4
+    out = np.stack([lo, hi], axis=axis + 1)
+    shape = list(packed.shape)
+    shape[axis] *= 2
+    out = out.reshape(shape)
+    if orig_len is not None and orig_len != shape[axis]:
+        out = np.take(out, np.arange(orig_len), axis=axis)
+    return out
+
+
+def _rows_of(arr: np.ndarray):
+    cols = arr.shape[-1] if arr.ndim else 1
+    return arr.reshape(-1, cols).astype(np.float32), cols
+
+
+def _quantize_int8_rows(arr: np.ndarray) -> Dict[str, np.ndarray]:
+    a, _ = _rows_of(arr)
+    scale = np.abs(a).max(axis=1) / INT8_MAX
+    scale = np.maximum(scale, 1e-8).astype(np.float32)
+    q = np.clip(np.rint(a / scale[:, None]), -127, 127).astype(np.int8)
+    return {"": q, "::scale": scale}
+
+
+def _dequantize_int8_rows(payload: Dict, key: str, cols: int):
+    q = np.asarray(payload[key]).astype(np.float32)
+    scale = np.asarray(payload[key + "::scale"], np.float32)
+    return q * scale[:, None]
+
+
+def _grouped(arr: np.ndarray):
+    """(rows, cols) view padded and reshaped to (rows, ngroups, G)."""
+    a, cols = _rows_of(arr)
+    G = KV_INT4_GROUP
+    ng = -(-cols // G)
+    padded = np.zeros((a.shape[0], ng * G), np.float32)
+    padded[:, :cols] = a
+    return padded.reshape(-1, ng, G), ng, cols
+
+
+def _quantize_int4_rows(arr: np.ndarray) -> Dict[str, np.ndarray]:
+    g, ng, _ = _grouped(arr)
+    n_hot = ng // 2
+    amax = np.abs(g).max(axis=2)
+    qmax = np.full(amax.shape, INT4_MAX, np.float32)
+    if n_hot:
+        hot = np.sort(np.argsort(amax, axis=1)[:, ng - n_hot:], axis=1)
+        np.put_along_axis(qmax, hot, INT8_MAX, axis=1)
+    # floor must survive the fp16 cast (1e-8 underflows fp16 to zero,
+    # which would turn all-zero groups into 0/0 = NaN on dequantize)
+    scale = np.maximum(amax / qmax, 1e-6).astype(np.float16)
+    q = np.clip(np.rint(g / scale.astype(np.float32)[..., None]),
+                -qmax[..., None], qmax[..., None]).astype(np.int8)
+    out = {"::scale": scale}
+    if n_hot:
+        mask = np.zeros(amax.shape, bool)
+        np.put_along_axis(mask, hot, True, axis=1)
+        out["::hot"] = q[mask].reshape(len(g), -1)          # int8 groups
+        out["::hotidx"] = hot.astype(np.int8)
+        cold = q[~mask].reshape(len(g), -1)
+    else:
+        cold = q.reshape(len(g), -1)
+    out[""] = _pack_int4_np(cold, axis=1)
+    return out
+
+
+def _dequantize_int4_rows(payload: Dict, key: str, cols: int):
+    G = KV_INT4_GROUP
+    scale = np.asarray(payload[key + "::scale"]).astype(np.float32)
+    rows, ng = scale.shape
+    hotidx = payload.get(key + "::hotidx")
+    n_hot = hotidx.shape[1] if hotidx is not None else 0
+    ncold = ng - n_hot
+    cold = _unpack_int4_np(np.asarray(payload[key]), axis=1,
+                           orig_len=ncold * G)
+    q = np.empty((rows, ng, G), np.float32)
+    if n_hot:
+        mask = np.zeros((rows, ng), bool)
+        np.put_along_axis(mask, np.asarray(hotidx, np.int64), True, axis=1)
+        q[mask] = np.asarray(payload[key + "::hot"],
+                             np.float32).reshape(-1, G)
+        q[~mask] = cold.astype(np.float32).reshape(-1, G)
+    else:
+        q[:] = cold.astype(np.float32).reshape(rows, ng, G)
+    deq = (q * scale[..., None]).reshape(rows, ng * G)
+    return deq[:, :cols]
+
+
+def kv_quantize_payload(payload: Dict, precision: str) -> Dict:
+    """Quantize a full-precision KV payload for a storage tier.
+
+    Per original key ``k`` the result carries ``k`` (the quantized
+    values — nibble-packed cold groups for int4), ``k::scale`` (and for
+    int4 ``k::hot`` / ``k::hotidx``, the outlier groups kept at int8)
+    and ``k::meta`` ([dtype code, *shape], int64), plus the ``KVQ_KEY``
+    marker. "fp16" (or None) returns the payload unchanged."""
+    if precision in (None, "fp16"):
+        return payload
+    quantize = {"int8": _quantize_int8_rows,
+                "int4": _quantize_int4_rows}[precision]
+    out = {KVQ_KEY: np.asarray([_PRECISION_CODE[precision]], np.int64)}
+    for key in sorted(payload):
+        assert "::" not in key and key != KVQ_KEY, key
+        arr = np.asarray(payload[key])
+        for suffix, bank in quantize(arr).items():
+            out[key + suffix] = bank
+        out[key + "::meta"] = np.asarray(
+            [_DTYPE_CODE[str(arr.dtype)], *arr.shape], np.int64)
+    return out
+
+
+def kv_dequantize_payload(payload: Optional[Dict]) -> Optional[Dict]:
+    """Inverse of :func:`kv_quantize_payload`; restores the original
+    keys, shapes and dtypes. Unquantized payloads pass through."""
+    if payload is None or KVQ_KEY not in payload:
+        return payload
+    precision = kv_payload_precision(payload)
+    dequantize = {"int8": _dequantize_int8_rows,
+                  "int4": _dequantize_int4_rows}[precision]
+    out = {}
+    for key in payload:
+        if key == KVQ_KEY or "::" in key:
+            continue
+        meta = np.asarray(payload[key + "::meta"])
+        dtype = _dtype_of(meta[0])
+        shape = tuple(int(x) for x in meta[1:])
+        cols = shape[-1] if shape else 1
+        deq = dequantize(payload, key, cols)
+        out[key] = np.asarray(deq.reshape(shape), dtype=dtype)
+    return out
+
+
+def kv_requantize_payload(payload: Dict, precision: str) -> Dict:
+    """Ensure a payload is stored at (at most) ``precision``.
+
+    Precision only ever *decays*: an int4 payload asked for int8 stays
+    int4 (re-widening stored values cannot recover information), int8
+    asked for int4 re-quantizes down, fp16 quantizes directly. Returns
+    the input object unchanged when nothing needs to happen."""
+    cur = kv_payload_precision(payload)
+    if precision in (None, "fp16") or cur == precision or cur == "int4":
+        return payload
+    if cur == "fp16":
+        return kv_quantize_payload(payload, precision)
+    return kv_quantize_payload(kv_dequantize_payload(payload), precision)

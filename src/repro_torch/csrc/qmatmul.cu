@@ -17,6 +17,12 @@
 // idx == nullptr means the identity (plain `qmatmul`). Quantized values are
 // dequantized in registers and all sums are fp32, as in _qmm_kernel.
 //
+// Rows: x is (R, M, K) and idx (R, n), one active set per row (the server
+// runs every request with its own predictor top-k), out (R, M, N). R = 1
+// is the batch-shared form. Each row's K split and summation order depend
+// only on the per-row shape (M, N, K), never on R, so a row gives the same
+// bits alone and in a group.
+//
 // What bounds it on an H100: at decode (M = batch = 4) the work is about
 // 2 FLOP per weight byte, so it is bound by device-memory bytes. The col
 // layout is the hard part: gathered columns of a row-major (K, f) bank sit
@@ -30,9 +36,11 @@
 // does the gather and the dequantization. BM = 16 for decode-sized M and 64
 // for prefill. Tier widths (38, 78, 1037, 2073, ...) are not tile multiples,
 // so every tail is masked. Because M is small at decode, the K axis is split
-// across gridDim.z so that enough blocks are in flight; each split writes its
-// own partial tile and a second pass sums the splits in a fixed order, so the
-// result is deterministic (no atomics). Simple and right first: no tensor
+// so that enough blocks are in flight; gridDim.z runs over (row, split), each
+// split writes its own partial tile and a second pass sums the splits in a
+// fixed order, so the result is deterministic (no atomics). Rows with
+// different active sets read the neurons they share once each: the bytes
+// grow with R up to R times the shared set's. Simple and right first: no tensor
 // cores, no TMA, no asynchronous copies yet.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +63,7 @@ template <int BM, int PREC, int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 qmm_kernel(const float* __restrict__ x, const void* __restrict__ w,
            const float* __restrict__ scale, const int* __restrict__ idx,
-           int M, int N, int K, long long ldw, int k_split,
+           int M, int N, int K, long long ldw, int k_split, int splits,
            float* __restrict__ out) {
   constexpr int TM = BM / 16;
   constexpr int TN = kBN / 16;
@@ -69,8 +77,11 @@ qmm_kernel(const float* __restrict__ x, const void* __restrict__ w,
   const int tx = tid & 15, ty = tid >> 4;
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_split;
+  const int row = blockIdx.z / splits;
+  const int kbeg = (blockIdx.z % splits) * k_split;
   const int kend = min(K, kbeg + k_split);
+  x += (long long)row * M * K;
+  if (idx) idx += (long long)row * (LAYOUT == kCol ? N : K);
 
   if (LAYOUT == kCol && tid < kBN) {
     const int n = n0 + tid;
@@ -164,14 +175,17 @@ qmm_kernel(const float* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-// out[i] = (accumulate ? out[i] : 0) + sum over splits, in split order
+// out[r, j] = (accumulate ? out[r, j] : 0) + sum over splits, in split
+// order; parts is (R, splits, count), out (R, count)
 __global__ void sum_splits(const float* __restrict__ parts, int splits,
-                           long long count, int accumulate,
+                           long long count, long long total, int accumulate,
                            float* __restrict__ out) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x) {
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / count, j = i % count;
+    const float* p = parts + r * splits * count + j;
     float s = accumulate ? out[i] : 0.f;
-    for (int z = 0; z < splits; ++z) s += parts[(long long)z * count + i];
+    for (int z = 0; z < splits; ++z) s += p[(long long)z * count];
     out[i] = s;
   }
 }
@@ -179,19 +193,20 @@ __global__ void sum_splits(const float* __restrict__ parts, int splits,
 template <int BM, int PREC, int LAYOUT>
 void launch(dim3 grid, cudaStream_t st, const float* x, const void* w,
             const float* scale, const int* idx, int M, int N, int K,
-            long long ldw, int k_split, float* dst) {
+            long long ldw, int k_split, int splits, float* dst) {
   qmm_kernel<BM, PREC, LAYOUT><<<grid, kThreads, 0, st>>>(
-      x, w, scale, idx, M, N, K, ldw, k_split, dst);
+      x, w, scale, idx, M, N, K, ldw, k_split, splits, dst);
 }
 
 template <int BM>
 int dispatch(int precision, int layout, dim3 grid, cudaStream_t st,
              const float* x, const void* w, const float* scale,
              const int* idx, int M, int N, int K, long long ldw, int k_split,
-             float* dst) {
+             int splits, float* dst) {
 #define QMM_CASE(P, L)                                                     \
   if (precision == P && layout == L) {                                     \
-    launch<BM, P, L>(grid, st, x, w, scale, idx, M, N, K, ldw, k_split, dst); \
+    launch<BM, P, L>(grid, st, x, w, scale, idx, M, N, K, ldw, k_split,    \
+                     splits, dst);                                         \
     return 0;                                                              \
   }
   QMM_CASE(kFp, kCol) QMM_CASE(kInt8, kCol) QMM_CASE(kInt4, kCol)
@@ -202,10 +217,11 @@ int dispatch(int precision, int layout, dim3 grid, cudaStream_t st,
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). `parts` holds splits*M*N floats and
-// may be null only when splits == 1 and accumulate == 0.
+// Returns a cudaError_t (0 on success). x is (R, M, K), idx (R, n) or null,
+// out (R, M, N). `parts` holds R*splits*M*N floats and may be null only when
+// splits == 1 and accumulate == 0.
 extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
-                            const int* idx, int M, int N, int K,
+                            const int* idx, int R, int M, int N, int K,
                             long long ldw, int precision, int layout,
                             int accumulate, int splits, int k_split,
                             int small_m, float* out, float* parts,
@@ -214,20 +230,22 @@ extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
   const bool direct = splits == 1 && !accumulate;
   float* dst = direct ? out : parts;
   const int bm = small_m ? 16 : 64;
-  dim3 grid((N + kBN - 1) / kBN, (M + bm - 1) / bm, splits);
+  if ((long long)R * splits > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kBN - 1) / kBN, (M + bm - 1) / bm, R * splits);
   int err = small_m
       ? dispatch<16>(precision, layout, grid, st, x, w, scale, idx, M, N, K,
-                     ldw, k_split, dst)
+                     ldw, k_split, splits, dst)
       : dispatch<64>(precision, layout, grid, st, x, w, scale, idx, M, N, K,
-                     ldw, k_split, dst);
+                     ldw, k_split, splits, dst);
   if (err) return err;
   err = (int)cudaGetLastError();
   if (err || direct) return err;
   const long long count = (long long)M * N;
+  const long long total = count * R;
   const int threads = 256;
-  long long blocks = (count + threads - 1) / threads;
+  long long blocks = (total + threads - 1) / threads;
   if (blocks > 4096) blocks = 4096;
-  sum_splits<<<(unsigned)blocks, threads, 0, st>>>(parts, splits, count,
+  sum_splits<<<(unsigned)blocks, threads, 0, st>>>(parts, splits, count, total,
                                                    accumulate, out);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-SOURCES = ("qmatmul", "flash_decode", "flash_attention")
+SOURCES = ("qmatmul", "flash_decode", "flash_attention", "atu_update")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

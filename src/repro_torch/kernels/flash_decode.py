@@ -69,8 +69,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Hkv, G, D), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out.zero_()
+    # the split of the S axis depends on one row's shape only, never on B,
+    # so that a row sums in the same order alone and beside other rows
     sms = build.sm_count(q.device)
-    nsplit = max(1, min(math.ceil(S / 16), math.ceil(2 * sms / (B * Hkv))))
+    nsplit = max(1, min(math.ceil(S / 16), math.ceil(2 * sms / Hkv)))
     chunk = math.ceil(S / nsplit)
     nsplit = math.ceil(S / chunk)
     part_m = torch.empty((B, Hkv, nsplit, G), dtype=torch.float32,

@@ -12,7 +12,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.quantize import unpack_int4
-from repro_torch.models.common import activation
+from repro_torch.models.common import activation, chunked_attention
 
 
 def _unpack_rows(w):
@@ -34,7 +34,14 @@ def qmatmul_ref(x, w, scale=None, *, precision: str = "fp"):
 def qmm_gathered_ref(x, w, scale=None, idx=None, *, precision: str = "fp",
                      layout: str = "col", out: Optional[torch.Tensor] = None):
     """Plain version of ``kernels/qmatmul.qmatmul_gathered``: gathers the
-    selected neurons, dequantizes them and multiplies (same arguments)."""
+    selected neurons, dequantizes them and multiplies (same arguments; x
+    (R, M, K) with idx (R, n) runs each row with its own set)."""
+    if x.dim() == 3:
+        ys = [qmm_gathered_ref(x[r], w, scale, None if idx is None else idx[r],
+                               precision=precision, layout=layout,
+                               out=None if out is None else out[r])
+              for r in range(x.shape[0])]
+        return out if out is not None else torch.stack(ys)
     x = x.float()
     quant = precision in ("int8", "int4") and scale is not None
     if layout == "col":
@@ -62,7 +69,12 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
                         sizes: Dict[str, int], act_name: str):
     """The sparse mixed-precision GLU FFN as ``repro/core/mp_ffn.py`` computes
     it: gather each tier's neurons, dequantize, concatenate, then einsum.
-    x: (B, S, d); idx: (k,) rank-sorted active neurons."""
+    x: (B, S, d); idx: (k,) rank-sorted active neurons shared by the batch,
+    or (B, k), one set per row, each row computed as a batch of one."""
+    if idx.dim() == 2:
+        return torch.cat([mp_ffn_gathered_ref(x[r:r + 1], banks, idx[r], sizes,
+                                              act_name)
+                          for r in range(x.shape[0])])
     k16, k8 = sizes["fp16"], sizes["int8"]
     idx = idx.long()
     i16, i8, i4 = idx[:k16], idx[k16:k16 + k8], idx[k16 + k8:]
@@ -94,6 +106,47 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
     h = act(torch.einsum("bsd,dk->bsk", x, wg))
     h = h * torch.einsum("bsd,dk->bsk", x, wu)
     return torch.einsum("bsk,kd->bsd", h, wd)
+
+
+def mp_glu_ffn_ref(x, banks_compact, act_name: str = "silu"):
+    """The composed mixed-precision GLU FFN over compact per-tier banks
+    (``ops.make_compact_banks``' layout; ``repro/kernels/ref.py``'s
+    ``mp_glu_ffn_ref``). x: (B, d) -> (B, d) float32."""
+    act = activation(act_name)
+    y = 0.0
+    for tier, t in banks_compact.items():
+        hg = qmatmul_ref(x, t["wg"], t.get("sg"), precision=tier)
+        hu = qmatmul_ref(x, t["wu"], t.get("su"), precision=tier)
+        y = y + qmatmul_ref(act(hg) * hu, t["wd"], t.get("sd"), precision=tier)
+    return y
+
+
+def atu_update_ref(bank, unit, src_idx, dst_idx, *, bg: int = 8):
+    """Block-group column copies, in group order (a later group naming the
+    same destination wins), into ``unit`` in place; returns ``unit``."""
+    m = src_idx.shape[0]
+    if m % bg or m > unit.shape[1]:
+        raise ValueError(f"atu_update: m={m} bg={bg} k={unit.shape[1]}")
+    src, dst = src_idx.tolist(), dst_idx.tolist()
+    for g in range(m // bg):
+        sbase = src[g * bg] // bg * bg
+        dbase = dst[g * bg] // bg * bg
+        if not (0 <= sbase <= bank.shape[1] - bg
+                and 0 <= dbase <= unit.shape[1] - bg):
+            raise ValueError(f"atu_update: group {g} ({sbase} -> {dbase}) "
+                             "lies outside bank or unit")
+        unit[:, dbase:dbase + bg] = bank[:, sbase:sbase + bg].to(unit.dtype)
+    return unit
+
+
+def chunk_attention_ref(q, k, v, pos0):
+    """Causal attention of a chunk at positions ``pos0[b] + i`` over each
+    row's whole buffer. q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D); pos0: (B,)."""
+    B, S = q.shape[:2]
+    Skv = k.shape[1]
+    q_pos = pos0.long()[:, None] + torch.arange(S, device=q.device)[None]
+    kv_pos = torch.arange(Skv, device=q.device)[None].expand(B, Skv)
+    return chunked_attention(q, k, v, q_pos, kv_pos)
 
 
 def flash_decode_ref(q, k, v, slot_positions, lengths):

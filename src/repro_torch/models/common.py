@@ -39,6 +39,23 @@ def apply_norm(cfg, x, weight):
 # RoPE
 
 
+def each_row(fn, x):
+    """``fn`` over each batch row of ``x`` alone, results concatenated on
+    the batch axis (``fn`` may return a tensor or a tuple of tensors).
+
+    The server's stacked rows are separate requests, and a request's bits
+    must not depend on the rows beside it. On the card, cuBLAS products and
+    PyTorch's reductions choose their kernels, and so their summation
+    order, from the whole tensor's shape; run on one row at a time they see
+    the shape that row has alone."""
+    if x.shape[0] == 1:
+        return fn(x)
+    outs = [fn(x[r:r + 1]) for r in range(x.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
 def rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: (..., S) absolute positions. Split-half
     layout with float32 angles."""

@@ -6,11 +6,15 @@ names; where the reference stacks the layers of one pattern position on a
 leading axis for ``lax.scan``, the port keeps one dictionary per layer in
 ``params["layers"]`` and runs them in a Python loop. The KV cache keeps the
 reference's layout, ``{"pattern": [{"k", "v": (F, B, S, kvH, Dh)}],
-"remainder": [], "pos": int}``, and is updated in place.
+"remainder": [], "pos"}``, and is updated in place. ``pos`` is an int when
+every row stands at one position (a fresh cache, launch/serve's batch) and
+a CPU int64 tensor (B,) when the rows are separate requests at their own
+positions (the server's stacked rows, where the reference vmaps a one-row
+graph over a per-row ``pos``).
 
-Ported so far: dense attention layers, ``mode`` "prefill" and "decode",
-``m2=True``. Other families, windows, logit
-softcaps, parallel blocks and the int8 KV cache raise NotImplementedError.
+Ported so far: dense attention layers, ``mode`` "prefill", "prefill_resume"
+and "decode", ``m2=True``. Other families, windows, logit softcaps,
+parallel blocks and the int8 KV cache raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_norm, rope
+from repro_torch.models.common import apply_norm, each_row, rope
 
 # ---------------------------------------------------------------------------
 # Parameter specification
@@ -167,13 +171,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
 # Caches
 
 
-def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.float32,
-               device=None):
-    """Zero decode cache in the reference's layout (transformer.py:330-380):
-    K and V of all layers of the one pattern position stacked as
-    (F, B, S, kvH, Dh)."""
+def _cache(cfg, batch: int, max_seq: int, dtype, device):
     check_supported(cfg)
-    device = resolve_device(device)
     pat, F, rem = pattern_split(cfg)
     shape = (F, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {
@@ -184,56 +183,88 @@ def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.float32,
     }
 
 
+def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.float32,
+               device=None):
+    """Zero decode cache in the reference's layout (transformer.py:330-380):
+    K and V of all layers of the one pattern position stacked as
+    (F, B, S, kvH, Dh)."""
+    return _cache(cfg, batch, max_seq, dtype, resolve_device(device))
+
+
+def cache_specs(cfg, batch: int, max_seq: int, *, dtype=torch.float32):
+    """The cache's leaves as shape-and-dtype tensors on the ``meta`` device
+    (``T.cache_specs``' counterpart: nothing is allocated)."""
+    return _cache(cfg, batch, max_seq, dtype, torch.device("meta"))
+
+
+def row_positions(cache, batch: int) -> torch.Tensor:
+    """The cache's ``pos`` as a CPU int64 tensor (B,), one entry per row."""
+    pos = cache["pos"]
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.int64)
+    return torch.full((batch,), int(pos), dtype=torch.int64)
+
+
 # ---------------------------------------------------------------------------
 # Layer forward
 
 
-def attn_layer(cfg, p, x, kv, pos0: int, *, mode: str):
-    """x: (B, S, d). kv: this layer's {'k', 'v'} cache views. mode:
-    "decode" (one token at ``pos0``) or "prefill" (``pos0`` = 0).
-    Returns (y, rank-sorted active neuron ids) and updates ``kv`` in place."""
+def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False):
+    """x: (B, S, d). kv: this layer's {'k', 'v'} cache views, updated in
+    place. pos0: (B,) int64 start positions on x's device (all 0 for
+    "prefill"). mode: "decode" (one token at pos0), "prefill" (from 0) or
+    "prefill_resume" (an S-token chunk at pos0, attending over the whole
+    buffer). ``rows``: the batch rows are separate requests: per-row FFN
+    active sets, and the products and norms run one row at a time. Returns
+    (y, active ids: (k,) or (B, k) with ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    h = apply_norm(cfg, x, p["norm1"])
-    qkv = h @ p["wqkv"]
-    if cfg.qkv_bias:
-        qkv = qkv + p["bqkv"].to(qkv.dtype)
+    def dense(fn, t):
+        """The products and norms of separate requests: one row at a time."""
+        return each_row(fn, t) if rows else fn(t)
+
+    def qkv_proj(t):
+        qkv = apply_norm(cfg, t, p["norm1"]) @ p["wqkv"]
+        if cfg.qkv_bias:
+            qkv = qkv + p["bqkv"].to(qkv.dtype)
+        return qkv
+    qkv = dense(qkv_proj, x)
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
     v = v.reshape(B, S, hkv, hd)
 
-    positions = (pos0 + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "decode":
-        ck, cv = kv["k"], kv["v"]
-        sbuf = ck.shape[1]
-        if not 0 <= pos0 < sbuf:
-            raise ValueError(f"decode position {pos0} outside the cache "
-                             f"buffer of {sbuf} slots")
-        # The reference writes the slot by a one-hot select into a new
-        # buffer; the port overwrites the slot of the cache in place.
-        slot = torch.tensor([pos0], device=x.device)
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
-        kv_pos = torch.arange(sbuf, device=x.device)
-        kv_pos_b = kv_pos[None].expand(B, sbuf)
-        valid_b = (kv_pos <= pos0)[None].expand(B, sbuf)
-        attn_out = ops.decode_attention(q, ck, cv, positions, kv_pos_b,
-                                        valid_b)
-    else:                                   # prefill, from position 0
+    if mode == "prefill":                   # from position 0
         attn_out = ops.prefill_attention(q, k, v, positions)
         kv["k"][:, :S] = k.to(kv["k"].dtype)
         kv["v"][:, :S] = v.to(kv["v"].dtype)
+    else:
+        # decode or prefill_resume: the reference writes by a one-hot select
+        # or a dynamic_update_slice into a new buffer; the port overwrites
+        # the rows' slots of the cache in place
+        ck, cv = kv["k"], kv["v"]
+        sbuf = ck.shape[1]
+        b_idx = torch.arange(B, device=x.device)[:, None]
+        ck[b_idx, positions] = k.to(ck.dtype)
+        cv[b_idx, positions] = v.to(cv.dtype)
+        kv_pos_b = torch.arange(sbuf, device=x.device)[None].expand(B, sbuf)
+        if mode == "decode":
+            attn_out = ops.decode_attention(q, ck, cv, positions, kv_pos_b,
+                                            kv_pos_b <= pos0[:, None])
+        else:
+            # causal mask kv_pos <= q_pos hides the chunk's future tokens
+            # and whatever sits above the prefill front
+            attn_out = ops.chunk_attention(q, ck, cv, positions)
 
-    attn_out = attn_out.reshape(B, S, hq * hd) @ p["wo"]
-    x = x + attn_out
-    h2 = apply_norm(cfg, x, p["norm2"])
+    x = x + dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
+    h2 = dense(lambda t: apply_norm(cfg, t, p["norm2"]), x)
     ffn_out, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"],
-                                    h2)
+                                    h2, rows=rows)
     return x + ffn_out, info["active_idx"]
 
 
@@ -255,26 +286,44 @@ def unembed(cfg, params, x):
 
 
 @torch.no_grad()
-def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True):
+def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True,
+            rows: bool = False):
     """Returns (logits, cache, aux); ``cache`` is updated in place.
 
-    tokens: (B, S) integer ids. mode: prefill | decode.
+    tokens: (B, S) integer ids. mode: prefill | prefill_resume | decode;
+    decode and prefill_resume start each row at its ``cache["pos"]``.
+    ``rows``: every batch row is its own request, with its own FFN active
+    sets, and gives the bits it gives alone — what the reference computes
+    by vmapping a one-row forward.
     aux["active_idx"] is ``{"pattern": [(F, k) tensor], "remainder": []}``,
-    the reference's structure."""
+    the reference's structure; with ``rows`` the entry is (B, F, k), the
+    reference's vmapped layout."""
     check_supported(cfg, m2=m2)
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "prefill_resume", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    pos0 = cache["pos"] if mode == "decode" else 0
+    sbuf = cache["pattern"][0]["k"].shape[2]
+    pos = row_positions(cache, B)
+    if mode == "prefill":
+        pos = torch.zeros_like(pos)
+    if int(pos.min()) < 0 or int(pos.max()) + S > sbuf:
+        raise ValueError(f"{mode} of {S} token(s) at positions "
+                         f"{pos.tolist()} outside the cache buffer of "
+                         f"{sbuf} slots")
+    pos0 = pos.to(x.device)
 
     idxs = []
     for l, p in enumerate(params["layers"]):
         kv = {n: cache["pattern"][0][n][l] for n in ("k", "v")}
-        x, idx = attn_layer(cfg, p, x, kv, pos0, mode=mode)
+        x, idx = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows)
         idxs.append(idx)
 
-    x = apply_norm(cfg, x, params["final_norm"])
-    logits = unembed(cfg, params, x)
-    cache["pos"] = cache["pos"] + (1 if mode == "decode" else tokens.shape[-1])
-    aux = {"active_idx": {"pattern": [torch.stack(idxs)], "remainder": []}}
+    def head(t):
+        return unembed(cfg, params, apply_norm(cfg, t, params["final_norm"]))
+    logits = each_row(head, x) if rows else head(x)
+    advance = 1 if mode == "decode" else S
+    cache["pos"] = cache["pos"] + advance
+    aux = {"active_idx": {"pattern": [torch.stack(idxs, dim=1 if rows else 0)],
+                          "remainder": []}}
     return logits, cache, aux
