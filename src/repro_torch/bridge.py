@@ -12,6 +12,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import to_neuron_major
 from repro_torch.models import transformer as T
 
 
@@ -37,7 +38,9 @@ def params_from_jax(np_tree, cfg, device) -> dict:
     """The reference's param pytree (numpy leaves) -> the port's params.
 
     ``layers.pattern[i]``'s leading F axis is unstacked into one dictionary
-    per layer, in layer order; every leaf keeps its name."""
+    per layer, in layer order; every leaf keeps its name and its bytes, and
+    each layer's FFN banks are stored neuron-major
+    (``core.quantize.to_neuron_major``)."""
     dev = torch.device(device)
     pat, F, rem = T.pattern_split(cfg)
     layers = []
@@ -48,6 +51,8 @@ def params_from_jax(np_tree, cfg, device) -> dict:
     for i in range(rem):
         layers.append(_map(np_tree["layers"]["remainder"][i],
                            lambda a: to_tensor(a, dev)))
+    for layer in layers:
+        layer["ffn"]["banks"] = to_neuron_major(layer["ffn"]["banks"])
     out = {"layers": layers}
     for name in ("final_norm", "embed", "unembed"):
         if name in np_tree:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.quantize import to_reference_layout
 from repro_torch.models import transformer as T
 
 
@@ -350,6 +351,8 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def extract_layer_banks(cfg, params) -> List[dict]:
     """Per-layer quantized neuron banks (numpy) for the SSD tier, in layer
-    order."""
-    return [{k: _to_numpy(v) for k, v in layer["ffn"]["banks"].items()}
+    order and in the reference's layout (the files equal the reference's
+    byte for byte); transposed on the params' device before the host copy."""
+    return [{k: _to_numpy(v)
+             for k, v in to_reference_layout(layer["ffn"]["banks"]).items()}
             for layer in params["layers"]]

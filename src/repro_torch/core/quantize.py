@@ -6,6 +6,9 @@ A *neuron* is a column of the FFN up/gate projections and the matching row
 of the down projection; scales are therefore per-neuron:
   W_gate/W_up: (d, f), scale over axis 0 -> (f,)
   W_down:      (f, d), scale over axis 1 -> (f,)
+``build_neuron_banks`` keeps that (the reference's) layout; the model's
+params hold gate and up neuron-major (:func:`to_neuron_major`), and the SSD
+tier persists the reference's layout (:func:`to_reference_layout`).
 
 INT4 values are packed two per int8 along the *non-neuron* axis (low nibble
 = even index) so that gathering neurons never splits a byte. Rounding is
@@ -100,6 +103,31 @@ def build_neuron_banks(wg, wu, wd):
         "wg_i4": g4, "wg_i4_s": g4s, "wu_i4": u4, "wu_i4_s": u4s,
         "wd_i4": d4, "wd_i4_s": d4s,
     }
+
+
+#: the banks that hold a neuron as a column in the reference's layout
+NEURON_COLUMN_BANKS = ("wg_fp", "wu_fp", "wg_i8", "wu_i8", "wg_i4", "wu_i4")
+
+
+def _transpose_neuron_columns(banks):
+    return {k: v.t().contiguous() if k in NEURON_COLUMN_BANKS else v
+            for k, v in banks.items()}
+
+
+def to_neuron_major(banks):
+    """The reference's banks -> the port's layout: gate and up become
+    neuron-major like the down bank already is (``wg_fp`` (d, f) -> (f, d),
+    ``wg_i8`` likewise, ``wg_i4`` (d/2, f) -> (f, d/2); each int4 byte keeps
+    its nibble pair, low nibble = even k), so every gathered neuron is one
+    contiguous row in all three products. Scales and ``wd_*`` are
+    unchanged; the same bytes, transposed."""
+    return _transpose_neuron_columns(banks)
+
+
+def to_reference_layout(banks):
+    """Inverse of :func:`to_neuron_major` (the transposition is its own
+    inverse): the layout the reference builds and the SSD tier persists."""
+    return _transpose_neuron_columns(banks)
 
 
 def bytes_per_neuron(d_model: int, precision: str) -> int:

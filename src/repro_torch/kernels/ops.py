@@ -71,8 +71,10 @@ def make_compact_banks(wg, wu, wd, sizes: Dict[str, int], idx) -> Dict:
     """Compact per-tier banks from dense fp weights and a rank-sorted active
     set (``repro/kernels/ops.py``'s ``make_compact_banks``): neurons
     contiguous per tier; int8/int4 quantized along the contraction axis of
-    each product with a per-output scale, int4 packed along the contraction
-    (``wd``: (k4/2, d) with a (d,) scale) — the col layout throughout."""
+    each product with a per-output scale, int4 packed along the contraction.
+    Each matrix is the reference's, transposed to be output-major (``wg``,
+    ``wu``: (k, d) [int4 (k, d/2)]; ``wd``: (d, k) [int4 (d, k/2)] with a
+    (d,) scale), so every compact product is the col form."""
     k16, k8, k4 = sizes["fp16"], sizes["int8"], sizes["int4"]
     idx = idx.long()
     i16, i8, i4 = idx[:k16], idx[k16:k16 + k8], idx[k16 + k8:k16 + k8 + k4]
@@ -87,13 +89,14 @@ def make_compact_banks(wg, wu, wd, sizes: Dict[str, int], idx) -> Dict:
         u, su = quant(wu[:, sel], 0)
         dq, sd = quant(wd[sel, :], 0)
         out[tier] = {"wg": g, "wu": u, "wd": dq, "sg": sg, "su": su, "sd": sd}
-    return out
+    return {tier: {k: v.t().contiguous() if k in ("wg", "wu", "wd") else v
+                   for k, v in t.items()} for tier, t in out.items()}
 
 
 def mp_glu_ffn(x, banks: Dict, *, act_name: str = "silu"):
     """x: (B, d); banks: :func:`make_compact_banks`' output. Returns (B, d)
     float32. On the card: per tier, gate, up and down through the col
-    kernel with ``idx=None``, 9 launches in all."""
+    form with ``idx=None``, 9 launches in all."""
     if _on_cpu(x):
         return ref.mp_glu_ffn_ref(x, banks, act_name)
     x = x.contiguous()

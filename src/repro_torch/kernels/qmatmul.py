@@ -1,8 +1,9 @@
-"""Gathered quantized matmul — the CUDA kernel of the sparse mixed-precision
-FFN (``csrc/qmatmul.cu``; it replaces ``repro/kernels/qmatmul.py``'s
-``_qmm_kernel``).
+"""Gathered quantized matmul — the CUDA kernels of the sparse mixed-precision
+FFN (``csrc/qmatmul.cu``; they replace ``repro/kernels/qmatmul.py``'s
+``_qmm_kernel``): kernel A for small M (bound by the weight bytes), kernel B
+on the tensor cores for larger M.
 
-``qmatmul_gathered`` launches it on CUDA tensors only; the plain version is
+``qmatmul_gathered`` launches them on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``qmm_gathered_ref`` and the device dispatch lives in
 ``kernels/ops.py``.
 """
@@ -16,11 +17,26 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the kernel since the count was last set to 0
+#: launches of either kernel since the count was last set to 0
 launches = 0
+#: launches of kernel A (small M, ``qmm_gemv_col`` / ``qmm_gemv_row``)
+launches_gemv = 0
+#: launches of kernel B (tensor cores, ``qmm_mma_kernel``)
+launches_mma = 0
 
 PRECISIONS = {"fp": 0, "int8": 1, "int4": 2}
 LAYOUTS = {"col": 0, "row": 1}
+KERNELS = {"gemv": 0, "mma": 1}
+#: kernel A takes one row's M up to this (at most 16, its largest tile),
+#: kernel B larger M: one layer's
+#: FFN at full width took less device time through kernel A at M = 1 and 4
+#: and through kernel B at M = 8 and 16 (chip_smoke.py, kernels phase)
+GEMV_MAX_M = 4
+_GEMV_TILES = (1, 4, 8, 16)       # kernel A's compiled M bounds
+_XS_FLOATS = 12288                # kernel A col: x floats staged per K chunk
+_ROW_BLOCK_COLS = 256             # kernel A row: output columns per block
+_ROW_IDS, _ROW_HS = 1024, 4096    # kernel A row: a split's staged ids, h
+_MMA_ROW_SPAN = 2560              # kernel B row: a split's staged ids
 _BK = 32
 _BN = 64
 
@@ -32,7 +48,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("qmatmul").qmm_gathered
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, I, I, I, I, L, I, I, I, I, I, I, P, P, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, L, I, I, I, I, I, I, I, I, I,
+                       P, P, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -43,16 +60,33 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"qmatmul_gathered: {msg}")
 
 
-def _plan(M: int, N: int, K: int, device) -> tuple:
-    """(splits, k_split, small_m): split K until about two blocks per SM.
-    Depends on one row's shape only, never on the row count, so that a row
-    sums in the same order alone and in a group."""
-    small = M <= 16
-    tiles = math.ceil(N / _BN) * math.ceil(M / (16 if small else 64))
+def _plan(M: int, N: int, K: int, layout: str, device) -> tuple:
+    """(kernel, tile, splits, k_split) from one row's shape only, never
+    from the row count, so that a row sums in the same order alone and in
+    a group. Kernel A (``gemv``) for M <= GEMV_MAX_M, kernel B (``mma``)
+    above. Kernel A col: tile = its M bound,
+    k_split = the K chunk of x it stages, no split. Otherwise K (the
+    contraction) is split until the row has about two blocks per SM
+    (kernel A row, whose split also fits its staged ids and h) or four
+    (kernel B, whose blocks are four warps)."""
+    kernel = "gemv" if M <= GEMV_MAX_M else "mma"
     sms = build.sm_count(device)
-    splits = max(1, min(math.ceil(2 * sms / tiles), math.ceil(K / _BK)))
-    k_split = math.ceil(math.ceil(K / splits) / _BK) * _BK
-    return math.ceil(K / k_split), k_split, small
+    if kernel == "gemv":
+        tile = next(t for t in _GEMV_TILES if t >= M)
+        if layout == "col":
+            kc = min(math.ceil(K / _BK) * _BK, _XS_FLOATS // tile // _BK * _BK)
+            return kernel, tile, 1, kc
+        blocks = math.ceil(N / _ROW_BLOCK_COLS)
+        want = math.ceil(2 * sms / blocks)
+        cap = min(_ROW_IDS, _ROW_HS // tile) // _BK * _BK
+    else:
+        tile = 16 if M <= 16 else 64
+        blocks = math.ceil(N / _BN) * math.ceil(M / tile)
+        want = math.ceil(4 * sms / blocks)
+        cap = K if layout == "col" else _MMA_ROW_SPAN
+    splits = max(1, min(want, math.ceil(K / _BK)), math.ceil(K / cap))
+    k_split = min(math.ceil(math.ceil(K / splits) / _BK) * _BK, cap)
+    return kernel, tile, math.ceil(K / k_split), k_split
 
 
 def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
@@ -60,16 +94,17 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
                      idx: Optional[torch.Tensor] = None, *,
                      precision: str = "fp", layout: str = "col",
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """col: ``x (M, K) @ dequant(w[:, idx])`` -> (M, len(idx)) with w (K, f)
-    [int4: (K/2, f)] and a per-column scale (f,).
+    """Both layouts read neuron-major banks (``core.quantize.
+    to_neuron_major``).
+    col: ``x (M, K) @ dequant(w[idx, :]).T`` -> (M, len(idx)) with w (f, K)
+    [int4: (f, K/2)] and a per-neuron (output) scale (f,).
     row: ``x (M, len(idx)) @ dequant(w[idx, :])`` -> (M, N) with w (f, N)
-    [int4: (f, N/2)] and a per-row scale (f,); with ``out`` given the
-    product is added into it in place and ``out`` is returned.
-    Rows: x (R, M, K) with idx (R, n) gives (R, M, N), each row with its
-    own active set. ``idx=None`` takes every column (col) or row (row) in
-    order. ``idx`` values must lie in [0, f): the kernel reads them
-    unchecked."""
-    global launches
+    [int4: (f, N/2)] and a per-neuron (contraction) scale (f,).
+    With ``out`` given the product is added into it in place and ``out``
+    is returned. Rows: x (R, M, K) with idx (R, n) gives (R, M, N), each
+    row with its own active set. ``idx=None`` takes every neuron in order.
+    ``idx`` values must lie in [0, f): the kernels read them unchecked."""
+    global launches, launches_gemv, launches_mma
     _require(precision in PRECISIONS, f"precision {precision!r}")
     _require(layout in LAYOUTS, f"layout {layout!r}")
     _require(x.is_cuda, "x must be a CUDA tensor")
@@ -90,17 +125,16 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
                  "idx must be a contiguous int32 (n,) vector, or (R, n) for "
                  "x (R, M, K), on the same device")
         n_idx = idx.shape[-1]
+    bank = w.shape[0]
+    width = w.shape[1] * (2 if precision == "int4" else 1)
     if layout == "col":
-        bank_rows = w.shape[0] * (2 if precision == "int4" else 1)
-        _require(bank_rows == K, f"w {tuple(w.shape)} does not match K={K}")
-        bank = w.shape[1]
+        _require(width == K, f"w {tuple(w.shape)} does not match K={K}")
         N = bank if idx is None else n_idx
     else:
-        bank = w.shape[0]
         _require((bank if idx is None else n_idx) == K,
                  f"x has K={K} but the gather selects "
                  f"{bank if idx is None else n_idx} rows")
-        N = w.shape[1] * (2 if precision == "int4" else 1)
+        N = width
     if scale is not None:
         _require(scale.device == x.device and scale.dtype == torch.float32
                  and scale.dim() == 1 and scale.is_contiguous()
@@ -118,19 +152,26 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
         return out
     if K == 0:
         return out if accumulate else out.zero_()
-    splits, k_split, small = _plan(M, N, K, x.device)
+    kern, tile, splits, k_split = _plan(M, N, K, layout, x.device)
     parts = None
-    if splits > 1 or accumulate:
+    if splits > 1:
         parts = torch.empty((R, splits, M, N), dtype=torch.float32,
                             device=x.device)
+    ldw = w.shape[1] * w.element_size()
+    vec_w = w.data_ptr() % 16 == 0 and ldw % 16 == 0
+    vec_x = x.data_ptr() % 16 == 0 and K % 4 == 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel()(x.data_ptr(), w.data_ptr(),
                     None if scale is None else scale.data_ptr(),
                     None if idx is None else idx.data_ptr(),
-                    R, M, N, K, w.shape[1], PRECISIONS[precision],
-                    LAYOUTS[layout], int(accumulate), splits, k_split,
-                    int(small), out.data_ptr(),
+                    R, M, N, K, ldw, PRECISIONS[precision], LAYOUTS[layout],
+                    KERNELS[kern], tile, splits, k_split, int(vec_x),
+                    int(vec_w), int(accumulate), out.data_ptr(),
                     None if parts is None else parts.data_ptr(), stream)
-    build.check(err, f"qmm_gathered({precision}, {layout})")
+    build.check(err, f"qmm_gathered({precision}, {layout}, {kern})")
     launches += 1
+    if kern == "gemv":
+        launches_gemv += 1
+    else:
+        launches_mma += 1
     return out

@@ -34,35 +34,32 @@ def qmatmul_ref(x, w, scale=None, *, precision: str = "fp"):
 def qmm_gathered_ref(x, w, scale=None, idx=None, *, precision: str = "fp",
                      layout: str = "col", out: Optional[torch.Tensor] = None):
     """Plain version of ``kernels/qmatmul.qmatmul_gathered``: gathers the
-    selected neurons, dequantizes them and multiplies (same arguments; x
-    (R, M, K) with idx (R, n) runs each row with its own set)."""
+    selected neuron rows, dequantizes them and multiplies (same arguments;
+    x (R, M, K) with idx (R, n) runs each row with its own set). Both
+    layouts read neuron-major banks: col ``w`` (f, K) [int4 (f, K/2)] with
+    a per-neuron (output) scale, row ``w`` (f, N) [int4 (f, N/2)] with a
+    per-neuron (contraction) scale."""
     if x.dim() == 3:
         ys = [qmm_gathered_ref(x[r], w, scale, None if idx is None else idx[r],
                                precision=precision, layout=layout,
                                out=None if out is None else out[r])
               for r in range(x.shape[0])]
         return out if out is not None else torch.stack(ys)
+    if layout not in ("col", "row"):
+        raise ValueError(layout)
     x = x.float()
     quant = precision in ("int8", "int4") and scale is not None
+    rows = idx.long() if idx is not None else None
+    wq = w if rows is None else w.index_select(0, rows)
+    wf = (unpack_int4(wq, 1) if precision == "int4" else wq).float()
+    s = (scale if rows is None else scale[rows]).float() if quant else None
     if layout == "col":
-        cols = idx.long() if idx is not None else None
-        wq = w if cols is None else w.index_select(1, cols)
-        wf = (_unpack_rows(wq) if precision == "int4" else wq).float()
-        y = x @ wf
-        if quant:
-            y = y * (scale if cols is None else scale[cols]).float()[None, :]
-    elif layout == "row":
-        rows = idx.long() if idx is not None else None
-        wq = w if rows is None else w.index_select(0, rows)
-        wf = (unpack_int4(wq, 1) if precision == "int4" else wq).float()
-        if quant:
-            wf = wf * (scale if rows is None else scale[rows]).float()[:, None]
-        y = x @ wf
-        if out is not None:
-            return out.add_(y)
-    else:
-        raise ValueError(layout)
-    return y
+        y = x @ wf.t()
+        return y * s[None, :] if quant else y
+    if quant:
+        wf = wf * s[:, None]
+    y = x @ wf
+    return out.add_(y) if out is not None else y
 
 
 def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
@@ -70,7 +67,9 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
     """The sparse mixed-precision GLU FFN as ``repro/core/mp_ffn.py`` computes
     it: gather each tier's neurons, dequantize, concatenate, then einsum.
     x: (B, S, d); idx: (k,) rank-sorted active neurons shared by the batch,
-    or (B, k), one set per row, each row computed as a batch of one."""
+    or (B, k), one set per row, each row computed as a batch of one.
+    ``banks`` are neuron-major (``core.quantize.to_neuron_major``), so every
+    gather is a row gather."""
     if idx.dim() == 2:
         return torch.cat([mp_ffn_gathered_ref(x[r:r + 1], banks, idx[r], sizes,
                                               act_name)
@@ -80,28 +79,20 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
     i16, i8, i4 = idx[:k16], idx[k16:k16 + k8], idx[k16 + k8:]
     compute = x.dtype
 
-    def cols(w, c):
-        return w.index_select(1, c)
+    def rows(name, r):
+        return banks[name].index_select(0, r)
 
-    def rows(w, r):
-        return w.index_select(0, r)
-
-    wg16 = cols(banks["wg_fp"], i16).to(compute)
-    wu16 = cols(banks["wu_fp"], i16).to(compute)
-    wd16 = rows(banks["wd_fp"], i16).to(compute)
-    wg8 = cols(banks["wg_i8"], i8).to(compute) * banks["wg_i8_s"][i8].to(compute)
-    wu8 = cols(banks["wu_i8"], i8).to(compute) * banks["wu_i8_s"][i8].to(compute)
-    wd8 = (rows(banks["wd_i8"], i8).to(compute)
-           * banks["wd_i8_s"][i8].to(compute)[:, None])
-    wg4 = (unpack_int4(cols(banks["wg_i4"], i4), 0).to(compute)
-           * banks["wg_i4_s"][i4].to(compute))
-    wu4 = (unpack_int4(cols(banks["wu_i4"], i4), 0).to(compute)
-           * banks["wu_i4_s"][i4].to(compute))
-    wd4 = (unpack_int4(rows(banks["wd_i4"], i4), 1).to(compute)
-           * banks["wd_i4_s"][i4].to(compute)[:, None])
-    wg = torch.cat([wg16, wg8, wg4], dim=1)
-    wu = torch.cat([wu16, wu8, wu4], dim=1)
-    wd = torch.cat([wd16, wd8, wd4], dim=0)
+    def gathered(w):
+        """(k, width) dequantized rows of the three tiers of ``w``."""
+        fp = rows(f"{w}_fp", i16).to(compute)
+        i8w = (rows(f"{w}_i8", i8).to(compute)
+               * banks[f"{w}_i8_s"][i8].to(compute)[:, None])
+        i4w = (unpack_int4(rows(f"{w}_i4", i4), 1).to(compute)
+               * banks[f"{w}_i4_s"][i4].to(compute)[:, None])
+        return torch.cat([fp, i8w, i4w], dim=0)
+    wg = gathered("wg").t()                     # (d, k)
+    wu = gathered("wu").t()
+    wd = gathered("wd")                         # (k, d)
     act = activation(act_name)
     h = act(torch.einsum("bsd,dk->bsk", x, wg))
     h = h * torch.einsum("bsd,dk->bsk", x, wu)
@@ -110,14 +101,15 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
 
 def mp_glu_ffn_ref(x, banks_compact, act_name: str = "silu"):
     """The composed mixed-precision GLU FFN over compact per-tier banks
-    (``ops.make_compact_banks``' layout; ``repro/kernels/ref.py``'s
-    ``mp_glu_ffn_ref``). x: (B, d) -> (B, d) float32."""
+    (``ops.make_compact_banks``' neuron-major layout; ``repro/kernels/
+    ref.py``'s ``mp_glu_ffn_ref``). x: (B, d) -> (B, d) float32."""
     act = activation(act_name)
     y = 0.0
     for tier, t in banks_compact.items():
-        hg = qmatmul_ref(x, t["wg"], t.get("sg"), precision=tier)
-        hu = qmatmul_ref(x, t["wu"], t.get("su"), precision=tier)
-        y = y + qmatmul_ref(act(hg) * hu, t["wd"], t.get("sd"), precision=tier)
+        hg = qmm_gathered_ref(x, t["wg"], t.get("sg"), precision=tier)
+        hu = qmm_gathered_ref(x, t["wu"], t.get("su"), precision=tier)
+        y = y + qmm_gathered_ref(act(hg) * hu, t["wd"], t.get("sd"),
+                                 precision=tier)
     return y
 
 

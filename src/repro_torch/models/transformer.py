@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
-from repro_torch.core.quantize import build_neuron_banks
+from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_norm, each_row, rope
 
@@ -62,7 +62,9 @@ def check_supported(cfg, *, m2: bool = True):
 
 
 def _ffn_specs(cfg, dtype) -> Dict:
-    """(shape, dtype, kind) of one layer's M2Cache FFN (transformer.py:77-102)."""
+    """(shape, dtype, kind) of one layer's M2Cache FFN (transformer.py:77-102),
+    in the reference's layout: :func:`init_params` draws the fp weights in
+    it and then stores gate and up neuron-major."""
     d, f, r = cfg.d_model, cfg.d_ff, cfg.m2_predictor_rank
     assert d % 2 == 0 and f % 2 == 0
     i8, f32 = torch.int8, torch.float32
@@ -151,7 +153,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
                 generator: torch.Generator = None):
     """Materialise parameters from a ``torch.Generator`` (seeded with ``seed``
     on ``device`` unless one is given), then build every layer's quantized
-    banks from its fp weights (transformer.py:298-321). The numbers differ
+    banks from its fp weights (transformer.py:298-321), gate and up stored
+    neuron-major (``core.quantize.to_neuron_major``). The numbers differ
     from ``jax.random``'s; parity tests carry the reference's params over
     with ``repro_torch.bridge`` instead."""
     device = resolve_device(device)
@@ -162,8 +165,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
     params = _materialise(model_param_specs(cfg, dtype=dtype), gen, device)
     for layer in params["layers"]:
         b = layer["ffn"]["banks"]
-        layer["ffn"]["banks"] = build_neuron_banks(b["wg_fp"], b["wu_fp"],
-                                                   b["wd_fp"])
+        layer["ffn"]["banks"] = to_neuron_major(build_neuron_banks(
+            b["wg_fp"], b["wu_fp"], b["wd_fp"]))
     return params
 
 

@@ -21,11 +21,21 @@ def dev():
 
 
 def _banks(dev, d=256, f=300, seed=0):
-    from repro_torch.core.quantize import build_neuron_banks
+    """One layer's banks in the port's (neuron-major) layout."""
+    from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
     g = torch.Generator(device=dev).manual_seed(seed)
-    return build_neuron_banks(torch.randn(d, f, generator=g, device=dev) / 16,
-                              torch.randn(d, f, generator=g, device=dev) / 16,
-                              torch.randn(f, d, generator=g, device=dev) / 16)
+    return to_neuron_major(build_neuron_banks(
+        torch.randn(d, f, generator=g, device=dev) / 16,
+        torch.randn(d, f, generator=g, device=dev) / 16,
+        torch.randn(f, d, generator=g, device=dev) / 16))
+
+
+def _close(got, want, tol_rel=1e-5):
+    """max|got - want| <= tol_rel * max(1, max|want|) (fp32 sums in another
+    order), and every value finite."""
+    tol = tol_rel * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= tol, (err, tol)
 
 
 @pytest.mark.parametrize("prec,sfx", [("fp", "_fp"), ("int8", "_i8"),
@@ -54,17 +64,97 @@ def test_qmatmul_gathered_matches_plain(dev, prec, sfx, M, n):
 
 
 def test_qmatmul_identity_matches_qmatmul_ref(dev):
+    from repro_torch.core.quantize import to_reference_layout
     from repro_torch.kernels import ref
     from repro_torch.kernels.qmatmul import qmatmul_gathered
     banks = _banks(dev)
+    dense = to_reference_layout(banks)       # qmatmul_ref takes (K, N)
     x = torch.randn(3, 256, device=dev)
     for prec, w, s in (("fp", "wu_fp", None), ("int8", "wu_i8", "wu_i8_s"),
                        ("int4", "wu_i4", "wu_i4_s")):
         sc = None if s is None else banks[s]
         torch.testing.assert_close(
             qmatmul_gathered(x, banks[w], sc, precision=prec),
-            ref.qmatmul_ref(x, banks[w], sc, precision=prec),
+            ref.qmatmul_ref(x, dense[w], sc, precision=prec),
             rtol=1e-5, atol=1e-5)
+
+
+def _route(monkeypatch, kernel):
+    """Send every qmatmul call to kernel A ("gemv", M <= 16) or kernel B
+    ("mma") by moving the crossover; "auto" keeps it."""
+    from repro_torch.kernels import qmatmul
+    if kernel != "auto":
+        monkeypatch.setattr(qmatmul, "GEMV_MAX_M",
+                            16 if kernel == "gemv" else 0)
+
+
+#: M on both sides of the crossover; kernel A (gemv) takes M <= 16
+_MS = (1, 4, 8, 16, 17, 64, 130, 512)
+_KERNEL_CASES = [(k, M) for M in _MS
+                 for k in ("auto", "mma") + (("gemv",) if M <= 16 else ())]
+
+
+@pytest.mark.parametrize("prec,sfx", [("fp", "_fp"), ("int8", "_i8"),
+                                      ("int4", "_i4")])
+@pytest.mark.parametrize("kernel,M", _KERNEL_CASES)
+@pytest.mark.parametrize("d", [256, 200])
+def test_qmatmul_each_kernel_matches_plain_and_repeats(dev, monkeypatch, prec,
+                                                       sfx, kernel, M, d):
+    """Kernel A and kernel B, both forms, against the plain version: d = 200
+    is no multiple of the 32-deep tile and leaves int8/int4 rows without
+    16-byte alignment; 77 neurons is an odd int4 width. Two calls give the
+    same bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.qmatmul import qmatmul_gathered
+    _route(monkeypatch, kernel)
+    banks = _banks(dev, d=d, f=1100, seed=M)
+    kw = dict(precision=prec)
+    idx = torch.randperm(1100, device=dev)[:77].to(torch.int32)
+    x = torch.randn(M, d, device=dev)
+    s = None if prec == "fp" else banks[f"wg{sfx}_s"]
+    got = qmatmul_gathered(x, banks[f"wg{sfx}"], s, idx, **kw)
+    _close(got, ref.qmm_gathered_ref(x, banks[f"wg{sfx}"], s, idx,
+                                     precision=prec))
+    assert torch.equal(got, qmatmul_gathered(x, banks[f"wg{sfx}"], s, idx,
+                                             **kw))
+    h, y = torch.randn(M, 77, device=dev), torch.randn(M, d, device=dev)
+    s = None if prec == "fp" else banks[f"wd{sfx}_s"]
+    got = qmatmul_gathered(h, banks[f"wd{sfx}"], s, idx, layout="row",
+                           out=y.clone(), **kw)
+    _close(got, ref.qmm_gathered_ref(h, banks[f"wd{sfx}"], s, idx,
+                                     precision=prec, layout="row",
+                                     out=y.clone()))
+    assert torch.equal(got, qmatmul_gathered(h, banks[f"wd{sfx}"], s, idx,
+                                             layout="row", out=y.clone(),
+                                             **kw))
+
+
+@pytest.mark.parametrize("prec,sfx", [("fp", "_fp"), ("int8", "_i8"),
+                                      ("int4", "_i4")])
+@pytest.mark.parametrize("kernel,M", [("gemv", 1), ("gemv", 4), ("gemv", 16),
+                                      ("mma", 4), ("mma", 16), ("mma", 64)])
+def test_qmatmul_each_kernel_row_alone_equals_grouped(dev, monkeypatch, prec,
+                                                      sfx, kernel, M):
+    from repro_torch.kernels.qmatmul import qmatmul_gathered
+    _route(monkeypatch, kernel)
+    banks = _banks(dev, d=5120 // 8, f=2000, seed=7)
+    idx = torch.stack([torch.randperm(2000, device=dev)[:1037]
+                       for _ in range(4)]).to(torch.int32)
+    x = torch.randn(4, M, 640, device=dev)
+    s = None if prec == "fp" else banks[f"wg{sfx}_s"]
+    got = qmatmul_gathered(x, banks[f"wg{sfx}"], s, idx, precision=prec)
+    alone = qmatmul_gathered(x[3:].contiguous(), banks[f"wg{sfx}"], s,
+                             idx[3:].contiguous(), precision=prec)
+    assert torch.equal(alone[0], got[3])
+    h, y = torch.randn(4, M, 1037, device=dev), torch.randn(4, M, 640,
+                                                            device=dev)
+    s = None if prec == "fp" else banks[f"wd{sfx}_s"]
+    got = qmatmul_gathered(h, banks[f"wd{sfx}"], s, idx, precision=prec,
+                           layout="row", out=y.clone())
+    alone = qmatmul_gathered(h[3:].contiguous(), banks[f"wd{sfx}"], s,
+                             idx[3:].contiguous(), precision=prec,
+                             layout="row", out=y[3:].clone())
+    assert torch.equal(alone[0], got[3])
 
 
 @pytest.mark.parametrize("B,S,Hkv,G,D", [(4, 145, 8, 5, 128), (2, 37, 2, 4, 32),

@@ -79,12 +79,12 @@ def test_kernel_sources_ship_with_the_package():
 
 
 def _small_ffn(seed=0):
-    from repro_torch.core.quantize import build_neuron_banks
+    from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
     g = torch.Generator().manual_seed(seed)
     d, f = 32, 40
-    banks = build_neuron_banks(torch.randn(d, f, generator=g),
-                               torch.randn(d, f, generator=g),
-                               torch.randn(f, d, generator=g))
+    banks = to_neuron_major(build_neuron_banks(torch.randn(d, f, generator=g),
+                                               torch.randn(d, f, generator=g),
+                                               torch.randn(f, d, generator=g)))
     idx = torch.randperm(f, generator=g)[:12]
     sizes = {"k": 12, "fp16": 3, "int8": 3, "int4": 6}
     return banks, idx, sizes, torch.randn(2, 3, d, generator=g)

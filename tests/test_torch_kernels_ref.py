@@ -64,14 +64,15 @@ def test_gathered_col_equals_qmatmul_of_gathered_columns(precision, n):
     x = _f32(rng, 4, 64)
     wq, s = _quant(_f32(rng, 64, 90, scale=1 / 8), precision)
     idx = rng.permutation(90)[:n].astype(np.int32)
-    got = R.qmm_gathered_ref(_t(x), _t(wq), None if s is None else _t(s),
+    wn = np.ascontiguousarray(wq.T)      # the port's neuron-major layout
+    got = R.qmm_gathered_ref(_t(x), _t(wn), None if s is None else _t(s),
                              _t(idx), precision=precision, layout="col")
     want = JR.qmatmul_ref(jnp.asarray(x), jnp.asarray(wq[:, idx]),
                           None if s is None else jnp.asarray(s[idx]),
                           precision=precision)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # idx=None is plain qmatmul
-    full = R.qmm_gathered_ref(_t(x), _t(wq), None if s is None else _t(s),
+    full = R.qmm_gathered_ref(_t(x), _t(wn), None if s is None else _t(s),
                               precision=precision, layout="col")
     np.testing.assert_allclose(
         full.numpy(), np.asarray(JR.qmatmul_ref(
@@ -151,8 +152,10 @@ def test_mp_ffn_gathered_ref_matches_reference_algorithm():
     sizes = {"k": 18, "fp16": 4, "int8": 5, "int4": 9}
     idx = rng.permutation(f)[:18]
     x = _f32(rng, 2, 3, d)
-    got = R.mp_ffn_gathered_ref(_t(x), {k: _t(v) for k, v in banks.items()},
-                                _t(idx), sizes, "silu").numpy()
+    from repro_torch.core.quantize import to_neuron_major
+    got = R.mp_ffn_gathered_ref(
+        _t(x), to_neuron_major({k: _t(v) for k, v in banks.items()}), _t(idx),
+        sizes, "silu").numpy()
     i16, i8, i4 = idx[:4], idx[4:9], idx[9:]
     wg = np.concatenate([
         banks["wg_fp"][:, i16], banks["wg_i8"][:, i8] * banks["wg_i8_s"][i8],

@@ -18,6 +18,7 @@ from repro.core.quantize import build_neuron_banks
 from repro_torch.configs.base import get_config
 from repro_torch.core import mp_ffn as M
 from repro_torch.core import predictor as P
+from repro_torch.core.quantize import to_neuron_major
 
 
 def _topk_both(scores: np.ndarray, k: int):
@@ -75,6 +76,11 @@ def test_tier_sizes_match(f, tiny):
         f, jax_config("qwen2.5-14b", tiny=tiny))
 
 
+def _port_banks(banks):
+    """The reference's banks in the port's layout (gate, up neuron-major)."""
+    return to_neuron_major({k: torch.from_numpy(v) for k, v in banks.items()})
+
+
 def _layer(seed, d, f, r, random_a: bool):
     rng = np.random.default_rng(seed)
     wg = (rng.standard_normal((d, f)) / np.sqrt(d)).astype(np.float32)
@@ -100,7 +106,7 @@ def test_mp_ffn_apply_matches_reference(random_a, seed):
         jcfg, {k: jnp.asarray(v) for k, v in banks.items()},
         {k: jnp.asarray(v) for k, v in pred.items()}, jnp.asarray(x))
     ty, tinfo = M.mp_ffn_apply(
-        cfg, {k: torch.from_numpy(v) for k, v in banks.items()},
+        cfg, _port_banks(banks),
         {k: torch.from_numpy(v) for k, v in pred.items()}, torch.from_numpy(x))
     want_idx = np.asarray(jinfo["active_idx"])
     np.testing.assert_array_equal(tinfo["active_idx"].numpy(), want_idx)
@@ -127,7 +133,7 @@ def test_mp_ffn_apply_other_ratios():
         jcfg, {k: jnp.asarray(v) for k, v in banks.items()},
         {k: jnp.asarray(v) for k, v in pred.items()}, jnp.asarray(x))
     ty, tinfo = M.mp_ffn_apply(
-        cfg, {k: torch.from_numpy(v) for k, v in banks.items()},
+        cfg, _port_banks(banks),
         {k: torch.from_numpy(v) for k, v in pred.items()}, torch.from_numpy(x))
     np.testing.assert_array_equal(tinfo["active_idx"].numpy(),
                                   np.asarray(jinfo["active_idx"]))

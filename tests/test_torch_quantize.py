@@ -32,6 +32,36 @@ def test_build_neuron_banks_byte_equal(d, f):
         assert out.tobytes() == ref.tobytes(), name
 
 
+@pytest.mark.parametrize("d,f", [(64, 96), (32, 30), (128, 50)])
+def test_neuron_major_banks_round_trip_and_match_reference(d, f):
+    """The port's layout (gate and up neuron-major) taken back to the
+    reference's equals the JAX banks byte for byte, and the pair of layout
+    functions round-trips byte for byte."""
+    wg, wu, wd = _w(5, (d, f)), _w(6, (d, f)), _w(7, (f, d))
+    want = JQ.build_neuron_banks(jnp.asarray(wg), jnp.asarray(wu),
+                                 jnp.asarray(wd))
+    ref = Q.build_neuron_banks(torch.from_numpy(wg), torch.from_numpy(wu),
+                               torch.from_numpy(wd))
+    port = Q.to_neuron_major(ref)
+    assert set(port) == set(ref)
+    for name in Q.NEURON_COLUMN_BANKS:
+        assert port[name].shape == ref[name].shape[::-1], name
+        assert port[name].is_contiguous(), name
+    # each neuron is one contiguous row; an int4 byte keeps its nibble pair
+    np.testing.assert_array_equal(
+        Q.unpack_int4(port["wg_i4"], 1).numpy(),
+        Q.unpack_int4(ref["wg_i4"], 0).numpy().T)
+    back = Q.to_reference_layout(port)
+    for name, arr in want.items():
+        arr = np.asarray(arr)
+        out = back[name].numpy()
+        assert out.shape == arr.shape and out.dtype == arr.dtype, name
+        assert out.tobytes() == arr.tobytes(), name
+    again = Q.to_neuron_major(back)
+    for name in port:
+        assert again[name].numpy().tobytes() == port[name].numpy().tobytes()
+
+
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_matches_reference(axis, bits):

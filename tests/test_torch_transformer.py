@@ -13,6 +13,7 @@ from repro.configs.base import get_config as jax_config
 from repro.models import transformer as JT
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.base import get_config
+from repro_torch.core.quantize import to_reference_layout
 from repro_torch.models import transformer as T
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -87,9 +88,12 @@ def test_bridge_keeps_names_and_bytes():
     for l, layer in enumerate(tp["layers"]):
         assert set(layer) == set(stacked)
         assert set(layer["ffn"]["banks"]) == set(stacked["ffn"]["banks"])
+        # gate and up are stored neuron-major: the same bytes, transposed
+        banks = to_reference_layout(layer["ffn"]["banks"])
         for name, arr in stacked["ffn"]["banks"].items():
-            assert layer["ffn"]["banks"][name].numpy().tobytes() == \
-                arr[l].tobytes(), name
+            assert banks[name].numpy().tobytes() == arr[l].tobytes(), name
+        assert layer["ffn"]["banks"]["wg_i4"].shape == \
+            stacked["ffn"]["banks"]["wg_i4"].shape[:0:-1]
         np.testing.assert_array_equal(layer["wqkv"].numpy(), stacked["wqkv"][l])
     for name in ("embed", "unembed", "final_norm"):
         np.testing.assert_array_equal(tp[name].numpy(), np_tree[name])
@@ -109,6 +113,8 @@ def test_init_params_follows_reference_rules_and_shapes():
                 t = tp["layers"][l]
                 for k in keys[3:]:
                     t = t[k]
+                    if k == "banks":       # stored neuron-major
+                        t = to_reference_layout(t)
                 assert tuple(t.shape) == sds.shape[1:], keys
                 assert str(t.dtype).split(".")[-1] == str(sds.dtype), keys
         else:
@@ -120,8 +126,10 @@ def test_init_params_follows_reference_rules_and_shapes():
     assert float(layer["ffn"]["pred"]["B"].abs().max()) > 0.0
     # banks are rebuilt from the fp weights
     from repro_torch.core.quantize import quantize_int8
-    q, s = quantize_int8(layer["ffn"]["banks"]["wg_fp"], 0)
+    # (gate is neuron-major (f, d): its scale reduces over d, axis 1)
+    q, s = quantize_int8(layer["ffn"]["banks"]["wg_fp"], 1)
     assert torch.equal(q, layer["ffn"]["banks"]["wg_i8"])
+    assert torch.equal(s, layer["ffn"]["banks"]["wg_i8_s"])
 
 
 @pytest.mark.parametrize("change", [dict(family="moe", num_experts=4),
