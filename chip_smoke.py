@@ -38,7 +38,13 @@ runs yet (atu_update, mp_glu_ffn). qmatmul has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
 one layer's FFN at M = 1, 4, 8, 16 through both gives the crossover; the
-full-width paths must launch both. Then the card's name and power limit
+full-width paths must launch both. Both forms of prefill attention run on
+the tensor cores too (second bound: 3 TF32 products per fp32 product) and
+are also held at G = 5 and ragged shapes, at scores of about +-60 (against
+the plain version and against the function in float64), a row alone
+against the same row in a group of four, each key split of the chunk form
+and paired and unpaired query tiles of the whole prompt (profiled too),
+and timed at a 2048-token prompt beside SDPA (rows ``*_long``). Then the card's name and power limit
 (nvidia-smi), one JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 that line. Imports no JAX.
@@ -168,6 +174,88 @@ def tf32_bound(nbytes: float, M: int, d: int, k16: int, k8: int,
     return {"bound_tf32_ms": ms, "bound_tf32_by": by,
             "bound_tf32_note": "TF32 dense peak x the split's products "
                                "(fp tier 3, int tiers 2)"}
+
+
+def attention_row(run, plain, lib, nbytes: float, flops: float,
+                  plain_reps: int = 20) -> dict:
+    """Times of one attention kernel call beside its plain version and the
+    library call, device profiles of the kernel and the library, and both
+    bounds: fp32 outside the tensor cores, and the 3 TF32 products the
+    kernel issues per fp32 product at the TF32 peak."""
+    b_ms, b_by = bound(nbytes, flops)
+    t_ms, t_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+    return {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=plain_reps),
+            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+            "bound_tf32_ms": t_ms, "bound_tf32_by": t_by,
+            "bound_tf32_note": "TF32 dense peak x 3 products (both operands "
+                               "split) per fp32 product",
+            "profile": device_profile(run), "library_profile": device_profile(lib)}
+
+
+@contextlib.contextmanager
+def pairing(pair: bool):
+    """Route every flash_attention call through a plan that pairs query
+    tiles (or not), whatever the row's shape says."""
+    from repro_torch.kernels import flash_attention
+    saved = flash_attention._plan
+    flash_attention._plan = lambda *a: saved(*a)._replace(pair=pair)
+    try:
+        yield
+    finally:
+        flash_attention._plan = saved
+
+
+def by_pair(run, want) -> dict:
+    """Device ms of ``run`` with query tiles paired and not; both held
+    against ``want`` to the bit-for-bit result of the plan's own choice."""
+    import torch
+    out = {}
+    for pair in (True, False):
+        with pairing(pair):
+            got = run()
+            require(torch.equal(got, want),
+                    f"flash_attention: pair={pair} changed the result")
+            out[str(pair)] = device_profile(run).get("device_ms")
+    return out
+
+
+@contextlib.contextmanager
+def split_slots(slots: int):
+    """Route every chunk_attention call through a key split of ``slots``
+    slots per range (0: the whole key axis in one block)."""
+    from repro_torch.kernels import chunk_attention
+    saved = chunk_attention.SPLIT_SLOTS
+    chunk_attention.SPLIT_SLOTS = slots
+    try:
+        yield
+    finally:
+        chunk_attention.SPLIT_SLOTS = saved
+
+
+def attention_f64(q, k, v, pos0=None):
+    """Causal attention of queries at ``pos0[b] + i`` (0 when None) over
+    slots at positions 0..Skv-1, all in float64: the yardstick of the
+    large-score checks, where the plain versions' own fp32 rounding of
+    the scores is of the order of the tolerance."""
+    import torch
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    p0 = (torch.zeros(B, dtype=torch.long, device=q.device) if pos0 is None
+          else pos0.long())
+    qg = q.double().reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / D ** 0.5
+    q_pos = p0[:, None] + torch.arange(S, device=q.device)[None]
+    mask = torch.arange(Skv, device=q.device)[None, None] <= q_pos[:, :, None]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
+    return o.reshape(B, S, Hq, D)
+
+
+def max_score(q, k) -> float:
+    """max |q . k| / sqrt(D) of query head 0 against KV head 0."""
+    import torch
+    s = torch.einsum("bqd,bkd->bqk", q[:, :, 0], k[:, :, 0])
+    return float(s.abs().max()) / q.shape[-1] ** 0.5
 
 
 @contextlib.contextmanager
@@ -390,11 +478,18 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True))}
 
-    # --- flash_attention at the prefill's shapes, plus ragged and windowed
+    # --- flash_attention at the prefill's shapes, plus ragged, windowed,
+    # G = 5 at a ragged S and scores of about +-60; a row alone against the
+    # same row in the group
     q = randn(B, P, hq, D)
     kp, vp = randn(B, P, hkv, D), randn(B, P, hkv, D)
-    errs = [check("flash_attention", flash_attention(q, kp, vp),
-                  ref.flash_attention_ref(q, kp, vp), 1e-5)]
+    got = flash_attention(q, kp, vp)
+    errs = [check("flash_attention", got, ref.flash_attention_ref(q, kp, vp),
+                  1e-5)]
+    alone = flash_attention(q[1:2].contiguous(), kp[1:2].contiguous(),
+                            vp[1:2].contiguous())
+    require(torch.equal(alone[0], got[1]),
+            "flash_attention: a row alone differs from the same row in a group")
     qr, kr, vr = randn(2, 45, 8, 64), randn(2, 45, 2, 64), randn(2, 45, 2, 64)
     errs.append(check("flash_attention ragged S=45 D=64",
                       flash_attention(qr, kr, vr),
@@ -402,21 +497,57 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
     errs.append(check("flash_attention window=20",
                       flash_attention(qr, kr, vr, window=20),
                       ref.flash_attention_ref(qr, kr, vr, window=20), 1e-5))
+    q5, k5, v5 = randn(1, 77, 10, D), randn(1, 77, 2, D), randn(1, 77, 2, D)
+    errs.append(check("flash_attention G=5 ragged S=77",
+                      flash_attention(q5, k5, v5),
+                      ref.flash_attention_ref(q5, k5, v5), 1e-5))
+    ql, kl = q * 3.5, kp * 3.5
+    big = max_score(ql, kl)
+    require(big > 50, f"flash_attention: large scores reach only {big:.3g}")
+    got_l, want64 = flash_attention(ql, kl, vp), attention_f64(ql, kl, vp)
+    want32 = ref.flash_attention_ref(ql, kl, vp)
+    errs.append(check(f"flash_attention scores to {big:.0f}", got_l, want32,
+                      1e-5))
+    errs.append(check(f"flash_attention scores to {big:.0f} vs float64",
+                      got_l, want64, 1e-5))
+    plain_err64 = max_err(want32, want64)
+    del ql, kl, got_l, want32, want64
     qt = q.transpose(1, 2).contiguous()
     kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
-    nbytes = (2 * q.numel() + 2 * kp.numel()) * 4
-    b_ms, b_by = bound(nbytes, 4 * B * hq * D * P * (P + 1) / 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import _plan as whole_plan
     out["flash_attention"] = {
-        "max_abs_err": max(errs), "B": B, "S": P,
-        "ms": time_ms(lambda: flash_attention(q, kp, vp)),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, kp, vp)),
-        "library_ms": time_ms(sdpa), "bound_ms": b_ms, "bound_by": b_by,
-        "profile": device_profile(lambda: flash_attention(q, kp, vp)),
-        "library_profile": device_profile(sdpa)}
+        "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
+        "max_abs_err": max(errs), "B": B, "S": P, "max_score_checked": big,
+        "plan": whole_plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
+        "plain_max_abs_err_vs_f64_at_large_scores": plain_err64,
+        **attention_row(lambda: flash_attention(q, kp, vp),
+                        lambda: ref.flash_attention_ref(q, kp, vp),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True),
+                        (2 * q.numel() + 2 * kp.numel()) * 4,
+                        4 * B * hq * D * P * (P + 1) / 2)}
+
+    # --- the same form at a 2048-token prompt (measurement only: the
+    # products grow with S^2)
+    SL = 2048
+    q, kp, vp = randn(1, SL, hq, D), randn(1, SL, hkv, D), randn(1, SL, hkv, D)
+    got = flash_attention(q, kp, vp)
+    err = check(f"flash_attention S={SL}", got,
+                ref.flash_attention_ref(q, kp, vp), 1e-5)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
+    out["flash_attention_long"] = {
+        "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
+        "max_abs_err": err, "B": 1, "S": SL,
+        "plan": whole_plan(SL, hq, hkv, D, build.sm_count(dev))._asdict(),
+        **attention_row(lambda: flash_attention(q, kp, vp),
+                        lambda: ref.flash_attention_ref(q, kp, vp),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True),
+                        (2 * q.numel() + 2 * kp.numel()) * 4,
+                        4 * hq * D * SL * (SL + 1) / 2, plain_reps=5)}
+    del q, kp, vp, qt, kt, vt, got
     log({"phase": "kernels", "checks": checks, "kernels": out})
     del banks, lib_w
     torch.cuda.empty_cache()
@@ -427,12 +558,104 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued: the server path's kernels and the two no path runs
 
 
+def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
+               splits) -> dict:
+    """chunk_attention at ``pos0`` over ``sbuf`` slots against its plain
+    version; with several rows also garbage above the fronts, a row alone
+    against the row in the group, G = 5 at fronts inside a key tile and a
+    key range, and scores of about +-60; each key split of ``splits`` held
+    and profiled; then timed beside the plain version, SDPA and the bounds.
+    """
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.chunk_attention import _plan, chunk_attention
+    R = len(pos0)
+    q = randn(R, chunk, hq, D)
+    kb, vb = randn(R, sbuf, hkv, D), randn(R, sbuf, hkv, D)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    label = f"chunk_attention pos0={pos0} S_buf={sbuf}"
+    got = chunk_attention(q, kb, vb, p0)
+    want = ref.chunk_attention_ref(q, kb, vb, p0)
+    errs = [check(label, got, want, 1e-5)]
+    row = {}
+    if R > 1:
+        kg, vg = kb.clone(), vb.clone()
+        for b, p in enumerate(pos0):         # non-finite bytes above the front
+            kg[b, p + chunk:] = float("nan")
+            vg[b, p + chunk:] = float("inf")
+        require(torch.equal(chunk_attention(q, kg, vg, p0), got),
+                "chunk_attention: bytes above the prefill front changed the "
+                "result")
+        del kg, vg
+        b = R - 1
+        alone = chunk_attention(q[b:b + 1].contiguous(), kb[b:b + 1].contiguous(),
+                                vb[b:b + 1].contiguous(), p0[b:b + 1].contiguous())
+        require(torch.equal(alone[0], got[b]),
+                "chunk_attention: a row alone differs from the same row in a "
+                "group")
+        qr, kr, vr = randn(2, 16, 8, 64), randn(2, 45, 2, 64), randn(2, 45, 2, 64)
+        pr = torch.tensor([3, 29], dtype=torch.int32, device=dev)
+        errs.append(check("chunk_attention ragged Skv=45 D=64",
+                          chunk_attention(qr, kr, vr, pr),
+                          ref.chunk_attention_ref(qr, kr, vr, pr), 1e-5))
+        q5, k5, v5 = randn(2, 16, 10, D), randn(2, 77, 2, D), randn(2, 77, 2, D)
+        p5 = torch.tensor([5, 61], dtype=torch.int32, device=dev)
+        errs.append(check("chunk_attention G=5 fronts 20, 76 of Skv=77",
+                          chunk_attention(q5, k5, v5, p5),
+                          ref.chunk_attention_ref(q5, k5, v5, p5), 1e-5))
+        ql, kl = q * 3.5, kb * 3.5
+        big = max_score(ql, kl)
+        require(big > 50, f"chunk_attention: large scores reach only {big:.3g}")
+        got_l = chunk_attention(ql, kl, vb, p0)
+        want32 = ref.chunk_attention_ref(ql, kl, vb, p0)
+        want64 = attention_f64(ql, kl, vb, p0)
+        errs.append(check(f"chunk_attention scores to {big:.0f}", got_l,
+                          want32, 1e-5))
+        errs.append(check(f"chunk_attention scores to {big:.0f} vs float64",
+                          got_l, want64, 1e-5))
+        row["max_score_checked"] = big
+        row["plain_max_abs_err_vs_f64_at_large_scores"] = max_err(want32,
+                                                                  want64)
+        del ql, kl, got_l, want32, want64
+    by_split = {}
+    for slots in splits:
+        with split_slots(slots):
+            plan = _plan(chunk, sbuf, hq, hkv, D, build.sm_count(dev))
+            errs.append(check(f"{label} split={plan.split}",
+                              chunk_attention(q, kb, vb, p0), want, 1e-5))
+            prof = device_profile(lambda: chunk_attention(q, kb, vb, p0))
+            by_split[plan.split] = {
+                "device_ms": prof.get("device_ms"),
+                "ms": time_ms(lambda: chunk_attention(q, kb, vb, p0))}
+    q_pos = p0.long()[:, None] + torch.arange(chunk, device=dev)[None]
+    mask = (torch.arange(sbuf, device=dev)[None, None, :]
+            <= q_pos[:, :, None])[:, None]             # (R, 1, S, sbuf)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
+    keys = sum(p + chunk for p in pos0)                # slots up to each front
+    pairs = sum(p + i + 1 for p in pos0 for i in range(chunk))
+    plan = _plan(chunk, sbuf, hq, hkv, D, build.sm_count(dev))
+    row.update({
+        "max_abs_err": max(errs), "R": R, "S": chunk, "S_buf": sbuf,
+        "pos0": pos0, "plan": plan._asdict(),
+        "by_split": by_split, "split_extra_launches": 0,
+        **attention_row(lambda: chunk_attention(q, kb, vb, p0),
+                        lambda: ref.chunk_attention_ref(q, kb, vb, p0),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                        2 * q.numel() * 4 + 2 * keys * hkv * D * 4 + R * 4,
+                        4 * pairs * hq * D)})
+    return row
+
+
 def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
                          sbuf: int = 256) -> dict:
     """Per-row gathered qmatmul (R rows with their own active sets, M = 1
     and M = chunk), chunked-prefill attention at pos0 0/48/96/112 over a
-    ``sbuf``-slot buffer, atu_update and mp_glu_ffn, each against its plain
-    version, timed beside it, a library call and the bound."""
+    ``sbuf``-slot buffer (and one chunk at the end of 2048 slots), atu_update
+    and mp_glu_ffn, each against its plain version, timed beside it, a
+    library call and the bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.mp_ffn import tier_sizes
@@ -440,7 +663,6 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
                                            unpack_int4)
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.atu_update import atu_update
-    from repro_torch.kernels.chunk_attention import chunk_attention
     from repro_torch.kernels.qmatmul import qmatmul_gathered
 
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -543,45 +765,15 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
     del lib_w
 
     # --- chunked-prefill attention at pos0 0/48/96/112 over sbuf slots
-    pos0 = [0, 48, 96, 112][:R]
-    q = randn(R, chunk, hq, D)
-    kb, vb = randn(R, sbuf, hkv, D), randn(R, sbuf, hkv, D)
-    p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
-    got = chunk_attention(q, kb, vb, p0)
-    errs = [check("chunk_attention", got, ref.chunk_attention_ref(q, kb, vb, p0),
-                  1e-5)]
-    kg, vg = kb.clone(), vb.clone()
-    for b, p in enumerate(pos0):             # non-finite bytes above the front
-        kg[b, p + chunk:] = float("nan")
-        vg[b, p + chunk:] = float("inf")
-    require(torch.equal(chunk_attention(q, kg, vg, p0), got),
-            "chunk_attention: bytes above the prefill front changed the result")
-    qr, kr, vr = randn(2, 16, 8, 64), randn(2, 45, 2, 64), randn(2, 45, 2, 64)
-    pr = torch.tensor([3, 29], dtype=torch.int32, device=dev)
-    errs.append(check("chunk_attention ragged Skv=45 D=64",
-                      chunk_attention(qr, kr, vr, pr),
-                      ref.chunk_attention_ref(qr, kr, vr, pr), 1e-5))
-    q_pos = p0.long()[:, None] + torch.arange(chunk, device=dev)[None]
-    mask = (torch.arange(sbuf, device=dev)[None, None, :]
-            <= q_pos[:, :, None])[:, None]             # (R, 1, S, sbuf)
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
-    keys = sum(p + chunk for p in pos0)                # slots up to each front
-    pairs = sum(p + i + 1 for p in pos0 for i in range(chunk))
-    nbytes = 2 * q.numel() * 4 + 2 * keys * hkv * D * 4 + R * 4
-    b_ms, b_by = bound(nbytes, 4 * pairs * hq * D)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True)
-    out["chunk_attention"] = {
-        "max_abs_err": max(errs), "R": R, "S": chunk, "S_buf": sbuf,
-        "pos0": pos0,
-        "ms": time_ms(lambda: chunk_attention(q, kb, vb, p0)),
-        "plain_ms": time_ms(lambda: ref.chunk_attention_ref(q, kb, vb, p0)),
-        "library_ms": time_ms(sdpa), "bound_ms": b_ms, "bound_by": b_by,
-        "profile": device_profile(lambda: chunk_attention(q, kb, vb, p0)),
-        "library_profile": device_profile(sdpa)}
+    out["chunk_attention"] = chunk_rows(check, randn, dev, pos0=[0, 48, 96,
+                                                                 112][:R],
+                                        chunk=chunk, sbuf=sbuf, hq=hq,
+                                        hkv=hkv, D=D, splits=(0, 32, 64, 128))
+    # --- one chunk at the end of a 2048-slot buffer (measurement only)
+    out["chunk_attention_long"] = chunk_rows(check, randn, dev, pos0=[2032],
+                                             chunk=chunk, sbuf=2048, hq=hq,
+                                             hkv=hkv, D=D,
+                                             splits=(0, 128, 256, 512))
 
     # --- atu_update: m = 832 changed columns (104 groups of 8) of the fp32
     # bank into a (d, k4 + k8 + k16 + ...) unit, one duplicate destination
@@ -1208,6 +1400,14 @@ def main():
         "chunk_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "chunk_attention",
                             ("server_full",)),
+        # the two forms at a 2048-token prompt: the same kernels, whose
+        # launches are those of the rows above
+        "flash_attention_long": (c + "flash_attention.cu",
+                                 k + "flash_attention.py:26",
+                                 "flash_attention", ("serve_full",)),
+        "chunk_attention_long": (c + "flash_attention.cu",
+                                 k + "flash_attention.py:26",
+                                 "chunk_attention", ("server_full",)),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),

@@ -12,23 +12,55 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import Plan, check_inputs
+from repro_torch.kernels.flash_attention import _plan as _tiles
 
-#: launches of the kernel since the count was last set to 0
+#: launches of the kernel since the count was last set to 0 (a split's
+#: combine runs inside the same launch)
 launches = 0
 
+#: key slots of one range when a chunk splits its key axis (a multiple of
+#: 32; 0 never splits)
+SPLIT_SLOTS = 32
+#: ranges of a split at most (the last block to finish combines them all:
+#: a longer buffer takes wider ranges)
+MAX_RANGES = 16
+
 _fn = None
+#: per device: the split's counters, all 0 between launches (each launch
+#: sets the ones it used back to 0)
+_counts: Dict[torch.device, torch.Tensor] = {}
+
+
+def _plan(S: int, Skv: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
+    """The chunk form's block from one row's shape and the card's SM count,
+    never from B or pos0: the whole-prompt form's heads and sub-tiles, and,
+    when one row has fewer blocks than the card has SMs and its buffer is
+    longer than ``SPLIT_SLOTS``, the key axis split into ranges of a fixed
+    number of absolute slots: ``SPLIT_SLOTS``, or as many 32-slot tiles
+    more as keep the ranges to ``MAX_RANGES``."""
+    tiles = _tiles(S, Hq, Hkv, D, sms)._replace(pair=False)
+    G = Hq // Hkv
+    blocks = (math.ceil(S / (16 * tiles.qsub)) * Hkv
+              * math.ceil(G / tiles.heads_per_block))
+    if not (0 < SPLIT_SLOTS < Skv and blocks < sms):
+        return tiles
+    split = max(SPLIT_SLOTS, 32 * math.ceil(Skv / (32 * MAX_RANGES)))
+    return tiles._replace(split=split)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_chunk_fwd
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, P]
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I,
+                       ctypes.c_float, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -37,6 +69,22 @@ def _kernel():
 def _require(cond: bool, msg: str):
     if not cond:
         raise ValueError(f"chunk_attention: {msg}")
+
+
+def _scratch(plan: Plan, B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int,
+             device):
+    """The split's partials (fresh) and counters (cached, zeroed once)."""
+    G = Hq // Hkv
+    hb = plan.heads_per_block
+    slots = B * Hkv * math.ceil(G / hb) * math.ceil(S / (16 * plan.qsub))
+    ranges = math.ceil(Skv / plan.split)
+    parts = torch.empty(slots * ranges * hb * plan.qsub * 16 * (D + 2),
+                        dtype=torch.float32, device=device)
+    counts = _counts.get(device)
+    if counts is None or counts.numel() < slots:
+        counts = torch.zeros(max(slots, 1024), dtype=torch.int32, device=device)
+        _counts[device] = counts
+    return parts, counts
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,28 +96,30 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, S, Hq, D) float32; slots above a row's chunk are never
     read."""
     global launches
-    _require(q.is_cuda, "q must be a CUDA tensor")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == q.device and t.dtype == torch.float32
-                 and t.is_contiguous() and t.dim() == 4,
-                 f"{name} must be contiguous 4-D float32 on {q.device}")
+    B = q.shape[0] if q.dim() == 4 else -1
+    _require(pos0.dtype == torch.int32 and tuple(pos0.shape) == (B,)
+             and pos0.is_contiguous(),
+             f"pos0 must be a contiguous int32 ({B},) vector")
+    check_inputs(q, k, v, _require)
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    _require(tuple(k.shape) == (B, Skv, Hkv, D) and v.shape == k.shape,
-             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    _require(Hkv >= 1 and Hq % Hkv == 0, f"Hq={Hq} not a multiple of Hkv={Hkv}")
-    _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
-    _require(S <= Skv, f"chunk of {S} longer than the buffer of {Skv}")
-    _require(pos0.device == q.device and pos0.dtype == torch.int32
-             and tuple(pos0.shape) == (B,) and pos0.is_contiguous(),
-             f"pos0 must be a contiguous int32 ({B},) vector on {q.device}")
+    _require(pos0.device == q.device, f"pos0 must be on {q.device}")
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out
+    plan = _plan(S, Skv, Hq, Hkv, D, build.sm_count(q.device))
+    parts = counts = None
+    if plan.split:
+        parts, counts = _scratch(plan, B, S, Skv, Hq, Hkv, D, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),
-                    out.data_ptr(), B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D),
-                    stream)
+                    out.data_ptr(),
+                    None if parts is None else parts.data_ptr(),
+                    0 if parts is None else parts.numel(),
+                    None if counts is None else counts.data_ptr(),
+                    0 if counts is None else counts.numel(),
+                    B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D),
+                    plan.heads_per_block, plan.qsub, plan.split, stream)
     build.check(err, "flash_attention_chunk_fwd")
     launches += 1
     return out

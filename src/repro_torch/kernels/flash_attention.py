@@ -4,12 +4,14 @@
 
 ``flash_attention`` launches it on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``flash_attention_ref`` and the device dispatch lives
-in ``kernels/ops.py``.
+in ``kernels/ops.py``. ``_plan`` (shared with ``chunk_attention``) sets a
+block's shape from one row's shape alone.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -18,7 +20,38 @@ from repro_torch.kernels import build
 #: launches of the kernel since the count was last set to 0
 launches = 0
 
+#: warps of a block at most; each owns 16 query rows of one head
+MAX_WARPS = 8
+#: keys per K/V tile of the kernel (a key split is a multiple of it)
+BKV = 32
+
 _fn = None
+
+
+class Plan(NamedTuple):
+    heads_per_block: int  # query heads of one KV head in a block
+    qsub: int             # 16-row query sub-tiles of each head in a block
+    split: int            # key slots per range of the key axis; 0: one range
+    pair: bool = False    # a block takes two query tiles (long and short)
+
+
+def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
+    """The whole-prompt form's block from one row's shape and the card's SM
+    count, never from B: the G = Hq / Hkv query heads of a KV head in as
+    few blocks of at most ``MAX_WARPS`` warps as hold them, spread evenly,
+    and as many 16-row sub-tiles of each head as fill ``MAX_WARPS`` warps
+    without passing S; the key axis is never split. When one row's blocks
+    fit one wave (a short prompt), a block takes two query tiles, the k-th
+    longest and the k-th shortest: a batch of such rows then fits a wave
+    too, with even causal work per block (measured faster at S = 128,
+    B = 4, and slower at S = 2048, where a row fills the card 8 times)."""
+    del D                                 # every head dim takes one plan
+    G = Hq // Hkv
+    groups = math.ceil(G / MAX_WARPS)
+    hb = math.ceil(G / groups)
+    qsub = max(1, min(MAX_WARPS // hb, math.ceil(S / 16)))
+    q_tiles = math.ceil(S / (16 * qsub))
+    return Plan(hb, qsub, 0, q_tiles > 1 and q_tiles * Hkv * groups <= sms)
 
 
 def _kernel():
@@ -26,7 +59,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_fwd
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, ctypes.c_float, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, ctypes.c_float, I, I, I, I,
+                       P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -37,30 +71,46 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"flash_attention: {msg}")
 
 
+def check_inputs(q, k, v, require):
+    """Shape, dtype and layout checks shared by both forms (before the
+    device check, so that they hold on any device); then CUDA and 16-byte
+    alignment (the kernel copies 16 bytes at a time)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require(t.dtype == torch.float32 and t.dim() == 4
+                and t.is_contiguous(), f"{name} must be contiguous 4-D float32")
+    B, _, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    require(tuple(k.shape) == (B, Skv, Hkv, D) and v.shape == k.shape,
+            f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    require(Hkv >= 1 and Hq % Hkv == 0, f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
+    require(q.shape[1] <= Skv, f"{q.shape[1]} queries over a buffer of {Skv}")
+    require(q.is_cuda, "q must be a CUDA tensor")
+    for name, t in (("k", k), ("v", v)):
+        require(t.device == q.device, f"{name} must be on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """Causal (+ optional sliding-window) attention with queries and keys
     both at positions 0..S-1. q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with
     Hq % Hkv == 0. Returns (B, S, Hq, D) float32."""
     global launches
-    _require(q.is_cuda, "q must be a CUDA tensor")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == q.device and t.dtype == torch.float32
-                 and t.is_contiguous() and t.dim() == 4,
-                 f"{name} must be contiguous 4-D float32 on {q.device}")
+    _require(window >= 0, f"window {window} < 0")
+    check_inputs(q, k, v, _require)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
-    _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
-             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    _require(Hkv >= 1 and Hq % Hkv == 0, f"Hq={Hq} not a multiple of Hkv={Hkv}")
-    _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
-    _require(window >= 0, f"window {window} < 0")
+    _require(k.shape[1] == S, f"k/v hold {k.shape[1]} keys for {S} queries")
     out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out
+    plan = _plan(S, Hq, Hkv, D, build.sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), int(window), stream)
+                    B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), int(window),
+                    plan.heads_per_block, plan.qsub, int(plan.pair), stream)
     build.check(err, "flash_attention_fwd")
     launches += 1
     return out

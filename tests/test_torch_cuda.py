@@ -30,6 +30,21 @@ def _banks(dev, d=256, f=300, seed=0):
         torch.randn(f, d, generator=g, device=dev) / 16))
 
 
+def _attention_f64(q, k, v, pos0):
+    """Causal attention of queries at ``pos0[b] + i`` over slots 0..Skv-1,
+    all in float64 (the plain versions round the scores to fp32, which at
+    scores of +-60 moves the output by ~3e-5)."""
+    B, S, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(B, S, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / D ** 0.5
+    q_pos = pos0.long()[:, None] + torch.arange(S, device=q.device)[None]
+    mask = torch.arange(Skv, device=q.device)[None, None] <= q_pos[:, :, None]
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
+    return o.reshape(B, S, Hq, D).float()
+
+
 def _close(got, want, tol_rel=1e-5):
     """max|got - want| <= tol_rel * max(1, max|want|) (fp32 sums in another
     order), and every value finite."""
@@ -173,18 +188,44 @@ def test_flash_decode_matches_plain(dev, B, S, Hkv, G, D):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,window", [(4, 128, 40, 8, 128, 0),
-                                                 (2, 45, 8, 2, 64, 0),
-                                                 (1, 70, 4, 4, 32, 16)])
-def test_flash_attention_matches_plain(dev, B, S, Hq, Hkv, D, window):
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,mag", [
+    (4, 128, 40, 8, 128, 0, 1.0), (2, 45, 8, 2, 64, 0, 1.0),
+    (1, 70, 4, 4, 32, 16, 1.0),
+    (1, 77, 10, 2, 128, 0, 1.0),          # G = 5 at a ragged S
+    (2, 77, 10, 2, 128, 24, 1.0),         # G = 5, windowed
+    (3, 50, 16, 1, 64, 0, 1.0),           # G = 16: two head groups
+    (4, 128, 40, 8, 128, 0, 3.5)])        # scores reach about +-60
+def test_flash_attention_matches_plain(dev, B, S, Hq, Hkv, D, window, mag):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=dev).manual_seed(S + Hq)
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g) * mag
+    k = torch.randn(B, S, Hkv, D, device=dev, generator=g) * mag
+    v = torch.randn(B, S, Hkv, D, device=dev, generator=g)
+    got = flash_attention(q, k, v, window=window)
+    want = ref.flash_attention_ref(q, k, v, window=window)
+    if mag == 1.0:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:                       # the split-TF32 products against fp32's
+        scores = torch.einsum("bqhd,bkhd->bhqk", q[:, :, :1], k[:, :, :1])
+        assert float(scores.abs().max()) / D ** 0.5 > 50
+        _close(got, want)
+        _close(got, _attention_f64(q, k, v, torch.zeros(B, device=dev)))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(4, 128, 40, 8, 128),
+                                          (4, 77, 10, 2, 128)])
+def test_flash_attention_row_alone_equals_row_in_group(dev, B, S, Hq, Hkv, D):
+    """The plan depends on one row's shape: a row alone gives the bits it
+    gives in a group of four."""
+    from repro_torch.kernels.flash_attention import flash_attention
     q = torch.randn(B, S, Hq, D, device=dev)
-    k, v = torch.randn(B, S, Hkv, D, device=dev), torch.randn(B, S, Hkv, D,
-                                                              device=dev)
-    torch.testing.assert_close(flash_attention(q, k, v, window=window),
-                               ref.flash_attention_ref(q, k, v, window=window),
-                               rtol=1e-5, atol=1e-5)
+    k, v = (torch.randn(B, S, Hkv, D, device=dev) for _ in range(2))
+    got = flash_attention(q, k, v)
+    for b in (0, B - 1):
+        alone = flash_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                                v[b:b + 1].contiguous())
+        assert torch.equal(alone[0], got[b])
 
 
 def test_tiny_generate_on_cuda_equals_cpu(dev):
@@ -260,24 +301,55 @@ def test_qmatmul_rows_match_plain_and_alone_equals_grouped(dev, prec, sfx, M,
     assert torch.equal(alone[0], got[1])
 
 
-@pytest.mark.parametrize("pos0,Sbuf,Hq,Hkv,D", [((0, 48, 96, 112), 256, 40, 8,
-                                                 128),
-                                                ((3, 21), 45, 8, 2, 64)])
+@pytest.mark.parametrize("pos0,Sbuf,Hq,Hkv,D,mag", [
+    ((0, 48, 96, 112), 256, 40, 8, 128, 1.0), ((3, 21), 45, 8, 2, 64, 1.0),
+    ((5, 61), 77, 10, 2, 128, 1.0),       # G = 5; fronts 20 and 76 sit inside
+                                          # a key tile and a key range
+    ((7,), 40, 4, 4, 32, 1.0),            # G = 1
+    ((2032,), 2048, 40, 8, 128, 1.0),     # a chunk at the end of 2 K slots
+    ((0, 48, 96, 112), 256, 40, 8, 128, 3.5)])   # scores reach about +-60
 def test_chunk_attention_matches_plain_and_ignores_garbage(dev, pos0, Sbuf, Hq,
-                                                           Hkv, D):
+                                                           Hkv, D, mag):
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunk_attention import chunk_attention
     B, S = len(pos0), 16
-    q = torch.randn(B, S, Hq, D, device=dev)
-    k, v = (torch.randn(B, Sbuf, Hkv, D, device=dev) for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(Sbuf + Hq)
+    q = torch.randn(B, S, Hq, D, device=dev, generator=g) * mag
+    k = torch.randn(B, Sbuf, Hkv, D, device=dev, generator=g) * mag
+    v = torch.randn(B, Sbuf, Hkv, D, device=dev, generator=g)
     p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
     got = chunk_attention(q, k, v, p0)
-    torch.testing.assert_close(got, ref.chunk_attention_ref(q, k, v, p0),
-                               rtol=1e-5, atol=1e-5)
+    want = ref.chunk_attention_ref(q, k, v, p0)
+    if mag == 1.0:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:                       # the split-TF32 products against fp32's
+        _close(got, want)
+        _close(got, _attention_f64(q, k, v, p0))
     for b, p in enumerate(pos0):           # non-finite bytes above the front
         k[b, p + S:] = float("nan")
         v[b, p + S:] = float("inf")
     assert torch.equal(chunk_attention(q, k, v, p0), got)
+    # a row alone gives the bits it gives in the group
+    b = B - 1
+    alone = chunk_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                            v[b:b + 1].contiguous(), p0[b:b + 1].contiguous())
+    assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("split", [0, 32, 64, 128])
+def test_chunk_attention_every_key_split_matches_plain(dev, monkeypatch,
+                                                       split):
+    """The key axis whole and split into ranges of 32, 64 or 128 slots (the
+    combine of 1 to 8 ranges) all match the plain version."""
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ca, "SPLIT_SLOTS", split)
+    q = torch.randn(4, 16, 40, 128, device=dev)
+    k, v = (torch.randn(4, 256, 8, 128, device=dev) for _ in range(2))
+    p0 = torch.tensor([0, 48, 100, 240], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(ca.chunk_attention(q, k, v, p0),
+                               ref.chunk_attention_ref(q, k, v, p0),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_atu_update_matches_plain_with_duplicates(dev):
