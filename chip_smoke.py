@@ -44,7 +44,14 @@ are also held at G = 5 and ragged shapes, at scores of about +-60 (against
 the plain version and against the function in float64), a row alone
 against the same row in a group of four, each key split of the chunk form
 and paired and unpaired query tiles of the whole prompt (profiled too),
-and timed at a 2048-token prompt beside SDPA (rows ``*_long``). Then the card's name and power limit
+and timed at a 2048-token prompt beside SDPA (rows ``*_long``).
+flash_decode, one kernel a call, is held at the serve decode step's
+shapes (with a ring buffer, a row without a valid slot, NaN and Inf in
+masked slots, a row alone against the same row in its group), over a
+server decode batch, and at 4 K and 32 K slots beside SDPA, each with a
+sweep of its range size (and ring depth at 4 K and 32 K); ``full`` and
+``server_full`` print one decode forward's kernels and host ms
+(``decode_forward``). Then the card's name and power limit
 (nvidia-smi), one JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
 that line. Imports no JAX.
@@ -74,6 +81,18 @@ SERVER_FULL = ["--arch", "qwen2.5-14b", "--workload", "shared-prefix",
                "--prefix-reuse", "0.75", "--gen-len", "16", "16",
                "--rate", "1e9", "--max-batch", "4", "--prefill-bucket", "4",
                "--dram-gb", "6"]
+#: a decode batch of server_full: 4 rows at their own positions in the
+#: engine's power-of-two bucket buffer (prompts of 73 to 87 tokens, up to 16
+#: new tokens each)
+SERVER_BUCKET = 128
+SERVER_DECODE_LENGTHS = [88, 80, 93, 82]
+#: flash_decode's rows: (slots, the rows' lengths); the serve row is the
+#: full phase's decode cache (prompt 128 + 16 new + 1) with 4 empty slots
+#: in row 1, the long ones are measurement only
+DECODE_ROWS = {"flash_decode": (145, [128, 133, 138, 143]),
+               "flash_decode_rows": (SERVER_BUCKET, SERVER_DECODE_LENGTHS),
+               "flash_decode_long": (4096, [3968, 4000, 4064, 4095]),
+               "flash_decode_32k": (32768, [32767])}
 
 
 def log(obj):
@@ -125,27 +144,36 @@ def device_profile(fn, reps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     per = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0.0))
-        if t > 0:
-            per[ev.key[:80]] = t / 1e3 / reps
+    # a second session where the first saw no CUDA kernel (it happened once,
+    # to the index_select + index_copy_ yardstick)
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t > 0:
+                per[ev.key[:80]] = t / 1e3 / reps
+        if per:
+            break
     if not per:
-        return {"device_ms": "not measured", "why": "no CUDA kernel events"}
+        return {"device_ms": "not measured", "why": "no CUDA kernel events "
+                "in two profiler sessions"}
     dev_ms = sum(per.values())
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
     return {"device_ms": dev_ms, "profiled_wall_ms": wall_ms,
-            "busy_share": dev_ms / wall_ms, "top_kernels_ms": top}
+            "busy_share": dev_ms / wall_ms, "top_kernels_ms": top,
+            "kernels_per_call": sum(1 for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA) / reps,
+            "profiler_sessions": attempt + 1}
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
@@ -303,6 +331,112 @@ def checker(checks: list):
     return check
 
 
+@contextlib.contextmanager
+def decode_plan(range_slots: int = 0, stages: int = 0):
+    """Route every flash_decode call through ranges of ``range_slots``
+    slots and a ring of ``stages`` tiles (0 keeps the plan's own)."""
+    from repro_torch.kernels import flash_decode
+    saved = flash_decode.RANGE_SLOTS, flash_decode.STAGES
+    flash_decode.RANGE_SLOTS = range_slots or saved[0]
+    flash_decode.STAGES = stages or saved[1]
+    try:
+        yield
+    finally:
+        flash_decode.RANGE_SLOTS, flash_decode.STAGES = saved
+
+
+def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False):
+    """q, k, v of a decode step over S slots for rows at ``lengths``, and
+    the slot positions the decode step's mask gives them (slot i at
+    position i up to the row's length, -1 above; with ``holes`` also four
+    empty slots in row 1)."""
+    import torch
+    B = len(lengths)
+    q = randn(B, hkv, G, D)
+    kc, vc = randn(B, S, hkv, D), randn(B, S, hkv, D)
+    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    if holes:
+        slots[1, 5:9] = -1
+    ln = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    return q, kc, vc, torch.where(slots <= ln[:, None], slots, -1), ln
+
+
+def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
+               holes=False, full_checks=False, sweep=(), stages=(),
+               plain_reps=20) -> dict:
+    """flash_decode over B = len(lengths) rows of S slots (slot i at
+    position i, as the decode step's mask gives them; with ``holes`` four
+    empty slots in row 1) against its plain version; with ``full_checks``
+    also a row with no valid slot, NaN and Inf in every masked slot (bit
+    for bit), and a row alone against the same row in the group. Each range
+    size of ``sweep`` and ring depth of ``stages`` is held and profiled.
+    Timed beside the plain version and SDPA, with the bound counted over
+    the valid slots only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_decode import _plan, flash_decode
+    B = len(lengths)
+    hq = hkv * G
+    q, kc, vc, slots, ln = decode_inputs(randn, dev, S, hkv, G, D, lengths,
+                                         holes)
+    run = lambda: flash_decode(q, kc, vc, slots, ln)
+    got, want = run(), ref.flash_decode_ref(q, kc, vc, slots, ln)
+    errs = [check(f"{label} B={B} S={S}", got, want, 1e-5)]
+    require(torch.equal(run(), got), f"{label}: two calls differ")
+    prof = device_profile(run)
+    require(prof.get("kernels_per_call") == 1,
+            f"{label}: a call ran {prof.get('kernels_per_call')} kernels")
+    valid = (slots >= 0) & (slots <= ln[:, None])
+    if full_checks:
+        none = slots.clone()
+        none[0] = -1
+        errs.append(check(f"{label} row 0 without a valid slot",
+                          flash_decode(q, kc, vc, none, ln),
+                          ref.flash_decode_ref(q, kc, vc, none, ln), 1e-5))
+        kn, vn = kc.clone(), vc.clone()
+        kn[~valid], vn[~valid] = float("nan"), float("inf")
+        require(torch.equal(flash_decode(q, kn, vn, slots, ln), got),
+                f"{label}: NaN/Inf in masked slots changed the result")
+        del kn, vn
+        b = B - 1
+        alone = flash_decode(q[b:b + 1].contiguous(), kc[b:b + 1].contiguous(),
+                             vc[b:b + 1].contiguous(),
+                             slots[b:b + 1].contiguous(), ln[b:b + 1])
+        require(torch.equal(alone[0], got[b]),
+                f"{label}: a row alone differs from the same row in a group")
+    sms = build.sm_count(dev)
+    by_range, by_stages = {}, {}
+    for key, table, kw in ([(r, by_range, {"range_slots": r}) for r in sweep]
+                           + [(n, by_stages, {"stages": n}) for n in stages]):
+        with decode_plan(**kw):
+            plan = _plan(S, hkv, G, D, sms)
+            errs.append(check(f"{label} {kw}", run(), want, 1e-5))
+            table[plan.range_slots if "range_slots" in kw else key] = \
+                device_profile(run).get("device_ms")
+    n_valid = int(valid.sum())
+    qt = q.reshape(B, hq, 1, D)
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+    nbytes = (q.numel() * 2 + slots.numel() + B) * 4 + 2 * n_valid * hkv * D * 4
+    b_ms, b_by = bound(nbytes, 4 * n_valid * hq * D)
+    row = {"max_abs_err": max(errs), "B": B, "S": S, "lengths": lengths,
+           "valid_slots": n_valid, "plan": _plan(S, hkv, G, D, sms)._asdict(),
+           "device_ms_by_range": by_range, "device_ms_by_stages": by_stages,
+           "kv_mb": 2 * kc.numel() * 4 / 1e6,
+           "l2_note": "inputs exceed the 50 MB L2" if kc.numel() * 8 > 50e6
+           else "inputs stay in the 50 MB L2 across repetitions",
+           "ms": time_ms(run), "plain_ms": time_ms(
+               lambda: ref.flash_decode_ref(q, kc, vc, slots, ln),
+               reps=plain_reps),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
+           "profile": prof, "library_profile": device_profile(lib)}
+    del q, kc, vc, kt, vt
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels at the main path's shapes
 
@@ -440,43 +574,38 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
             got["per_kernel_profile"].items()}
     out["qmatmul_mma"]["crossover_device_ms"] = cross
 
-    # --- flash_decode at the decode step's shapes (cache of P + gen + 1)
-    S = P + gen_len + 1
-    q = randn(B, hkv, G, D)
-    kc, vc = randn(B, S, hkv, D), randn(B, S, hkv, D)
-    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
-    slots[1, 5:9] = -1                                  # empty slots
-    lengths = torch.tensor([P + i * (gen_len // max(B - 1, 1)) for i in range(B)],
-                           device=dev, dtype=torch.int32)
-    errs = [check("flash_decode", flash_decode(q, kc, vc, slots, lengths),
-                  ref.flash_decode_ref(q, kc, vc, slots, lengths), 1e-5)]
+    # --- flash_decode at the decode step's shapes (cache of P + gen + 1),
+    # plus ragged D = 32, a ring buffer, a row with no valid slot, NaN in
+    # masked slots and a row alone against the row in the group; its range
+    # sizes; then 4 rows of 4 K slots and one row of 32 K (measurement)
+    S, lengths = DECODE_ROWS["flash_decode"]
+    require(S == P + gen_len + 1 and len(lengths) == B,
+            "flash_decode: the serve row is not the full phase's cache")
+    out["flash_decode"] = decode_row(check, randn, dev, "flash_decode", S,
+                                     hkv, G, D, lengths, holes=True,
+                                     sweep=(32, 64, 160), full_checks=True)
     qs = randn(3, 2, 4, 32)
     ks_, vs_ = randn(3, 37, 2, 32), randn(3, 37, 2, 32)
     sl = torch.arange(37, device=dev, dtype=torch.int32)[None].repeat(3, 1)
     ln = torch.tensor([0, 17, 36], device=dev, dtype=torch.int32)
-    errs.append(check("flash_decode ragged S=37 D=32",
-                      flash_decode(qs, ks_, vs_, sl, ln),
-                      ref.flash_decode_ref(qs, ks_, vs_, sl, ln), 1e-5))
-    valid = (slots >= 0) & (slots <= lengths[:, None])
-    n_valid = int(valid.sum())
-    qt = q.reshape(B, hq, 1, D)
-    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = valid[:, None, None, :]
-    nbytes = (q.numel() * 2 + slots.numel() + B) * 4 + 2 * n_valid * hkv * D * 4
-    b_ms, b_by = bound(nbytes, 4 * n_valid * hq * D)
-    out["flash_decode"] = {
-        "max_abs_err": max(errs), "B": B, "S": S,
-        "ms": time_ms(lambda: flash_decode(q, kc, vc, slots, lengths)),
-        "plain_ms": time_ms(lambda: ref.flash_decode_ref(q, kc, vc, slots,
-                                                         lengths)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "profile": device_profile(lambda: flash_decode(q, kc, vc, slots,
-                                                       lengths)),
-        "library_profile": device_profile(
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True))}
+    err = check("flash_decode ragged S=37 D=32",
+                flash_decode(qs, ks_, vs_, sl, ln),
+                ref.flash_decode_ref(qs, ks_, vs_, sl, ln), 1e-5)
+    now = 300                           # a ring wrapped past 256 slots
+    ring = now - torch.remainder(now - torch.arange(256, device=dev), 256)
+    ring = ring.to(torch.int32)[None].repeat(2, 1).contiguous()
+    qr_, kr_, vr_ = randn(2, 1, 2, 32), randn(2, 256, 1, 32), randn(2, 256, 1, 32)
+    lr = torch.tensor([now, now - 60], device=dev, dtype=torch.int32)
+    err = max(err, check("flash_decode ring buffer S=256",
+                         flash_decode(qr_, kr_, vr_, ring, lr),
+                         ref.flash_decode_ref(qr_, kr_, vr_, ring, lr), 1e-5))
+    out["flash_decode"]["max_abs_err"] = max(out["flash_decode"]["max_abs_err"],
+                                             err)
+    for name, sweep in (("flash_decode_long", (64, 128, 256, 512, 1024)),
+                        ("flash_decode_32k", (512, 1024, 2048))):
+        S, lengths = DECODE_ROWS[name]
+        out[name] = decode_row(check, randn, dev, name, S, hkv, G, D, lengths,
+                               sweep=sweep, stages=(2, 3, 4), plain_reps=5)
 
     # --- flash_attention at the prefill's shapes, plus ragged, windowed,
     # G = 5 at a ragged S and scores of about +-60; a row alone against the
@@ -775,6 +904,12 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
                                              hkv=hkv, D=D,
                                              splits=(0, 128, 256, 512))
 
+    # --- flash_decode over a decode batch of server_full
+    S, lengths = DECODE_ROWS["flash_decode_rows"]
+    out["flash_decode_rows"] = decode_row(
+        check, randn, dev, "flash_decode_rows", S, hkv, hq // hkv, D,
+        lengths[:R], full_checks=True, sweep=(32, 64, 128))
+
     # --- atu_update: m = 832 changed columns (104 groups of 8) of the fp32
     # bank into a (d, k4 + k8 + k16 + ...) unit, one duplicate destination
     bg, m = 8, 832
@@ -1004,6 +1139,8 @@ def phase_full(B: int, P: int, gen_len: int) -> dict:
         _, res2, _ = run(serve_args(**kw), cfg=cfg, params=params, ssd_dir=tmp)
         same = bool((res.tokens == res2.tokens).all())
         profiles = profile_steps(eng.runner, params, cfg, B, P)
+        cost = decode_forward_cost(cfg, params, [P + gen_len // 2] * B,
+                                   P + gen_len + 1, rows=False)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     line = {
@@ -1024,6 +1161,7 @@ def phase_full(B: int, P: int, gen_len: int) -> dict:
         "carbon_g_modeled": summary["carbon_g"],
         "finite_logits": finite, "tokens_in_vocab": in_vocab,
         "second_run_tokens_equal": same, "profile": profiles,
+        "decode_forward": cost,
         "tokens": res.tokens.tolist()}
     log(line)
     require(finite, "full: non-finite logits")
@@ -1031,6 +1169,62 @@ def phase_full(B: int, P: int, gen_len: int) -> dict:
     require(same, "full: a second run gave other tokens")
     require_path_kernels("full", "serve", counts)
     return counts
+
+
+def decode_forward_cost(cfg, params, lengths, sbuf: int, rows: bool,
+                        reps: int = 10) -> dict:
+    """One ``forward(mode="decode")`` at the rows' ``lengths`` over an
+    ``sbuf``-slot cache (``rows``: the server's per-row batch): the device
+    activities it starts (CUDA kernels, and copies or fills apart) from
+    torch.profiler, their device ms, and the median host ms until forward
+    returns and until the device is done. Uses only what every version of
+    the port has, so that ``scripts/decode_step_cost.py`` can run it on
+    another tree."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    B = len(lengths)
+    dev = params["embed"].device
+    cache = T.init_cache(cfg, B, sbuf, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+
+    def step():
+        cache["pos"] = (torch.tensor(lengths, dtype=torch.int64) if rows
+                        else lengths[0])
+        T.forward(cfg, params, tok, cache=cache, mode="decode", rows=rows)
+    step()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = collections.Counter()
+    dev_ms = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:60]] += 1
+            dev_ms += (e.time_range.end - e.time_range.start) / 1e3
+    copies = sum(n for k, n in names.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    del cache
+    return {"rows": B, "lengths": list(lengths), "sbuf": sbuf,
+            "layers": cfg.num_layers,
+            "cuda_kernels": sum(names.values()) - copies,
+            "copies_and_fills": copies, "device_ms": dev_ms,
+            "host_ms_median": statistics.median(host),
+            "wall_ms_median": statistics.median(wall),
+            "most_launched": dict(names.most_common(12))}
 
 
 def profile_steps(runner, params, cfg, B: int, P: int) -> dict:
@@ -1301,6 +1495,8 @@ def phase_server_full() -> dict:
             serve("warm", SERVER_FULL + ["--prefix-cache", "--prefix-persist",
                                          persist], "warm")
         serve("off", SERVER_FULL, "off")
+        cost = decode_forward_cost(cfg, params, SERVER_DECODE_LENGTHS,
+                                   SERVER_BUCKET, rows=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     toks = {k: res[k]["tokens"] for k in res}
@@ -1321,6 +1517,7 @@ def phase_server_full() -> dict:
         "steps_cold": res["cold"]["steps"], "steps_off": res["off"]["steps"],
         "steps_warm_profiled": res["warm"]["steps"],
         "device_in_steps_warm": step_device_time(prof),
+        "decode_forward": cost,
         "summary_cold": res["cold"]["out"]["summary"],
         "finite_logits": all(res[k]["finite"] for k in res),
         "tokens": res["cold"]["tokens"]}
@@ -1394,6 +1591,14 @@ def main():
                              "qmatmul_mma", ("server_full",)),
         "flash_decode": (c + "flash_decode.cu", k + "flash_decode.py:26",
                          "flash_decode", ("serve_full", "server_full")),
+        # the same kernel over a server decode batch, and at 4 K and 32 K
+        # slots: its launches are those of the row above
+        "flash_decode_rows": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                              "flash_decode", ("server_full",)),
+        "flash_decode_long": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                              "flash_decode", ("serve_full", "server_full")),
+        "flash_decode_32k": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                             "flash_decode", ("serve_full", "server_full")),
         "flash_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "flash_attention",
                             ("serve_full",)),

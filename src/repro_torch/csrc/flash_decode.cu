@@ -1,184 +1,613 @@
-// Flash-decoding attention: one new query token per sequence over its cache.
+// Flash-decoding attention on Hopper: one new query token per row over its
+// KV cache, in one launch.
 //
 // Replaces: src/repro/kernels/flash_decode.py::_flash_kernel (the Pallas TPU
-// kernel behind `flash_decode`). Same inputs and masking: q (B, Hkv, G, D),
-// k and v in the cache's own (B, S, Hkv, D) layout, slot_positions (B, S)
-// int32 and lengths (B,) int32; a slot takes part when
-// 0 <= slot_positions[b, s] <= lengths[b]. Masked scores are -1e30 (not
-// -inf), exactly as in the Pallas kernel and its oracle, so a split whose
-// slots are all masked combines to the same result. Output (B, Hkv, G, D)
-// fp32 = acc / max(l, 1e-20).
+// kernel behind `flash_decode`, pallas_call at :78). Same inputs and
+// masking: q (B, Hkv, G, D), k and v in the cache's own (B, S, Hkv, D)
+// layout, slot_positions (B, S) int32 and lengths (B,) int32; a slot takes
+// part when 0 <= slot_positions[b, s] <= lengths[b], wherever it sits in
+// the buffer (ring buffers too). Masked scores are -1e30 (not -inf), as in
+// the Pallas kernel and its oracle. Output (B, Hkv, G, D) fp32 =
+// acc / max(l, 1e-20); query head g of KV head h is q head h*G + g. A row
+// with no valid slot gives what the oracle's softmax over S equal scores
+// gives: the mean of V over all S slots.
 //
-// What bounds it on an H100: every K and V byte is read once for G query
-// heads, about G/2 FLOP per byte, so it is bound by device-memory bytes,
-// and at decode sizes (a few MB per layer) by launch latency as much.
+// What bounds it on an H100: a valid slot's K and V rows (2 x D x 4 bytes)
+// serve 2 x 2 x G x D FLOP, 2.5 FLOP a byte at G = 5, which fp32 FMAs
+// outside the tensor cores do in an eighth of the time the bytes take at
+// 3.35 TB/s: bytes bound it. At the decode step's short caches (4.5 MB of
+// valid K/V for 4 rows of ~140 slots, 1.4 us at 3.35 TB/s) latency bounds
+// it as much: a chain of dependent trips to memory costs more than the
+// bytes, so every step keeps all of its loads in flight and the call is one
+// launch. At 4 K and 32 K slots (133 and 268 MB) it streams, and needs
+// enough blocks, and few enough instructions a tile, to keep 132 SMs
+// reading.
 //
-// Design: the Pallas grid walks S serially on one core; here only B*Hkv
-// (b, h) pairs exist (32 on the main path) against 132 SMs, so the S axis
-// is split across blocks (gridDim.x). Each block runs four warps over its
-// slots; a warp takes one slot at a time, its lanes split D, and it keeps a
-// running (m, l, acc) for all G query heads of the KV head in registers.
-// The four warps merge in shared memory and each block writes one partial
-// (m, l, acc); a second kernel combines the partials of each (b, h) in
-// split order. The GQA fold follows common.py: query head g of KV head h is
-// q head h*G + g.
+// Design:
+//  * Grid (range, KV head, row): a block of 8 warps takes `range` absolute
+//    slots of one (row, KV head) and all G query heads of that KV head, so
+//    a K/V byte read once serves G heads. The range comes from one row's
+//    shape and the card's SM count (kernels/flash_decode.py::_plan), never
+//    from B, lengths or the slot positions, so a row's bits do not depend
+//    on the rows beside it. G is a template parameter (1 to 8), so that
+//    every loop over heads unrolls whole.
+//  * A block first reads its range's slot positions, all in flight at
+//    once, 32 consecutive slots to a warp (one coalesced load), into one
+//    valid-slot bit mask per 32-slot tile (a ballot). Only tiles with a
+//    valid slot are staged: K and V rows of valid slots are copied into
+//    shared memory by cp.async (16 bytes a thread, a warp a 512-byte row),
+//    masked slots are zero-filled (source size 0) and never read. A tile
+//    without a valid slot costs no K/V byte, and NaN or Inf in a masked
+//    slot leaves the output bit-identical.
+//  * The copies go through a ring of `stages` tiles, each tile as two
+//    groups, K then V, so that the scores start while V is still landing.
+//    The first `stages` busy tiles are issued before any score is
+//    computed, so a range of up to `stages` busy tiles is wholly in flight
+//    at once; afterwards each tile's slot is refilled as soon as every
+//    thread has read it.
+//  * Q K^T without a shuffle per slot and head: lane = slot, warp = an
+//    eighth of D, the G scaled query rows in shared memory (read as
+//    broadcasts); the eight partial scores meet in shared memory and are
+//    added in a fixed order. Rows are padded to D + 4 floats so that a
+//    quarter warp's float4 reads of one column hit 32 banks once.
+//  * Softmax once per tile: warp g keeps query head g's running max (one
+//    redux.sync over the tile's 32 slots) and its lane's share of the sum
+//    (summed over the lanes once, at the end of the range); one rescale
+//    alpha per tile, p = exp(s - m) into shared memory.
+//  * P V: a lane covers 4 of D (float4); 1024 / D groups of consecutive
+//    slots split the tile, so a thread reads its slots' p of a head as one
+//    vector; the groups' sums meet in shared memory at the end of the
+//    range, in a fixed order.
+//  * One launch: each range writes its unnormalised (m, l, acc) to
+//    scratch; the last block of a (row, KV head) to finish, found with an
+//    atomic counter (acquire-release, never an atomic on the values),
+//    combines the ranges in ascending order and sets the counter back to 0
+//    for the next launch. It issues its loads of the first 8 ranges'
+//    partials before anything else, and meanwhile computes each (head,
+//    range) weight exp(m_r - M) once (a warp a head; the denominator in
+//    ascending order through shuffles). A single range normalises and
+//    stores directly.
+//  * Measured and dropped (scripts/decode_variants.py, PERF.md): 4 warps,
+//    each a quarter of D and two heads, with strided slots in P V (one
+//    tile took 2.0 us of math in a block); P V done by each head's own
+//    warp over the whole tile (one barrier less a tile, but a 32-slot
+//    chain a lane: slower); a whole row in one block (its tiles run one
+//    after another: slower at 145 slots); the last range taking the rest
+//    of S, so that 4 rows of 145 slots are 128 blocks, one wave (its
+//    2-tile range cost more than the doubled SMs it spared).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kMaxG = 8;
+constexpr int kTile = 32;            // slots per tile: one per lane
+constexpr int kWarps = 8;            // a warp per query head (G <= 8)
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxG = kWarps;
+constexpr int kMinStages = 1;        // one stage only for a one-tile range
+constexpr int kMaxStages = 6;
+constexpr int kMaxTiles = 64;        // tiles of one range: 2048 slots
+constexpr int kMaxRanges = 128;      // ranges of one (row, KV head)
+constexpr int kR = 8;                // ranges a combine step keeps in flight
 constexpr float kNegInf = -1e30f;
 
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* slot_pos;
+  const int* lengths;
+  float* out;
+  float* parts;      // ranges > 1: acc (B, Hkv, ranges, G, D), m, l (.., G)
+  int* counts;       // ranges > 1: one counter per (row, KV head), 0
+  int S, Hkv, G;
+  int range, ranges, stages;
+  float scale;
+};
+
+// A block's dynamic shared memory, in floats: a fixed part, then the ring.
+// At the end of a range the ring holds the slot groups' P V sums (`kRedF`,
+// which sizes it where the stages alone would be smaller), and in the
+// combine every range's weights.
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_partial(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const int* __restrict__ slot_pos,
-               const int* __restrict__ lengths, int S, int Hkv, int G,
-               int chunk, float scale, float* __restrict__ part_m,
-               float* __restrict__ part_l, float* __restrict__ part_acc) {
-  constexpr int P = D / 32;
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  float qr[kMaxG][P], acc[kMaxG][P], m[kMaxG], l[kMaxG];
-  const float* qb = q + ((long long)(b * Hkv + h) * G) * D;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      qr[g][i] = g < G ? qb[g * D + lane + 32 * i] * scale : 0.f;
-      acc[g][i] = 0.f;
-    }
+struct Smem {
+  static constexpr int kLd = D + 4;                 // padded row
+  static constexpr int kTileF = kTile * kLd;        // K or V of one tile
+  static constexpr int kStageF = 2 * kTileF;
+  static constexpr int kRedF = (kThreads / (D / 4)) * kMaxG * D;
+  static constexpr int kQ = 0;                      // (kMaxG, D) scaled q
+  static constexpr int kPart = kQ + kMaxG * D;      // (kWarps, kMaxG, kTile)
+  static constexpr int kP = kPart + kWarps * kMaxG * kTile;  // (kMaxG, kTile)
+  static constexpr int kAlpha = kP + kMaxG * kTile;  // (kMaxG)
+  static constexpr int kM = kAlpha + kMaxG;          // (kMaxG) range max
+  static constexpr int kL = kM + kMaxG;              // (kMaxG) range sum
+  static constexpr int kMask = kL + kMaxG;           // (kMaxTiles) bits
+  static constexpr int kRing = kMask + kMaxTiles;
+  static constexpr int bytes(int stages) {
+    return (kRing + (stages * kStageF > kRedF ? stages * kStageF : kRedF)) * 4;
   }
+  static_assert(kRing % 4 == 0, "the ring must be 16-byte aligned");
+  static_assert(kRedF >= 2 * kMaxRanges * kMaxG + 2 * kMaxG,
+                "the ring must hold the combine's weights");
+};
 
-  const int len = lengths[b];
-  const int s0 = split * chunk;
-  const int s1 = min(S, s0 + chunk);
-  for (int s = s0 + warp; s < s1; s += kWarps) {
-    const long long row = ((long long)b * S + s) * Hkv + h;
-    float kr[P], vr[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      kr[i] = k[row * D + lane + 32 * i];
-      vr[i] = v[row * D + lane + 32 * i];
-    }
-    const int pos = slot_pos[(long long)b * S + s];
-    const bool valid = pos >= 0 && pos <= len;
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) dot = fmaf(qr[g][i], kr[i], dot);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      const float sc = valid ? dot : kNegInf;
-      const float mn = fmaxf(m[g], sc);
-      const float alpha = expf(m[g] - mn);
-      const float p = expf(sc - mn);
-      l[g] = l[g] * alpha + p;
-#pragma unroll
-      for (int i = 0; i < P; ++i) acc[g][i] = acc[g][i] * alpha + p * vr[i];
-      m[g] = mn;
-    }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most n (0 <= n <= N) groups are pending
+template <int N = 2 * kMaxStages - 1>
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if constexpr (N == 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  } else if (n >= N) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+  } else {
+    cp_async_wait<N - 1>(n);
   }
+}
+// add 1 to a counter with release (this block's stores, ordered before by
+// a barrier, are visible first) and acquire (the other blocks' are seen)
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int x) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(x) : "memory");
+  return old;
+}
 
-  __shared__ float sm[kWarps][kMaxG], sl[kWarps][kMaxG];
-  __shared__ float sacc[kWarps][kMaxG][D];
+// a float's bits as an int of the same order, and back (its own inverse)
+__device__ __forceinline__ int ordered(int i) { return i >= 0 ? i : i ^ 0x7fffffff; }
+__device__ __forceinline__ float warp_max(float x) {   // one redux.sync
+  const int i = __reduce_max_sync(0xffffffffu, ordered(__float_as_int(x)));
+  return __int_as_float(ordered(i));
+}
+__device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      sm[warp][g] = m[g];
-      sl[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) sacc[warp][g][lane + 32 * i] = acc[g][i];
-  }
-  __syncthreads();
-  const long long base = ((long long)(b * Hkv + h) * nsplit + split) * G;
-  for (int e = threadIdx.x; e < G * D; e += kWarps * 32) {
-    const int g = e / D, d = e % D;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm[w][g]);
-    float lt = 0.f, at = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm[w][g] - mx);
-      lt += sl[w][g] * f;
-      at += sacc[w][g][d] * f;
-    }
-    part_acc[(base + g) * D + d] = at;
-    if (d == 0) {
-      part_m[base + g] = mx;
-      part_l[base + g] = lt;
-    }
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ void fma4(float4& a, float w, const float4& x) {
+  a.x = fmaf(w, x.x, a.x);
+  a.y = fmaf(w, x.y, a.y);
+  a.z = fmaf(w, x.z, a.z);
+  a.w = fmaf(w, x.w, a.w);
+}
+__device__ __forceinline__ void add4(float4& a, const float4& x) {
+  a.x += x.x;
+  a.y += x.y;
+  a.z += x.z;
+  a.w += x.w;
+}
+
+// n consecutive floats of shared memory (n = 1, 2 or 4; aligned to n)
+template <int N>
+__device__ __forceinline__ void load_n(const float* src, float (&dst)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    dst[0] = x.x; dst[1] = x.y;
+  } else {
+    dst[0] = *src;
   }
 }
 
-__global__ void decode_combine(const float* __restrict__ part_m,
-                               const float* __restrict__ part_l,
-                               const float* __restrict__ part_acc, int Hkv,
-                               int G, int D, int nsplit,
-                               float* __restrict__ out) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long bh = (long long)b * Hkv + h;
-  for (int e = threadIdx.x; e < G * D; e += blockDim.x) {
-    const int g = e / D, d = e % D;
-    float mx = kNegInf;
-    for (int s = 0; s < nsplit; ++s)
-      mx = fmaxf(mx, part_m[(bh * nsplit + s) * G + g]);
-    float lt = 0.f, at = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const long long i = (bh * nsplit + s) * G + g;
-      const float f = expf(part_m[i] - mx);
-      lt += part_l[i] * f;
-      at += part_acc[i * D + d] * f;
+// A row with no valid slot: the oracle's softmax over S equal scores of
+// -1e30 weighs every slot 1/S, so each query head gets V's mean over the
+// whole buffer. `red` holds kThreads * 4 floats of scratch.
+template <int D>
+__device__ void mean_of_v(const Params& p, int b, int h, long long bh,
+                          float* red) {
+  constexpr int C = D / 4, NR = kThreads / C;
+  const int tid = threadIdx.x, c = tid % C, grp = tid / C;
+  const float4* vb =
+      reinterpret_cast<const float4*>(p.v + ((long long)b * p.S * p.Hkv + h) * D) + c;
+  const long long stride = (long long)p.Hkv * C;   // float4s from slot to slot
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = grp; s < p.S; s += NR) add4(a, __ldg(vb + s * stride));
+  reinterpret_cast<float4*>(red)[grp * C + c] = a;
+  __syncthreads();
+  if (tid < C) {
+    float4 t = reinterpret_cast<float4*>(red)[tid];
+    for (int r = 1; r < NR; ++r) add4(t, reinterpret_cast<float4*>(red)[r * C + tid]);
+    const float n = (float)p.S;
+    t = make_float4(t.x / n, t.y / n, t.z / n, t.w / n);
+    for (int g = 0; g < p.G; ++g)
+      reinterpret_cast<float4*>(p.out + (bh * p.G + g) * D)[tid] = t;
+  }
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_decode_kernel(const Params p) {
+  using L = Smem<D>;
+  constexpr int C = D / 4;             // float4 columns of a row
+  constexpr int NR = kThreads / C;     // slot groups of the P V pass
+  constexpr int SPG = kTile / NR;      // consecutive slots of a group
+  constexpr int KQ = C / kWarps;       // float4s of a warp's slice of D
+  constexpr int kCopies = 2 * kTile * C / kThreads;   // cp.async a thread, a tile
+  static_assert(SPG >= 1 && KQ >= 1 && kCopies >= 2, "D must be 32, 64 or 128");
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int last_s;
+  float* qs = smem + L::kQ;
+  float* part = smem + L::kPart;
+  float* ps = smem + L::kP;
+  float* alpha_s = smem + L::kAlpha;
+  float* m_s = smem + L::kM;
+  float* l_s = smem + L::kL;
+  unsigned* mask_s = reinterpret_cast<unsigned*>(smem + L::kMask);
+  float* ring = smem + L::kRing;
+
+  const int rg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long bh = (long long)b * p.Hkv + h;
+  const int s0 = rg * p.range;
+  const int s1 = min(p.S, s0 + p.range);
+  const int ntiles = (s1 - s0 + kTile - 1) / kTile;
+
+  // the range's slot positions, every load in flight, then a bit per valid
+  // slot and tile
+  {
+    const int len = __ldg(p.lengths + b);
+    const int* sp = p.slot_pos + (long long)b * p.S;
+    constexpr int kPer = kMaxTiles / kWarps;
+    int pos[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int s = s0 + (i * kWarps + warp) * kTile + lane;
+      pos[i] = s < s1 ? __ldg(sp + s) : -1;
     }
-    out[(bh * G + g) * D + d] = at / fmaxf(lt, 1e-20f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = i * kWarps + warp;
+      const unsigned bits =
+          __ballot_sync(0xffffffffu, pos[i] >= 0 && pos[i] <= len);
+      if (lane == 0 && t < ntiles) mask_s[t] = bits;
+    }
+  }
+  // the G query rows of this KV head, scaled
+  if (tid < G * C) {
+    float4 x = __ldg(reinterpret_cast<const float4*>(p.q + bh * G * D) + tid);
+    reinterpret_cast<float4*>(qs)[tid] =
+        make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
+  }
+  __syncthreads();
+  // busy tiles (with a valid slot) in ascending order: every thread walks
+  // the masks itself, the same way
+  auto next_busy = [&](int t) {
+    while (t < ntiles && mask_s[t] == 0u) ++t;
+    return t;
+  };
+
+  // the j-th busy tile, t, into ring slot j % stages, as two groups, K then
+  // V (two empty ones past the last); copy n of a thread is row
+  // (tid + n * kThreads) / C, column c
+  const int c = tid % C;
+  int t_copy = next_busy(0);
+  auto issue = [&](int j) {
+    const int t = t_copy;
+    if (t < ntiles) {
+      t_copy = next_busy(t + 1);
+      const unsigned bits = mask_s[t];
+      float* dst = ring + (j % p.stages) * L::kStageF + c * 4;
+      const long long row0 = ((long long)b * p.S + s0 + t * kTile) * p.Hkv + h;
+      const float* kb = p.k + row0 * D + c * 4;
+      const float* vb = p.v + row0 * D + c * 4;
+#pragma unroll
+      for (int n = 0; n < kCopies; ++n) {
+        const bool isv = n >= kCopies / 2;
+        const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
+        const bool ok = (bits >> slot) & 1u;
+        const long long off = (long long)slot * p.Hkv * D;
+        cp_async16(dst + (isv ? L::kTileF : 0) + slot * L::kLd,
+                   ok ? (isv ? vb : kb) + off : p.k, ok ? 16 : 0);
+        if (n == kCopies / 2 - 1) cp_async_commit();
+      }
+    } else {
+      cp_async_commit();
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < p.stages; ++j) issue(j);
+
+  // warp g: query head g's running max, and its lane's share of the sum
+  float m_run = kNegInf, l_lane = 0.f;
+  float4 acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int grp = tid / C;
+
+  int j = 0;
+  for (int t = next_busy(0); t < ntiles; t = next_busy(t + 1), ++j) {
+    cp_async_wait(2 * p.stages - (j == 0 ? 1 : 3));
+    __syncthreads();                   // tile j's K landed; tile j - 1 read
+    if (j > 0) issue(j + p.stages - 1);     // into tile j - 1's slot
+    const float* ks = ring + (j % p.stages) * L::kStageF;
+    const float* vs = ks + L::kTileF;
+
+    {  // partial scores: lane = slot, warp = an eighth of D
+      float4 kr[KQ];
+      const float* krow = ks + lane * L::kLd + warp * (D / kWarps);
+#pragma unroll
+      for (int i = 0; i < KQ; ++i)
+        kr[i] = *reinterpret_cast<const float4*>(krow + 4 * i);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float* qrow = qs + g * D + warp * (D / kWarps);
+        float sc = 0.f;
+#pragma unroll
+        for (int i = 0; i < KQ; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(qrow + 4 * i);
+          sc = fmaf(qv.x, kr[i].x, sc);
+          sc = fmaf(qv.y, kr[i].y, sc);
+          sc = fmaf(qv.z, kr[i].z, sc);
+          sc = fmaf(qv.w, kr[i].w, sc);
+        }
+        part[(warp * kMaxG + g) * kTile + lane] = sc;
+      }
+    }
+    cp_async_wait(2 * p.stages - 2);
+    __syncthreads();                   // the partial scores and tile j's V
+    if (warp < G) {                    // softmax: warp g, query head g
+      const int g = warp;
+      const unsigned bits = mask_s[t];
+      float sc = part[g * kTile + lane];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) sc += part[(w * kMaxG + g) * kTile + lane];
+      if (!((bits >> lane) & 1u)) sc = kNegInf;
+      const float mn = fmaxf(m_run, warp_max(sc));
+      const float a = expf(m_run - mn);
+      const float pr = expf(sc - mn);
+      l_lane = l_lane * a + pr;
+      m_run = mn;
+      ps[g * kTile + lane] = pr;
+      if (lane == 0) alpha_s[g] = a;
+    }
+    __syncthreads();
+    // P V: group grp takes slots grp * SPG .. + SPG - 1, a lane 4 columns
+    float4 vv[SPG];
+#pragma unroll
+    for (int n = 0; n < SPG; ++n)
+      vv[n] = *reinterpret_cast<const float4*>(vs + (grp * SPG + n) * L::kLd + c * 4);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float a = alpha_s[g];
+      acc[g] = make_float4(acc[g].x * a, acc[g].y * a, acc[g].z * a,
+                           acc[g].w * a);
+      float pg[SPG];
+      load_n<SPG>(ps + g * kTile + grp * SPG, pg);
+#pragma unroll
+      for (int n = 0; n < SPG; ++n) fma4(acc[g], pg[n], vv[n]);
+    }
+  }
+  cp_async_wait(0);
+  __syncthreads();                     // the ring is free
+
+  float* red = ring;                   // (NR, kMaxG, D) slot groups' sums
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    reinterpret_cast<float4*>(red + (grp * kMaxG + g) * D)[c] = acc[g];
+  if (warp < G) {
+    const float l = warp_sum(l_lane);
+    if (lane == 0) {
+      m_s[warp] = m_run;
+      l_s[warp] = l;
+    }
+  }
+  __syncthreads();
+  // the range's acc of element e = (g, column): the groups in order
+  auto range_acc = [&](int e) {
+    const int g = e / C, cc = e % C;
+    float4 a = reinterpret_cast<const float4*>(red + g * D)[cc];
+#pragma unroll
+    for (int r = 1; r < NR; ++r)
+      add4(a, reinterpret_cast<const float4*>(red + (r * kMaxG + g) * D)[cc]);
+    return a;
+  };
+
+  if (p.ranges == 1) {                 // the whole row: normalise and store
+    if (j == 0) {                      // no busy tile: no valid slot
+      mean_of_v<D>(p, b, h, bh, red);
+      return;
+    }
+    for (int e = tid; e < G * C; e += kThreads) {
+      const float4 a = range_acc(e);
+      const float d = fmaxf(l_s[e / C], 1e-20f);
+      reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
+          make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
+    }
+    return;
+  }
+
+  // this range's (m, l, acc) to scratch
+  const long long nparts = (long long)gridDim.z * p.Hkv * p.ranges;
+  float4* pacc = reinterpret_cast<float4*>(p.parts);      // (nparts, G, C)
+  float* pm = p.parts + nparts * G * D;                    // (nparts, G)
+  float* pl = pm + nparts * G;
+  const long long first = bh * p.ranges;                   // this (b, h)'s range 0
+  for (int e = tid; e < G * C; e += kThreads)
+    pacc[(first + rg) * G * C + e] = range_acc(e);
+  if (tid < G) {
+    pm[(first + rg) * G + tid] = m_s[tid];
+    pl[(first + rg) * G + tid] = l_s[tid];
+  }
+  __syncthreads();
+  if (tid == 0) last_s = atomic_add_acq_rel(p.counts + bh, 1) == p.ranges - 1;
+  __syncthreads();
+  if (!last_s) return;
+  if (tid == 0) p.counts[bh] = 0;      // ready for the next launch
+
+  // the last block: the first kR ranges' partials of its elements in
+  // flight first; meanwhile warp g takes head g's (m, l) of every range,
+  // M, each weight exp(m_r - M) once and the denominator in ascending
+  // order; then the elements, in ascending order of the ranges
+  const int nr = p.ranges;
+  constexpr int kE = (kMaxG * C + kThreads - 1) / kThreads;  // elements a thread
+  const float4* src = pacc + first * G * C;
+  int ee[kE];
+  float4 x[kR][kE];
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    ee[i] = min(tid + i * kThreads, G * C - 1);
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+      x[j][i] = __ldcg(src + (long long)min(j, nr - 1) * G * C + ee[i]);
+  }
+  float* w_s = ring;                         // (nr, G) weights
+  float* big_m = ring + kMaxRanges * kMaxG;  // (kMaxG) M
+  float* den = big_m + kMaxG;                // (kMaxG)
+  if (warp < G) {                      // lane: ranges lane, lane + 32, ...
+    const int g = warp;
+    constexpr int kPerLane = kMaxRanges / 32;
+    float mr[kPerLane], lr[kPerLane];
+    float mx = kNegInf;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int r = lane + 32 * k;
+      mr[k] = r < nr ? __ldcg(pm + (first + r) * G + g) : kNegInf;
+      lr[k] = r < nr ? __ldcg(pl + (first + r) * G + g) : 0.f;
+      mx = fmaxf(mx, mr[k]);
+    }
+    mx = warp_max(mx);
+    float d = 0.f;                     // every lane: the ranges in order
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int r = lane + 32 * k;
+      const float w = r < nr ? expf(mr[k] - mx) : 0.f;
+      if (r < nr) w_s[r * G + g] = w;
+      for (int src = 0; src < 32 && 32 * k + src < nr; ++src)
+        d = fmaf(__shfl_sync(0xffffffffu, w, src),
+                 __shfl_sync(0xffffffffu, lr[k], src), d);
+    }
+    if (lane == 0) {
+      den[g] = fmaxf(d, 1e-20f);
+      big_m[g] = mx;
+    }
+  }
+  __syncthreads();
+  if (big_m[0] == kNegInf) {           // no valid slot in the whole row
+    mean_of_v<D>(p, b, h, bh, ring);   // over the weights, read no more
+    return;
+  }
+  float4 o[kE];
+#pragma unroll
+  for (int i = 0; i < kE; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < nr; r0 += kR) {
+    if (r0 > 0) {
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+#pragma unroll
+        for (int i = 0; i < kE; ++i)
+          x[j][i] = __ldcg(src + (long long)min(r0 + j, nr - 1) * G * C + ee[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      if (r0 + j >= nr) break;
+#pragma unroll
+      for (int i = 0; i < kE; ++i)
+        fma4(o[i], w_s[(r0 + j) * G + ee[i] / C], x[j][i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    const int e = tid + i * kThreads;
+    if (e >= G * C) break;
+    const float d = den[e / C];
+    reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
+        make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);
+  }
+}
+
+template <int D, int G>
+int launch(const Params& p, int B, cudaStream_t st) {
+  using L = Smem<D>;
+  static unsigned long long ready = 0;   // the shared-memory opt-in, once
+  int dev = 0;                           // per device
+  cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ready & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::bytes(kMaxStages));
+    if (e != cudaSuccess) return (int)e;
+    ready |= bit;
+  }
+  flash_decode_kernel<D, G><<<dim3(p.ranges, p.Hkv, B), kThreads,
+                              L::bytes(p.stages), st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// G, the query heads of a KV head, is a compile-time constant of the
+// kernel, so that its loops over heads unroll whole
+template <int D>
+int launch_g(const Params& p, int B, cudaStream_t st) {
+  switch (p.G) {
+    case 1: return launch<D, 1>(p, B, st);
+    case 2: return launch<D, 2>(p, B, st);
+    case 3: return launch<D, 3>(p, B, st);
+    case 4: return launch<D, 4>(p, B, st);
+    case 5: return launch<D, 5>(p, B, st);
+    case 6: return launch<D, 6>(p, B, st);
+    case 7: return launch<D, 7>(p, B, st);
+    case 8: return launch<D, 8>(p, B, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success). The partial buffers hold
-// B*Hkv*nsplit*G floats (m, l) and B*Hkv*nsplit*G*D floats (acc).
+// q (B, Hkv, G, D), k and v (B, S, Hkv, D) fp32, 16-byte aligned;
+// slot_pos (B, S) and lengths (B,) int32; out (B, Hkv, G, D). Ranges of
+// `range` slots (a multiple of 32, at most 2048; the last one takes the
+// rest of S); a ring of `stages` tiles (1 to 6; 1 only where a range is one
+// tile). With more than one range, parts holds parts_floats floats (at
+// least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least B*Hkv,
+// all 0; they are 0 again when the launch ends). Returns a cudaError_t (0
+// on success).
 extern "C" int flash_decode_fwd(const float* q, const float* k,
                                 const float* v, const int* slot_pos,
-                                const int* lengths, int B, int S, int Hkv,
-                                int G, int D, int nsplit, int chunk,
-                                float scale, float* part_m, float* part_l,
-                                float* part_acc, float* out, void* stream) {
+                                const int* lengths, float* out, float* parts,
+                                long long parts_floats, int* counts,
+                                long long count_ints, int B, int S, int Hkv,
+                                int G, int D, int range, int stages,
+                                float scale, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || G > kMaxG || stages < kMinStages ||
+      stages > kMaxStages || (stages < 2 && range != kTile) || range < kTile ||
+      range % kTile || range > kMaxTiles * kTile)
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.slot_pos = slot_pos;
+  p.lengths = lengths;
+  p.out = out;
+  p.parts = parts;
+  p.counts = counts;
+  p.S = S;
+  p.Hkv = Hkv;
+  p.G = G;
+  p.range = range;
+  p.ranges = (S + range - 1) / range;
+  p.stages = stages;
+  p.scale = scale;
+  if (p.ranges > kMaxRanges) return (int)cudaErrorInvalidValue;
+  if (p.ranges > 1 &&
+      (!parts || !counts || count_ints < (long long)B * Hkv ||
+       parts_floats < (long long)B * Hkv * p.ranges * G * (D + 2)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
-  dim3 grid(nsplit, Hkv, B);
   switch (D) {
-    case 32:
-      decode_partial<32><<<grid, kWarps * 32, 0, st>>>(
-          q, k, v, slot_pos, lengths, S, Hkv, G, chunk, scale, part_m,
-          part_l, part_acc);
-      break;
-    case 64:
-      decode_partial<64><<<grid, kWarps * 32, 0, st>>>(
-          q, k, v, slot_pos, lengths, S, Hkv, G, chunk, scale, part_m,
-          part_l, part_acc);
-      break;
-    case 128:
-      decode_partial<128><<<grid, kWarps * 32, 0, st>>>(
-          q, k, v, slot_pos, lengths, S, Hkv, G, chunk, scale, part_m,
-          part_l, part_acc);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: return launch_g<32>(p, B, st);
+    case 64: return launch_g<64>(p, B, st);
+    case 128: return launch_g<128>(p, B, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  decode_combine<<<dim3(Hkv, B), 256, 0, st>>>(part_m, part_l, part_acc, Hkv,
-                                                G, D, nsplit, out);
-  return (int)cudaGetLastError();
 }

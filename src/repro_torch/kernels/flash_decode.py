@@ -2,33 +2,82 @@
 (``csrc/flash_decode.cu``; it replaces ``repro/kernels/flash_decode.py``'s
 ``_flash_kernel``).
 
-``flash_decode`` launches it on CUDA tensors only; the plain version is
-``kernels/ref.py``'s ``flash_decode_ref`` and the device dispatch lives in
-``kernels/ops.py``.
+``flash_decode`` launches it on CUDA tensors only, one launch a call; the
+plain version is ``kernels/ref.py``'s ``flash_decode_ref`` and the device
+dispatch lives in ``kernels/ops.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-#: launches of the kernel since the count was last set to 0
+#: launches of the kernel since the count was last set to 0 (the ranges'
+#: combine runs inside the same launch)
 launches = 0
 
-_MAX_G = 8
+#: slots of a tile: one per lane of a warp
+TILE = 32
+#: query heads per KV head the kernel takes
+MAX_G = 8
+#: blocks of one row wanted on each SM at most: a row's ranges fit one wave
+#: (measured: at 4 K and 32 K slots a block per SM streaming long ranges
+#: beats two with half as many tiles, and both beat a wave and a bit)
+BLOCKS_PER_SM = 1
+#: cp.async ring depth, in tiles (1 to 6; no deeper than the longest range)
+STAGES = 3
+#: slots per range when > 0 (a multiple of TILE), whatever the rule says
+RANGE_SLOTS = 0
+#: a range's tiles and a row's ranges, at most (the kernel's limits)
+MAX_RANGE_TILES = 64
+MAX_RANGES = 128
+
 _fn = None
+#: per device: the ranges' partials and counters (the counters all 0
+#: between launches: each launch sets the ones it used back to 0)
+_scratch_cache: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+class Plan(NamedTuple):
+    range_slots: int    # absolute slots a block takes, a multiple of TILE
+    stages: int         # cp.async ring depth, in tiles
+
+
+def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
+    """A block's range and ring from one row's shape and the card's SM
+    count, never from B, the lengths or the slot positions: ranges of a
+    whole number of tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one
+    row on every SM and no more, within the kernel's limits (``RANGE_SLOTS``
+    > 0 sets the range instead); a ring of ``STAGES`` tiles, or of a
+    range's tiles where that is shorter (and of 2 at least for more than
+    one tile). G and D do not change the plan."""
+    tiles = math.ceil(S / TILE)
+    if RANGE_SLOTS:
+        per = RANGE_SLOTS // TILE
+    else:
+        per = math.ceil(tiles / max(1, BLOCKS_PER_SM * sms // Hkv))
+    per = min(max(per, math.ceil(tiles / MAX_RANGES)), tiles, MAX_RANGE_TILES)
+    # a ring of one stage holds a one-tile range only
+    return Plan(per * TILE, max(min(STAGES, per), min(2, per)))
+
+
+def ranges(S: int, range_slots: int) -> int:
+    """Ranges of a row of S slots: ``range_slots`` each from slot 0, the
+    last one the rest of S."""
+    return math.ceil(S / range_slots)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("flash_decode").flash_decode_fwd
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float,
-                       P, P, P, P, P]
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I,
+                       ctypes.c_float, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -39,6 +88,53 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"flash_decode: {msg}")
 
 
+def check_inputs(q, k, v, slot_positions, lengths):
+    """Shape, dtype and layout checks (before the device's, so that they
+    hold on any device), then :func:`_on_device`."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.dtype == torch.float32 and t.dim() == 4
+                 and t.is_contiguous(), f"{name} must be contiguous 4-D float32")
+    B, Hkv, G, D = q.shape
+    S = k.shape[1]
+    _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
+             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
+    _require(1 <= G <= MAX_G, f"G={G} query heads per KV head not in "
+             f"1..{MAX_G}")
+    _require(slot_positions.dtype == torch.int32
+             and tuple(slot_positions.shape) == (B, S)
+             and slot_positions.is_contiguous(),
+             "slot_positions must be contiguous int32 (B, S)")
+    _require(lengths.dtype == torch.int32 and tuple(lengths.shape) == (B,)
+             and lengths.is_contiguous(),
+             "lengths must be contiguous int32 (B,)")
+    _on_device(q, k, v, slot_positions, lengths)
+
+
+def _on_device(q, k, v, slot_positions, lengths):
+    """Every input on q's device, a CUDA device; q, k and v 16-byte
+    aligned (the kernel reads them 16 bytes at a time)."""
+    for t in (k, v, slot_positions, lengths):
+        _require(t.device == q.device, f"inputs must all be on {q.device}")
+    _require(q.is_cuda, "q must be a CUDA tensor")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+
+
+def _scratch(floats: int, counters: int, device):
+    """The ranges' partials (kept, grown on demand) and counters (kept,
+    zeroed once): no allocation or memset per call on one stream."""
+    parts, counts = _scratch_cache.get(device, (None, None))
+    if parts is None or parts.numel() < floats:
+        parts = torch.empty(max(floats, 1 << 16), dtype=torch.float32,
+                            device=device)
+    if counts is None or counts.numel() < counters:
+        counts = torch.zeros(max(counters, 1024), dtype=torch.int32,
+                             device=device)
+    _scratch_cache[device] = (parts, counts)
+    return parts, counts
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  slot_positions: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
@@ -46,46 +142,27 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     absolute position per cache slot (-1 = empty); lengths: (B,) int32
     current decode position (inclusive). Returns (B, Hkv, G, D) float32."""
     global launches
-    _require(q.is_cuda, "q must be a CUDA tensor")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == q.device and t.dtype == torch.float32
-                 and t.is_contiguous(),
-                 f"{name} must be contiguous float32 on {q.device}")
-    _require(q.dim() == 4 and k.dim() == 4, "q and k must be 4-D")
+    check_inputs(q, k, v, slot_positions, lengths)
     B, Hkv, G, D = q.shape
     S = k.shape[1]
-    _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
-             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
-    _require(1 <= G <= _MAX_G, f"G={G} query heads per KV head > {_MAX_G}")
-    _require(slot_positions.device == q.device
-             and slot_positions.dtype == torch.int32
-             and tuple(slot_positions.shape) == (B, S)
-             and slot_positions.is_contiguous(),
-             "slot_positions must be contiguous int32 (B, S)")
-    _require(lengths.device == q.device and lengths.dtype == torch.int32
-             and tuple(lengths.shape) == (B,) and lengths.is_contiguous(),
-             "lengths must be contiguous int32 (B,)")
     out = torch.empty((B, Hkv, G, D), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out.zero_()
-    # the split of the S axis depends on one row's shape only, never on B,
-    # so that a row sums in the same order alone and beside other rows
-    sms = build.sm_count(q.device)
-    nsplit = max(1, min(math.ceil(S / 16), math.ceil(2 * sms / Hkv)))
-    chunk = math.ceil(S / nsplit)
-    nsplit = math.ceil(S / chunk)
-    part_m = torch.empty((B, Hkv, nsplit, G), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, Hkv, nsplit, G, D), dtype=torch.float32,
-                           device=q.device)
+    plan = _plan(S, Hkv, G, D, build.sm_count(q.device))
+    n = ranges(S, plan.range_slots)
+    parts = counts = None
+    if n > 1:
+        parts, counts = _scratch(B * Hkv * n * G * (D + 2), B * Hkv, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     slot_positions.data_ptr(), lengths.data_ptr(),
-                    B, S, Hkv, G, D, nsplit, chunk, 1.0 / math.sqrt(D),
-                    part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                    out.data_ptr(), stream)
+                    out.data_ptr(),
+                    None if parts is None else parts.data_ptr(),
+                    0 if parts is None else parts.numel(),
+                    None if counts is None else counts.data_ptr(),
+                    0 if counts is None else counts.numel(),
+                    B, S, Hkv, G, D, plan.range_slots, plan.stages,
+                    1.0 / math.sqrt(D), stream)
     build.check(err, "flash_decode_fwd")
     launches += 1
     return out

@@ -119,20 +119,18 @@ def atu_update(bank, unit, src_idx, dst_idx, *, bg: int = 8):
                              dst_idx.to(torch.int32).contiguous(), bg=bg)
 
 
-def decode_attention(q, k, v, q_pos, kv_pos, kv_valid):
+def decode_attention(q, k, v, slots, lengths):
     """One query token per row over the cache buffer, causal by absolute
-    position and restricted to ``kv_valid`` slots.
-    q: (B, 1, Hq, D); k, v: (B, S, Hkv, D); q_pos: (B, 1); kv_pos and
-    kv_valid: (B, S). Returns (B, 1, Hq, D)."""
+    position. q: (B, 1, Hq, D) at positions ``lengths`` (B,) int32; k, v:
+    (B, S, Hkv, D); slots: (B, S) int32, each slot's position, -1 where it
+    takes no part (``models/transformer.decode_slots``, built once per
+    forward). Returns (B, 1, Hq, D)."""
     if _on_cpu(q):
-        return chunked_attention(q, k, v, q_pos, kv_pos, kv_valid=kv_valid)
+        return chunked_attention(q, k, v, lengths[:, None], slots,
+                                 kv_valid=slots >= 0)
     B, _, Hq, D = q.shape
-    Hkv = k.shape[2]
-    slots = torch.where(kv_valid, kv_pos, torch.full_like(kv_pos, -1))
-    out = flash_decode(q.reshape(B, Hkv, Hq // Hkv, D).contiguous(),
-                       k.contiguous(), v.contiguous(),
-                       slots.to(torch.int32).contiguous(),
-                       q_pos[:, 0].to(torch.int32).contiguous())
+    out = flash_decode(q.reshape(B, k.shape[2], Hq // k.shape[2], D), k, v,
+                       slots, lengths)
     return out.reshape(B, 1, Hq, D)
 
 

@@ -212,13 +212,25 @@ def row_positions(cache, batch: int) -> torch.Tensor:
 # Layer forward
 
 
-def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False):
+def decode_slots(pos0, sbuf: int):
+    """The decode step's attention mask, built once per forward and shared
+    by every layer: (slot positions (B, sbuf) int32, each slot's index where
+    it lies at or before its row's position and -1 above it; lengths (B,)
+    int32, the rows' positions)."""
+    lengths = pos0.to(torch.int32)
+    slots = torch.arange(sbuf, dtype=torch.int32, device=pos0.device)[None]
+    return torch.where(slots <= lengths[:, None], slots, -1), lengths
+
+
+def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
+               slots=None):
     """x: (B, S, d). kv: this layer's {'k', 'v'} cache views, updated in
     place. pos0: (B,) int64 start positions on x's device (all 0 for
     "prefill"). mode: "decode" (one token at pos0), "prefill" (from 0) or
     "prefill_resume" (an S-token chunk at pos0, attending over the whole
     buffer). ``rows``: the batch rows are separate requests: per-row FFN
-    active sets, and the products and norms run one row at a time. Returns
+    active sets, and the products and norms run one row at a time.
+    ``slots``: :func:`decode_slots` of pos0 (decode only). Returns
     (y, active ids: (k,) or (B, k) with ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -251,14 +263,11 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False):
         # or a dynamic_update_slice into a new buffer; the port overwrites
         # the rows' slots of the cache in place
         ck, cv = kv["k"], kv["v"]
-        sbuf = ck.shape[1]
         b_idx = torch.arange(B, device=x.device)[:, None]
         ck[b_idx, positions] = k.to(ck.dtype)
         cv[b_idx, positions] = v.to(cv.dtype)
-        kv_pos_b = torch.arange(sbuf, device=x.device)[None].expand(B, sbuf)
         if mode == "decode":
-            attn_out = ops.decode_attention(q, ck, cv, positions, kv_pos_b,
-                                            kv_pos_b <= pos0[:, None])
+            attn_out = ops.decode_attention(q, ck, cv, *slots)
         else:
             # causal mask kv_pos <= q_pos hides the chunk's future tokens
             # and whatever sits above the prefill front
@@ -315,11 +324,13 @@ def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True,
                          f"{pos.tolist()} outside the cache buffer of "
                          f"{sbuf} slots")
     pos0 = pos.to(x.device)
+    slots = decode_slots(pos0, sbuf) if mode == "decode" else None
 
     idxs = []
     for l, p in enumerate(params["layers"]):
         kv = {n: cache["pattern"][0][n][l] for n in ("k", "v")}
-        x, idx = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows)
+        x, idx = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows,
+                            slots=slots)
         idxs.append(idx)
 
     def head(t):

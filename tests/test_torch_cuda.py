@@ -172,20 +172,101 @@ def test_qmatmul_each_kernel_row_alone_equals_grouped(dev, monkeypatch, prec,
     assert torch.equal(alone[0], got[3])
 
 
-@pytest.mark.parametrize("B,S,Hkv,G,D", [(4, 145, 8, 5, 128), (2, 37, 2, 4, 32),
-                                         (1, 1000, 1, 8, 64)])
-def test_flash_decode_matches_plain(dev, B, S, Hkv, G, D):
+def _decode_inputs(dev, B, S, Hkv, G, D, seed=0):
+    """q, k, v of a decode step from a seeded generator, and each slot at
+    its own index as position."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Hkv, G, D, generator=g, device=dev)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev)
+    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    return q, k, v, slots
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,ring", [
+    (4, 145, 8, 5, 128, False), (2, 37, 2, 4, 32, False),
+    (1, 1000, 1, 8, 64, False), (2, 4096, 8, 5, 128, False),
+    (1, 32768, 8, 5, 128, False),
+    (1, 256, 1, 2, 32, True),             # tests/test_kernels.py's ring
+    (3, 4096, 8, 5, 128, True)])
+def test_flash_decode_matches_plain(dev, B, S, Hkv, G, D, ring):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import flash_decode
-    q = torch.randn(B, Hkv, G, D, device=dev)
-    k, v = torch.randn(B, S, Hkv, D, device=dev), torch.randn(B, S, Hkv, D,
-                                                              device=dev)
-    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
-    slots[0, :2] = -1
-    lengths = torch.randint(0, S, (B,), device=dev, dtype=torch.int32)
+    q, k, v, slots = _decode_inputs(dev, B, S, Hkv, G, D, seed=S)
+    if ring:       # a ring buffer wrapped past S: slot i holds the position
+        now = S + 44                  # now - ((now - i) mod S)
+        slots = now - torch.remainder(now - slots, S)
+        lengths = torch.tensor([now - 50 * b for b in range(B)], device=dev,
+                               dtype=torch.int32)
+    else:
+        slots[0, :2] = -1
+        lengths = torch.from_numpy(np.random.default_rng(S).integers(
+            0, S, B).astype(np.int32)).to(dev)
     torch.testing.assert_close(flash_decode(q, k, v, slots, lengths),
                                ref.flash_decode_ref(q, k, v, slots, lengths),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [20, 145, 4096])
+def test_flash_decode_row_without_a_valid_slot_equals_plain(dev, S):
+    """A row whose slots are all empty, and one whose length is below every
+    position, give the plain version's uniform weights (V's mean), in the
+    one-range and the several-range form; the row beside them is normal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, slots = _decode_inputs(dev, 3, S, 8, 5, 128)
+    slots[1] = -1
+    lengths = torch.tensor([S - 3, S - 1, -1], device=dev, dtype=torch.int32)
+    torch.testing.assert_close(flash_decode(q, k, v, slots, lengths),
+                               ref.flash_decode_ref(q, k, v, slots, lengths),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [145, 4096])
+def test_flash_decode_masked_slots_change_no_bit(dev, S):
+    """NaN and Inf in masked slots (empty slots, and slots above a row's
+    length) leave every output bit as zeros there do."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, slots = _decode_inputs(dev, 4, S, 8, 5, 128)
+    slots[1, 5:9] = -1
+    slots[2, 40:100] = -1
+    lengths = torch.tensor([S - 1, S // 2, S - 17, 70], device=dev,
+                           dtype=torch.int32)
+    masked = ~((slots >= 0) & (slots <= lengths[:, None]))
+    kz, vz, kn, vn = k.clone(), v.clone(), k.clone(), v.clone()
+    kz[masked], vz[masked] = 0.0, 0.0
+    kn[masked], vn[masked] = float("nan"), float("inf")
+    want = flash_decode(q, kz, vz, slots, lengths)
+    assert torch.equal(flash_decode(q, kn, vn, slots, lengths), want)
+    assert torch.equal(flash_decode(q, k, v, slots, lengths), want)
+
+
+@pytest.mark.parametrize("S", [145, 4096])
+def test_flash_decode_row_alone_equals_row_in_group(dev, S):
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, slots = _decode_inputs(dev, 4, S, 8, 5, 128)
+    lengths = torch.tensor([S - 1, S // 3, S - 9, 40], device=dev,
+                           dtype=torch.int32)
+    got = flash_decode(q, k, v, slots, lengths)
+    for b in range(4):
+        alone = flash_decode(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                             v[b:b + 1].contiguous(),
+                             slots[b:b + 1].contiguous(),
+                             lengths[b:b + 1].contiguous())
+        assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("B,S", [(4, 145), (4, 4096), (1, 32768)])
+def test_flash_decode_repeats_bitwise_in_one_launch(dev, B, S):
+    """Two calls give the same bits (the ranges' counters are back at 0
+    after each launch), and each call is one launch."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, slots = _decode_inputs(dev, B, S, 8, 5, 128)
+    lengths = torch.full((B,), S - 1, device=dev, dtype=torch.int32)
+    before = fd.launches
+    first = fd.flash_decode(q, k, v, slots, lengths)
+    assert torch.equal(fd.flash_decode(q, k, v, slots, lengths), first)
+    assert fd.launches == before + 2
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,mag", [

@@ -1,0 +1,255 @@
+"""The decode attention kernel's plan, its wrapper's checks and the decode
+step's mask, on the CPU.
+
+``kernels/flash_decode._plan`` sets the slots a block takes (its range)
+and the depth of its copy ring from one row's shape and the card's SM
+count, and nothing else, so a row's bits on the card do not depend on the
+rows beside it. The wrapper is run here up to the launch, with the launch
+replaced by a recorder, to show that B and the lengths never reach the
+plan. ``models/transformer.forward(mode="decode")`` builds the slot mask
+once (``decode_slots``) and every layer shares it; the forward still
+equals the reference. The kernel itself runs only on the card
+(``tests/test_torch_cuda.py``)."""
+import inspect
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_config
+from repro.models import transformer as JT
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.models import transformer as T
+
+
+def test_plan_takes_one_rows_shape_only():
+    assert list(inspect.signature(fd._plan).parameters) == ["S", "Hkv", "G",
+                                                            "D", "sms"]
+
+
+def test_main_path_plans():
+    # serve decode: a 145-slot cache in 5 ranges of one tile, a ring of one
+    assert fd._plan(145, 8, 5, 128, 132) == fd.Plan(32, 1)
+    assert fd.ranges(145, 32) == 5
+    # the server's 128-slot bucket: 4 ranges of one tile
+    assert fd._plan(128, 8, 5, 128, 132) == fd.Plan(32, 1)
+    # 4 K slots: 16 ranges of 8 tiles; 32 K: 16 of 64 tiles, so that one
+    # row alone puts a block on 128 of the 132 SMs, one wave
+    assert fd._plan(4096, 8, 5, 128, 132) == fd.Plan(256, 3)
+    assert fd._plan(32768, 8, 5, 128, 132) == fd.Plan(2048, 3)
+    assert fd.ranges(4096, 256) == fd.ranges(32768, 2048) == 16
+
+
+@pytest.mark.parametrize("S", [1, 37, 145, 1000, 4096, 32768, 200000])
+@pytest.mark.parametrize("Hkv", [1, 2, 8])
+def test_ranges_cover_the_buffer_in_order(S, Hkv):
+    plan = fd._plan(S, Hkv, 5, 128, 132)
+    R = plan.range_slots
+    assert R % fd.TILE == 0 and fd.TILE <= R <= fd.MAX_RANGE_TILES * fd.TILE
+    n = fd.ranges(S, R)
+    assert 1 <= n <= fd.MAX_RANGES
+    bounds = [(r * R, min(S, (r + 1) * R)) for r in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(a < b for a, b in bounds)
+    assert all(b0[1] == b1[0] for b0, b1 in zip(bounds, bounds[1:]))
+    # no range is wider than the buffer rounded up to a tile
+    tiles = math.ceil(S / fd.TILE)
+    assert R <= fd.TILE * tiles
+    # one row's blocks fit one wave, and a long row nearly fills it (whole
+    # tiles a range cost the rest), or has a range per tile, or the longest
+    # ranges
+    if R < fd.MAX_RANGE_TILES * fd.TILE:
+        assert n * Hkv <= 132
+        if S >= 4096:
+            assert n * Hkv >= 0.85 * 132 or n == tiles
+    # the ring: no deeper than STAGES or a range's tiles; one stage only
+    # for one-tile ranges
+    per = R // fd.TILE
+    assert plan.stages == max(min(fd.STAGES, per), min(2, per))
+
+
+def test_plan_knob_sets_the_range():
+    saved = fd.RANGE_SLOTS
+    try:
+        fd.RANGE_SLOTS = 256
+        assert fd._plan(4096, 8, 5, 128, 132).range_slots == 256
+        # never wider than the buffer's tiles
+        assert fd._plan(145, 8, 5, 128, 132).range_slots == 160
+    finally:
+        fd.RANGE_SLOTS = saved
+
+
+def _record_launches(monkeypatch):
+    """Replace the launch by a recorder of its arguments; everything before
+    it (checks but the device's, plan, scratch) runs as on the card."""
+    calls = []
+
+    def fake(*args):
+        calls.append(args[:-1])             # all but the stream
+        return 0
+    monkeypatch.setattr(fd, "_kernel", lambda: fake)
+    monkeypatch.setattr(fd, "_on_device", lambda *a: None)
+    monkeypatch.setattr(fd, "_scratch_cache", {})
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+
+    class _Stream:
+        cuda_stream = 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: _Stream)
+    return calls
+
+
+@pytest.mark.parametrize("S,want", [(145, (32, 1)), (4096, (256, 3))])
+def test_plan_is_the_same_for_any_batch_and_any_lengths(monkeypatch, S, want):
+    calls = _record_launches(monkeypatch)
+    rng = np.random.default_rng(0)
+    for B in (1, 4, 3):
+        q = torch.zeros(B, 8, 5, 128)
+        kv = torch.zeros(B, S, 8, 128)
+        slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+        lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
+        fd.flash_decode(q, kv, kv, slots, lengths)
+    # (B, S, Hkv, G, D, range, stages, scale) of each launch
+    assert [c[10:] for c in calls] == [
+        (B, S, 8, 5, 128, *want, 1 / math.sqrt(128)) for B in (1, 4, 3)]
+    # partials are sized for the batch, from the same range
+    n = fd.ranges(S, want[0])
+    if n > 1:
+        assert calls[1][7] >= 4 * 8 * n * 5 * 130
+        assert calls[1][9] >= 4 * 8
+
+
+def _decode(**kw):
+    """flash_decode on CPU tensors of a small decode step, with ``kw``
+    replacing any of q, k, v, slots, lengths."""
+    args = {"q": torch.zeros(2, 2, 4, 32), "k": torch.zeros(2, 40, 2, 32),
+            "v": torch.zeros(2, 40, 2, 32),
+            "slots": torch.zeros(2, 40, dtype=torch.int32),
+            "lengths": torch.zeros(2, dtype=torch.int32)}
+    args.update(kw)
+    return fd.flash_decode(*args.values())
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "CUDA"),
+    ("q_dtype", "float32"),
+    ("v_dtype", "float32"),
+    ("non_contiguous", "contiguous"),
+    ("kv_shape", "do not match"),
+    ("q_dim", "4-D"),
+    ("head_dim", r"head dim 48 not in \(32, 64, 128\)"),
+    ("heads", "G=9"),
+    ("slots_dtype", "slot_positions"),
+    ("slots_shape", "slot_positions"),
+    ("lengths_dtype", "lengths"),
+    ("lengths_shape", "lengths"),
+    ("device", "on cpu"),
+])
+def test_wrapper_raises_and_never_falls_back(case, match):
+    """On CPU tensors, a wrong dtype, shape or layout, or inputs on two
+    devices, the wrapper raises: no plain-version fallback (that lives in
+    kernels/ops.py, for CPU tensors only)."""
+    kw = {"cpu": {},
+          "q_dtype": {"q": torch.zeros(2, 2, 4, 32, dtype=torch.float64)},
+          "v_dtype": {"v": torch.zeros(2, 40, 2, 32, dtype=torch.float16)},
+          "non_contiguous": {"k": torch.zeros(2, 2, 40, 32).transpose(1, 2)},
+          "kv_shape": {"v": torch.zeros(2, 40, 4, 32)},
+          "q_dim": {"q": torch.zeros(2, 8, 32)},
+          "head_dim": {"q": torch.zeros(2, 2, 4, 48),
+                       "k": torch.zeros(2, 40, 2, 48),
+                       "v": torch.zeros(2, 40, 2, 48)},
+          "heads": {"q": torch.zeros(2, 2, 9, 32)},
+          "slots_dtype": {"slots": torch.zeros(2, 40, dtype=torch.int64)},
+          "slots_shape": {"slots": torch.zeros(2, 39, dtype=torch.int32)},
+          "lengths_dtype": {"lengths": torch.zeros(2)},
+          "lengths_shape": {"lengths": torch.zeros(1, dtype=torch.int32)},
+          "device": {"lengths": torch.zeros(2, dtype=torch.int32,
+                                            device="meta")},
+          }[case]
+    with pytest.raises(ValueError, match=match):
+        _decode(**kw)
+
+
+# --- the decode step's mask, built once per forward ---------------------
+
+
+def test_decode_slots_is_the_per_layer_mask_it_replaces():
+    pos0 = torch.tensor([0, 5, 15, 9])
+    slots, lengths = T.decode_slots(pos0, 16)
+    assert slots.dtype == lengths.dtype == torch.int32
+    assert slots.is_contiguous() and tuple(slots.shape) == (4, 16)
+    kv_pos = torch.arange(16)[None].expand(4, 16)
+    valid = kv_pos <= pos0[:, None]
+    assert torch.equal(slots, torch.where(valid, kv_pos, -1).to(torch.int32))
+    assert torch.equal(lengths, pos0.to(torch.int32))
+
+
+def test_decode_forward_builds_the_mask_once_and_equals_reference(
+        monkeypatch):
+    """Two rows at their own positions decode three greedy tokens with
+    ``rows=True`` (the server's batch): logits within 1e-4 and active sets
+    equal to the reference's one-row decode of each row; the slot mask is
+    built once per forward, and every layer gets that one tensor."""
+    jcfg = jax_config("qwen2.5-14b", tiny=True)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
+                        m2=True)
+    pred = jp["layers"]["pattern"][0]["ffn"]["pred"]
+    A = np.random.default_rng(11).standard_normal(pred["A"].shape)
+    pred["A"] = jnp.asarray(A.astype(np.float32) / np.sqrt(A.shape[1]))
+    cfg = get_config("qwen2.5-14b", tiny=True)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    from repro_torch.core.engine_model import _stack_rows
+
+    rng = np.random.default_rng(12)
+    buf = 24
+    prompts = [rng.integers(0, cfg.vocab_size, (1, n)).astype(np.int32)
+               for n in (7, 12)]
+    jcs, jls, tcs = [], [], []
+    for p in prompts:
+        jc = JT.init_cache(jcfg, 1, buf, dtype=jnp.float32)
+        jl, jc, _ = JT.forward(jcfg, jp, jnp.asarray(p), cache=jc,
+                               mode="prefill", m2=True)
+        jcs.append(jc)
+        jls.append(jl)
+        tc = T.init_cache(cfg, 1, buf, device="cpu")
+        T.forward(cfg, tp, torch.from_numpy(p), cache=tc, mode="prefill")
+        tcs.append(tc)
+    tcache = _stack_rows(tcs)
+
+    built, seen = [], []
+    real_slots, real_layer = T.decode_slots, T.attn_layer
+    monkeypatch.setattr(T, "decode_slots",
+                        lambda *a: built.append(real_slots(*a)) or built[-1])
+
+    def layer(*a, **kw):
+        seen.append(kw["slots"])
+        return real_layer(*a, **kw)
+    monkeypatch.setattr(T, "attn_layer", layer)
+
+    nxt = [np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(np.int32)
+           for jl in jls]
+    for step in range(3):
+        built.clear()
+        seen.clear()
+        tokens = torch.from_numpy(np.stack([n[0] for n in nxt])[:, None])
+        tl, tcache, ta = T.forward(cfg, tp, tokens, cache=tcache,
+                                   mode="decode", rows=True)
+        assert len(built) == 1 and len(seen) == cfg.num_layers
+        assert all(s is built[0] for s in seen)
+        for r in range(2):
+            jl, jcs[r], ja = JT.forward(jcfg, jp, jnp.asarray(nxt[r][:, None]),
+                                        cache=jcs[r], mode="decode", m2=True)
+            np.testing.assert_allclose(tl[r:r + 1].numpy(), np.asarray(jl),
+                                       rtol=1e-4, atol=1e-4)
+            np.testing.assert_array_equal(
+                ta["active_idx"]["pattern"][0][r].numpy(),
+                np.asarray(ja["active_idx"]["pattern"][0]))
+            nxt[r] = np.asarray(jnp.argmax(jl[:, -1], axis=-1)).astype(
+                np.int32)
+            assert int(torch.argmax(tl[r, -1])) == int(nxt[r][0])
+    assert tcache["pos"].tolist() == [10, 15]

@@ -105,11 +105,11 @@ def test_dispatch_sends_cpu_tensors_to_plain_versions():
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v),
                                rtol=1e-5, atol=1e-5)
     dq = q[:, :1]
-    valid = pos <= 4
-    out = ops.decode_attention(dq, k, v, torch.full((2, 1), 4), pos, valid)
+    slots = torch.where(pos <= 4, pos, -1).to(torch.int32)
+    lengths = torch.full((2,), 4, dtype=torch.int32)
+    out = ops.decode_attention(dq, k, v, slots, lengths)
     want = ref.flash_decode_ref(dq[:, 0].reshape(2, 2, 4, 32), k, v,
-                                pos.to(torch.int32),
-                                torch.full((2,), 4, dtype=torch.int32))
+                                pos.to(torch.int32), lengths)
     torch.testing.assert_close(out.reshape(2, 2, 4, 32), want, rtol=1e-5,
                                atol=1e-5)
     # no kernel ran
@@ -133,9 +133,9 @@ def test_dispatch_has_no_fallback_path():
     with pytest.raises(ValueError, match="CUDA"):
         ops.prefill_attention(q, k, k, torch.zeros(1, 4, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
-        ops.decode_attention(q[:, :1], k, k, torch.zeros(1, 1, device="meta"),
-                             torch.zeros(1, 4, device="meta"),
-                             torch.ones(1, 4, dtype=torch.bool, device="meta"))
+        ops.decode_attention(q[:, :1], k, k,
+                             torch.zeros(1, 4, dtype=torch.int32, device="meta"),
+                             torch.zeros(1, dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.parametrize("which", ["qmatmul", "flash_decode", "flash_attention"])
