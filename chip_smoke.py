@@ -31,7 +31,26 @@ Phases, each printing one JSON line:
                 persisted by the first run), and with the prefix cache off:
                 tokens equal, prefix hits, wall and device time per decode
                 step and per prefill chunk, the device-busy share; its launch
-                counts are those of the server path.
+                counts are those of the server path;
+  7. server_obs_full — server_full's traffic (prefix cache cold) with every
+                observability output on (trace, metrics with an interval,
+                block trace, ledger, health), runs off/on/on/off: tokens
+                equal on and off, the ledger conserves, every request has
+                its queued, prefill and decode spans, the block trace reads
+                back, the ledger rebuilt from the trace equals it; the
+                median decode-step wall on and off;
+  8. cluster_full — the same traffic on two replicas behind the prefix
+                router (modeled devices rtx3090 and m40, one params tree on
+                the card): a valid cluster summary, each replica's tokens
+                equal to a standalone run of its sub-trace, both replicas
+                served;
+  9. divergence — the KV-divergence probe, tiny on cuda against cpu
+                (overlaps and first divergence equal, logit differences
+                within 1e-4), then the reference's probe settings (seeds
+                0-3, 24-token prompts, 8 steps, top-5) at full width for
+                int8 and int4, numbers of random weights with no gate.
+Phases 7-9 share one set of full-width weights; each prints its seconds,
+and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
 (per-row qmatmul, chunked-prefill attention) and the two kernels no path
 runs yet (atu_update, mp_glu_ffn). qmatmul has two kernels (A for small
@@ -61,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -998,7 +1018,10 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
 PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                           "flash_attention"),
                 "server": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
-                           "chunk_attention")}
+                           "chunk_attention"),
+                # the KV-divergence probe: whole-prompt prefill, then decode
+                "divergence": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
+                               "flash_attention")}
 _QMM = ("qmatmul_gemv", "qmatmul_mma")
 
 
@@ -1453,19 +1476,13 @@ def step_device_time(prof) -> dict:
     return out
 
 
-def phase_server_full() -> dict:
-    """qwen2.5-14b at full width, 4 layers, through the server: cold with
-    the prefix cache (the counted run), warm from the tree it persisted
-    (profiled), and with the prefix cache off."""
+def phase_server_full(full, cfg, params) -> dict:
+    """qwen2.5-14b at full width, 4 layers (``full_model``), through the
+    server: cold with the prefix cache (the counted run), warm from the tree
+    it persisted (profiled), and with the prefix cache off."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.base import get_config
     from repro_torch.launch.server import run
-    from repro_torch.models import transformer as T
-    full = get_config("qwen2.5-14b")
-    cfg = dataclasses.replace(full, num_layers=FULL_LAYERS)
-    params = T.init_params(cfg, seed=0, device="cuda")
-    draw_pred_a(params, torch.Generator(device="cuda").manual_seed(1), "cuda")
     torch.cuda.synchronize()
     tmp = tempfile.mkdtemp(prefix="m2cache_server_")
     persist = str(Path(tmp) / "radix")
@@ -1531,6 +1548,281 @@ def phase_server_full() -> dict:
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# Phases 7 to 9: the observed server, the fleet and the divergence probe
+
+
+def full_model(device: str = "cuda"):
+    """qwen2.5-14b at full width, depth cut to FULL_LAYERS, the weights of
+    server_full: seed 0, predictor A drawn from seed 1 on the device."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    full = get_config("qwen2.5-14b")
+    cfg = dataclasses.replace(full, num_layers=FULL_LAYERS)
+    params = T.init_params(cfg, seed=0, device=device)
+    draw_pred_a(params, torch.Generator(device=device).manual_seed(1), device)
+    return full, cfg, params
+
+
+#: the observability outputs of server_obs_full: flag -> file name
+OBS_OUTPUTS = {"--trace-out": "run.trace.json", "--metrics-out": "run.prom",
+               "--block-trace-out": "run.blocks.jsonl",
+               "--ledger": "run.ledger.json",
+               "--health-out": "run.alerts.jsonl"}
+
+
+def check_observed_run(tmp: Path, rep, sched) -> dict:
+    """The requirements on one observed server run: its ledger conserves,
+    every request has its queued, prefill and decode spans, the block trace
+    reads back, and the ledger rebuilt from the trace alone equals the
+    live one. Returns what was read."""
+    from repro_torch.obs import (events_from_chrome, read_block_trace,
+                                 reconstruct)
+    doc = json.loads((tmp / OBS_OUTPUTS["--trace-out"]).read_text())
+    events = events_from_chrome(doc)
+    spans = {}
+    for ev in events:
+        if ev["kind"] == "span" and ev["track"].startswith("req"):
+            spans.setdefault(ev["track"], set()).add(ev["name"])
+    blocks = list(read_block_trace(tmp / OBS_OUTPUTS["--block-trace-out"]))
+    with open(tmp / OBS_OUTPUTS["--block-trace-out"]) as f:
+        header = json.loads(f.readline())
+    live, back = sched.ledger.summary(), reconstruct(events).summary()
+    keys = ("time_s", "gco2_g", "span_s", "horizon_s", "gco2_total_g")
+    got = {"ledger_check": sched.ledger.check(),
+           "requests_with_all_spans": sum(
+               {"queued", "prefill", "decode"} <= spans.get(f"req:{r.rid}",
+                                                            set())
+               for r in rep.requests),
+           "requests": len(rep.requests),
+           "block_events_read": len(blocks),
+           "block_events_header": header["events"],
+           "ledger_from_trace_equal": all(back[k] == live[k] for k in keys),
+           "trace_events": len(doc["traceEvents"]),
+           "metric_snapshots": len((tmp / (OBS_OUTPUTS["--metrics-out"]
+                                           + ".jsonl")).read_text()
+                                   .splitlines())}
+    require(not got["ledger_check"],
+            f"server_obs_full: the ledger does not conserve: "
+            f"{got['ledger_check']}")
+    require(got["requests_with_all_spans"] == got["requests"],
+            "server_obs_full: a request lacks its queued, prefill or decode "
+            "span in the trace")
+    require(0 < got["block_events_read"] == got["block_events_header"],
+            "server_obs_full: the block trace does not read back")
+    require(got["ledger_from_trace_equal"],
+            "server_obs_full: the ledger rebuilt from the trace differs")
+    return got
+
+
+def phase_server_obs_full(cfg, params) -> dict:
+    """server_full's traffic at full width (prefix cache cold) with every
+    observability output on, against the same run with every output off:
+    the same tokens, and the host cost of the outputs (runs off, on, on,
+    off in one call)."""
+    import torch
+    from repro_torch.launch.server import run
+    t_phase = time.perf_counter()
+    argv = SERVER_FULL + ["--prefix-cache"]
+    tmp = Path(tempfile.mkdtemp(prefix="m2cache_obs_"))
+    res, counts = {}, None
+    try:
+        for i, on in enumerate((False, True, True, False)):
+            label = f"{'on' if on else 'off'}{i}"
+            extra = []
+            if on:
+                out_dir = tmp / label
+                out_dir.mkdir()
+                extra = ["--metrics-interval", "0.01"]
+                for flag, name in OBS_OUTPUTS.items():
+                    extra += [flag, str(out_dir / name)]
+            first_on = on and counts is None
+            if first_on:
+                reset_counts()
+            with StepClock() as clock:
+                t0 = time.perf_counter()
+                out, rep, eng, sched = run(
+                    server_args(argv + extra, device="cuda"), cfg=cfg,
+                    params=params, ssd_dir=str(tmp / f"ssd{i}"))
+                wall = time.perf_counter() - t0
+            if first_on:
+                counts = read_counts()
+            res[label] = {"out": json.loads(json.dumps(out, default=float)),
+                          "tokens": _tokens(rep), "wall_s": wall,
+                          "steps": clock.summary(),
+                          "finite": all(bool(torch.isfinite(last_logits(
+                              r.session)).all()) for r in rep.requests)}
+            if on:
+                res[label]["read"] = check_observed_run(out_dir, rep, sched)
+            shutil.rmtree(tmp / f"ssd{i}", ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    toks = [r["tokens"] for r in res.values()]
+    med = {k: statistics.median(
+        r["steps"]["decode_step_wall_ms_median"] for l, r in res.items()
+        if l.startswith(k)) for k in ("on", "off")}
+    on = res["on1"]["out"]
+    line = {
+        "phase": "server_obs_full", "config": cfg.name,
+        "args": argv + ["--metrics-interval", "0.01"] + list(OBS_OUTPUTS),
+        "launches": counts, "tokens_equal_on_off": all(t == toks[0]
+                                                       for t in toks),
+        "obs": on["obs"], "ledger": on["ledger"], "health": on["health"],
+        "read_back": res["on1"]["read"],
+        "decode_step_wall_ms_median": {l: r["steps"][
+            "decode_step_wall_ms_median"] for l, r in res.items()},
+        "prefill_chunk_wall_ms_median": {l: r["steps"][
+            "prefill_chunk_wall_ms_median"] for l, r in res.items()},
+        "decode_step_wall_ms_median_on_off": med,
+        "obs_decode_step_host_cost_ms": med["on"] - med["off"],
+        "run_wall_s": {l: r["wall_s"] for l, r in res.items()},
+        "finite_logits": all(r["finite"] for r in res.values()),
+        "seconds": time.perf_counter() - t_phase}
+    log(line)
+    require(line["finite_logits"], "server_obs_full: non-finite logits")
+    require(line["tokens_equal_on_off"],
+            "server_obs_full: the outputs changed the tokens")
+    require(on["ledger"]["conserved"], "server_obs_full: ledger not conserved")
+    require_path_kernels("server_obs_full", "server", counts)
+    return counts
+
+
+def phase_cluster_full(cfg, params) -> dict:
+    """Two replicas behind the prefix router at full width (one params tree
+    on the card; the modeled devices an RTX 3090 and an M40) over
+    server_full's traffic; each replica's tokens against a standalone run
+    of its sub-trace."""
+    import torch
+    from repro_torch.launch.server import build_replica, run_cluster
+    from repro_torch.serving import validate_cluster_summary
+    t_phase = time.perf_counter()
+    argv = SERVER_FULL + ["--replicas", "2", "--router", "prefix",
+                          "--replica-devices", "rtx3090,m40"]
+    args = server_args(argv, device="cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="m2cache_fleet_"))
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out, router = run_cluster(args, cfg=cfg, params=params,
+                                  ssd_dir=str(tmp / "fleet"))
+        fleet_s = time.perf_counter() - t0
+        counts = read_counts()
+        out = json.loads(json.dumps(out, default=float))
+        shutil.rmtree(tmp / "fleet", ignore_errors=True)
+        solo = {}
+        for r in router.replicas:
+            t0 = time.perf_counter()
+            alone = build_replica(args, f"solo-{r.name}", r.device_name,
+                                  r.carbon_trace, cfg=cfg, params=params,
+                                  ssd_dir=str(tmp / r.name))
+            alone.events = list(r.events)
+            alone.run(vocab_size=cfg.vocab_size, horizon_s=args.horizon)
+            solo[r.name] = {"tokens_equal": alone.tokens() == r.tokens(),
+                            "summary_equal": alone.report.summary()
+                            == r.report.summary(),
+                            "wall_s": time.perf_counter() - t0}
+            shutil.rmtree(tmp / r.name, ignore_errors=True)
+        finite = all(bool(torch.isfinite(last_logits(q.session)).all())
+                     for r in router.replicas for q in r.report.requests)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = {"phase": "cluster_full", "config": cfg.name, "args": argv,
+            "launches": counts, "summary": out["summary"],
+            "replicas": out["replicas"], "router": out["router"],
+            "standalone": solo,
+            "fleet_wall_s": fleet_s, "finite_logits": finite,
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    validate_cluster_summary(out["summary"], context="cluster_full")
+    require(finite, "cluster_full: non-finite logits")
+    require(all(v["tokens_equal"] for v in solo.values()),
+            "cluster_full: a replica's tokens differ from a standalone run "
+            f"of its sub-trace: {solo}")
+    require(all(v["summary"]["requests"] > 0
+                for v in out["replicas"].values()),
+            "cluster_full: a replica served no request")
+    require_path_kernels("cluster_full", "server", counts)
+    return counts
+
+
+#: the reference's probe settings (tests/test_kv_residency.py)
+DIVERGENCE_SEEDS = range(4)
+DIVERGENCE = dict(gen_len=8, k=5)
+
+
+def _probes(cfg, params, device: str) -> dict:
+    import numpy as np
+    from repro_torch.eval import kv_divergence_probe
+    out = {}
+    for prec in ("int8", "int4"):
+        for seed in DIVERGENCE_SEEDS:
+            prompt = np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, 24).tolist()
+            out[prec, seed] = kv_divergence_probe(
+                cfg, params, prompt, precision=prec, device=device,
+                **DIVERGENCE).to_dict()
+    return out
+
+
+def phase_divergence(cfg, params) -> dict:
+    """The KV-divergence probe: tiny on the card against the CPU (same
+    weights), then the reference's probe settings at full width. The
+    full-width numbers are of random weights and carry no gate."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    tiny = get_config("qwen2.5-14b", tiny=True)
+    tp = T.init_params(tiny, seed=0, device="cpu")
+    draw_pred_a(tp, torch.Generator().manual_seed(1), "cpu")
+    on_card, on_cpu = (_probes(tiny, p, d) for p, d in
+                       ((_tree_to(tp, "cuda"), "cuda"), (tp, "cpu")))
+    exact = ("topk_overlap_mean", "topk_overlap_min",
+             "first_token_divergence", "token_match_rate")
+    tiny_equal = all(on_card[key][f] == on_cpu[key][f]
+                     for key in on_cpu for f in exact)
+    tiny_err = max(abs(on_card[key][f] - on_cpu[key][f]) for key in on_cpu
+                   for f in ("max_abs_diff", "mean_abs_diff"))
+    reset_counts()
+    t0 = time.perf_counter()
+    full = _probes(cfg, params, "cuda")
+    full_s = time.perf_counter() - t0
+    counts = read_counts()
+    per_prec = {}
+    for prec in ("int8", "int4"):
+        reps = [full[prec, s] for s in DIVERGENCE_SEEDS]
+        per_prec[prec] = {
+            "topk_overlap_mean": statistics.mean(
+                r["topk_overlap_mean"] for r in reps),
+            "topk_overlap_per_seed": [r["topk_overlap_mean"] for r in reps],
+            "max_abs_diff_worst": max(r["max_abs_diff"] for r in reps),
+            "first_token_divergence_per_seed": [
+                r["first_token_divergence"] for r in reps],
+            "token_match_rate_mean": statistics.mean(
+                r["token_match_rate"] for r in reps)}
+    line = {"phase": "divergence", "config": cfg.name,
+            "probe": {"seeds": list(DIVERGENCE_SEEDS), "prompt_len": 24,
+                      **DIVERGENCE},
+            "tiny_cuda_equals_cpu": tiny_equal,
+            "tiny_logit_diff_max_abs_err": tiny_err, "tiny_tol": 1e-4,
+            "tiny": {f"{p}/{s}": on_card[p, s] for p, s in on_card},
+            "full_width_random_weights": per_prec, "launches": counts,
+            "full_width_s": full_s,
+            "finite": all(all(math.isfinite(v) for v in r.values()
+                              if isinstance(v, float)) for r in full.values()),
+            "seconds": time.perf_counter() - t_phase}
+    log(line)
+    require(tiny_equal, "divergence: tiny probe on the card differs from "
+                        "the CPU in overlaps or first divergence")
+    require(tiny_err <= 1e-4,
+            f"divergence: tiny logit differences differ by {tiny_err:.3g}")
+    require(line["finite"], "divergence: non-finite full-width numbers")
+    require_path_kernels("divergence", "divergence", counts)
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1570,49 +1862,70 @@ def main():
                    for n, txt in build.build_log.items()}})
     B, P, gen_len = 4, 128, 16
     cfg = get_config("qwen2.5-14b")
-    kern = phase_kernels(cfg, torch.device("cuda"), B, P, gen_len)
-    kern.update(phase_kernels_server(cfg, torch.device("cuda")))
-    phase_tiny()
-    paths = {"serve_full": phase_full(B, P, gen_len)}
-    phase_server_tiny()
-    paths["server_full"] = phase_server_full()
+    seconds = {"device": time.perf_counter() - t0}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+    kern = timed("kernels", phase_kernels, cfg, torch.device("cuda"), B, P,
+                 gen_len)
+    kern.update(timed("kernels_server", phase_kernels_server, cfg,
+                      torch.device("cuda")))
+    timed("tiny", phase_tiny)
+    paths = {"serve_full": timed("full", phase_full, B, P, gen_len)}
+    timed("server_tiny", phase_server_tiny)
+    full, full_cfg, params = timed("full_model", full_model)
+    paths["server_full"] = timed("server_full", phase_server_full, full,
+                                 full_cfg, params)
+    for name, fn in (("server_obs_full", phase_server_obs_full),
+                     ("cluster_full", phase_cluster_full),
+                     ("divergence", phase_divergence)):
+        paths[name] = timed(name, fn, full_cfg, params)
+    del params
+    log({"phase": "timing", "seconds": seconds,
+         "total_s": time.perf_counter() - t0})
 
     # name -> (source, the TPU kernel it replaces, counter, paths that run it)
     k = "src/repro/kernels/"
     c = "src/repro_torch/csrc/"
+    server_paths = ("server_full", "server_obs_full", "cluster_full")
+    decode_paths = ("serve_full",) + server_paths + ("divergence",)
     rows = {
         "qmatmul_gemv": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                         "qmatmul_gemv", ("serve_full",)),
+                         "qmatmul_gemv", ("serve_full", "divergence")),
         "qmatmul_mma": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                        "qmatmul_mma", ("serve_full",)),
+                        "qmatmul_mma", ("serve_full", "divergence")),
         "qmatmul_gemv_rows": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                              "qmatmul_gemv", ("server_full",)),
+                              "qmatmul_gemv", server_paths),
         "qmatmul_mma_rows": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                             "qmatmul_mma", ("server_full",)),
+                             "qmatmul_mma", server_paths),
         "flash_decode": (c + "flash_decode.cu", k + "flash_decode.py:26",
-                         "flash_decode", ("serve_full", "server_full")),
+                         "flash_decode", decode_paths),
         # the same kernel over a server decode batch, and at 4 K and 32 K
         # slots: its launches are those of the row above
         "flash_decode_rows": (c + "flash_decode.cu", k + "flash_decode.py:26",
-                              "flash_decode", ("server_full",)),
+                              "flash_decode", server_paths),
         "flash_decode_long": (c + "flash_decode.cu", k + "flash_decode.py:26",
-                              "flash_decode", ("serve_full", "server_full")),
+                              "flash_decode", decode_paths),
         "flash_decode_32k": (c + "flash_decode.cu", k + "flash_decode.py:26",
-                             "flash_decode", ("serve_full", "server_full")),
+                             "flash_decode", decode_paths),
         "flash_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "flash_attention",
-                            ("serve_full",)),
+                            ("serve_full", "divergence")),
         "chunk_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "chunk_attention",
-                            ("server_full",)),
+                            server_paths),
         # the two forms at a 2048-token prompt: the same kernels, whose
         # launches are those of the rows above
         "flash_attention_long": (c + "flash_attention.cu",
                                  k + "flash_attention.py:26",
-                                 "flash_attention", ("serve_full",)),
+                                 "flash_attention", ("serve_full",
+                                                     "divergence")),
         "chunk_attention_long": (c + "flash_attention.cu",
                                  k + "flash_attention.py:26",
-                                 "chunk_attention", ("server_full",)),
+                                 "chunk_attention", server_paths),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),

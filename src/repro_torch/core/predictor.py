@@ -21,6 +21,18 @@ def shared_topk_indices(scores, k: int):
     the order ``jax.lax.top_k`` gives. ``torch.topk`` promises no tie order,
     so a stable descending sort is sliced instead. Rank decides each
     neuron's precision tier, so the order matters, not only the set.
+
+    The sort runs on a total-order key of the float's bits (``b`` where
+    ``b >= 0``, else ``b ^ 0x7FFFFFFF``), as ``jax.lax.top_k`` orders: +0.0
+    above -0.0, +NaN above +inf and -NaN below -inf, each NaN by its
+    payload. A float sort would hold the zeros equal.
+
+    One row is taken as it is: XLA drops a sum over a length-1 axis, so the
+    reference keeps a -0.0 there, where a sum would make it +0.0. Over more
+    rows both sums start from +0.0, and a column of zeros sums to +0.0.
     """
-    flat = scores.reshape(-1, scores.shape[-1]).sum(dim=0)
-    return torch.sort(flat, descending=True, stable=True).indices[:k]
+    flat = scores.reshape(-1, scores.shape[-1])
+    flat = flat[0] if flat.shape[0] == 1 else flat.sum(dim=0)
+    bits = flat.float().contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    return torch.sort(key, descending=True, stable=True).indices[:k]

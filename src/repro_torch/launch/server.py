@@ -19,43 +19,56 @@ Paper-scale analytic mode (modeled clock, Poisson arrivals):
   PYTHONPATH=src python -m repro_torch.launch.server \
       --paper-model llama-7b --requests 16 --rate 4.0 --max-batch 8
 
-Not ported yet, and refused by the parser: fleet serving (``--replicas``
-> 1) and the observability outputs (``--trace-out``, ``--metrics-out``,
-``--block-trace-out``, ``--ledger``, ``--health-out``).
+Every observability output of a run (docs/OBSERVABILITY.md):
+  PYTHONPATH=src python -m repro_torch.launch.server --arch qwen2.5-14b \
+      --tiny --requests 6 --trace-out run.trace.json --metrics-out run.prom \
+      --block-trace-out run.blocks.jsonl --ledger run.ledger.json \
+      --health-out run.alerts.jsonl
+
+Fleet-scale: N replicas behind the prefix-aware cluster router, each with
+its own engine, scheduler, tiered cache and radix tree; every replica
+computes on the one card, and ``--replica-devices`` names the carbon
+model's *modeled* accelerators (docs/CLUSTER.md):
+  PYTHONPATH=src python -m repro_torch.launch.server \
+      --paper-model llama-7b --replicas 3 --router prefix \
+      --workload diurnal --requests 24 --carbon-trace diurnal \
+      --autoscale --grid-shift spread
 """
 from __future__ import annotations
 
 import argparse
 import json
+from pathlib import Path
 from typing import Optional
 
 from repro_torch import resolve_device
 from repro_torch.core.carbon import CarbonIntensityTrace
 from repro_torch.core.engine import PAPER_MODELS, M2CacheEngine
-from repro_torch.serving import (ContinuousBatchScheduler,
-                                 assign_slo_classes, bursty_trace,
+from repro_torch.serving import (ROUTER_POLICIES, CarbonAutoscaler,
+                                 ClusterRouter, ContinuousBatchScheduler,
+                                 Replica, assign_slo_classes, bursty_trace,
                                  diurnal_trace, make_policy, poisson_trace,
-                                 requests_from_trace, shared_prefix_trace)
-
-#: the reference's --router choices (the fleet layer is not ported yet)
-ROUTER_POLICIES = ("round-robin", "least-loaded", "prefix", "carbon")
-#: flags of the reference whose subsystems are not ported yet
-NOT_PORTED = ("--trace-out", "--metrics-out", "--block-trace-out",
-              "--ledger", "--health-out")
+                                 requests_from_trace, shared_prefix_trace,
+                                 shifted_trace)
 
 
-def build_engine(args, *, cfg=None, params=None,
+def build_engine(args, device_name=None, *, cfg=None, params=None,
                  ssd_dir: Optional[str] = None) -> M2CacheEngine:
-    """The engine the arguments describe. ``cfg`` and ``params`` override
-    the config and the seeded weights (the params must live on
-    ``args.device``); ``ssd_dir`` keeps the SSD tier's bank files in a
-    directory the caller owns."""
+    """The engine the arguments describe. ``device_name`` is the carbon
+    model's modeled accelerator (``core/carbon.py``'s DEVICES, e.g.
+    ``rtx3090``), not a CUDA device: the model computes on
+    ``args.device``. ``cfg`` and ``params`` override the config and the
+    seeded weights (the params must live on ``args.device``; engines only
+    read them, so replicas may share one tree); ``ssd_dir`` keeps the SSD
+    tier's bank files in a directory the caller owns."""
     device = resolve_device(args.device)
     common = dict(mode=args.mode, hbm_policy=args.hbm_policy,
                   use_ssd=not args.no_ssd, ssd_dir=ssd_dir,
                   dram_capacity_gb=args.dram_gb, seed=args.seed,
                   batched_decode=not args.no_batched_decode,
                   prefill_bucket=args.prefill_bucket)
+    if device_name is not None:
+        common["device_name"] = device_name
     if args.paper_model:
         return M2CacheEngine(paper_model=args.paper_model, **common)
     from repro_torch.configs.base import get_config
@@ -133,8 +146,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dram-gb", type=float, default=6.0)
     # fleet (docs/CLUSTER.md): >1 replicas serve behind a cluster router
     ap.add_argument("--replicas", type=int, default=1,
-                    help=">1 (a replica fleet behind the cluster router) "
-                         "is not ported yet")
+                    help=">1 builds a replica fleet behind the cluster "
+                         "router: each replica is its own engine + "
+                         "scheduler + tiered cache + radix tree + "
+                         "carbon accountant, all computing on the one "
+                         "card (docs/CLUSTER.md)")
     ap.add_argument("--router", default="prefix",
                     choices=list(ROUTER_POLICIES),
                     help="cluster balancing policy: round-robin | "
@@ -146,7 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma list of carbon-model device names "
                          "(core/carbon.py's DEVICES), cycled across "
                          "replicas — a heterogeneous fleet of old and "
-                         "new GPUs (default: every replica rtx3090)")
+                         "new GPUs as the carbon model sees it; every "
+                         "replica computes on --device (default: every "
+                         "replica rtx3090)")
     ap.add_argument("--grid-shift", default=None, metavar="S0,S1,..|spread",
                     help="per-replica phase shift (modeled s) of the "
                          "periodic --carbon-trace, cycled; 'spread' "
@@ -300,20 +318,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse, and refuse what the reference accepts but the port does not
-    serve yet (instead of silently ignoring it)."""
+    """Parse, and refuse what the reference refuses, with its messages."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    given = [f for f in NOT_PORTED
-             if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.replicas > 1:
-        given.insert(0, "--replicas > 1")
-    if given:
-        ap.error(f"{', '.join(given)}: not yet ported to repro_torch")
     if args.alert_rules and not args.health_out:
         ap.error("--alert-rules requires --health-out")
-    # unset --prefix-cache means off (single replica)
-    prefix_on = bool(args.prefix_cache)
+    # unset --prefix-cache means off single-replica, on in cluster mode
+    prefix_on = (args.prefix_cache if args.prefix_cache is not None
+                 else args.replicas > 1)
     if not prefix_on and (args.prefix_carbon_aware
                           or args.prefix_capacity != 65536
                           or args.prefix_persist):
@@ -321,7 +333,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "--prefix-persist require --prefix-cache")
     if args.prefix_persist_interval and not args.prefix_persist:
         ap.error("--prefix-persist-interval requires --prefix-persist")
-    if args.grid_shift or args.autoscale or args.replica_devices \
+    if args.replicas > 1:
+        unsupported = [f for f, v in (
+            ("--fault-plan", args.fault_plan), ("--ledger", args.ledger),
+            ("--health-out", args.health_out),
+            ("--metrics-out", args.metrics_out),
+            ("--block-trace-out", args.block_trace_out),
+            ("--prefix-persist", args.prefix_persist)) if v]
+        if unsupported:
+            ap.error(f"{', '.join(unsupported)} not supported with "
+                     "--replicas > 1 (see docs/CLUSTER.md)")
+        if args.grid_shift and not build_trace(args).period_s:
+            ap.error("--grid-shift needs a periodic --carbon-trace "
+                     "(square or diurnal)")
+    elif args.grid_shift or args.autoscale or args.replica_devices \
             or args.horizon is not None:
         ap.error("--grid-shift/--autoscale/--replica-devices/--horizon "
                  "require --replicas > 1")
@@ -329,11 +354,89 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def build_replica(args: argparse.Namespace, name: str, device_name,
+                  carbon_trace, *, trace=None, cfg=None, params=None,
+                  ssd_dir: Optional[str] = None) -> Replica:
+    """One replica of the fleet the arguments describe: its own engine
+    (``device_name`` as for :func:`build_engine`), scheduler, tiered cache
+    and radix tree, on the grid slice ``carbon_trace``; ``trace`` is the
+    fleet's shared recorder."""
+    eng = build_engine(args, device_name=device_name, cfg=cfg,
+                       params=params, ssd_dir=ssd_dir)
+    # each replica's scheduling policy reads its *own* grid slice
+    policy = make_policy(args.policy, trace=carbon_trace,
+                         threshold_g_kwh=args.carbon_threshold)
+    return Replica(
+        name, eng, carbon_trace=carbon_trace, trace=trace,
+        max_batch=args.max_batch, hbm_kv_gb=args.hbm_kv_gb,
+        dram_kv_gb=args.dram_kv_gb, policy=policy,
+        prefill_chunk=args.prefill_chunk,
+        kv_prefetch=not args.no_kv_prefetch,
+        kv_precision=None if args.no_kv_quant else args.kv_precision,
+        prefix_caching=args.prefix_on,
+        prefix_capacity_tokens=args.prefix_capacity,
+        prefix_carbon_aware=args.prefix_carbon_aware)
+
+
+def run_cluster(args: argparse.Namespace, *, cfg=None, params=None,
+                ssd_dir: Optional[str] = None):
+    """The ``--replicas > 1`` path: N heterogeneous replicas behind the
+    prefix-aware cluster router (docs/CLUSTER.md). Routing is two-phase —
+    all arrivals placed in time order, then each replica's sub-trace
+    served serially — so per-replica token streams are byte-identical to
+    serial single-replica runs. Every replica computes on ``args.device``
+    and reads the one ``params`` tree; replica ``i`` keeps its SSD bank
+    files under ``ssd_dir/r<i>``. Returns (the printed dict, the router)."""
+    base_trace = build_trace(args)
+    n = args.replicas
+    devices = args.replica_devices.split(",") \
+        if args.replica_devices else [None]
+    if args.grid_shift == "spread":
+        shifts = [base_trace.period_s * i / n for i in range(n)]
+    elif args.grid_shift:
+        shifts = [float(s) for s in args.grid_shift.split(",")]
+    else:
+        shifts = None
+    recorder = None
+    if args.trace_out:
+        from repro_torch.obs import TraceRecorder
+        recorder = TraceRecorder()
+    replicas = [build_replica(
+        args, f"r{i}", devices[i % len(devices)],
+        shifted_trace(base_trace, shifts[i % len(shifts)]) if shifts
+        else base_trace, trace=recorder, cfg=cfg, params=params,
+        ssd_dir=None if ssd_dir is None else str(Path(ssd_dir) / f"r{i}"))
+        for i in range(n)]
+    model_cfg = replicas[0].engine.cfg
+    vocab = model_cfg.vocab_size if model_cfg is not None else None
+    scaler = CarbonAutoscaler(base_trace) if args.autoscale else None
+    router = ClusterRouter(replicas, policy=args.router,
+                           autoscaler=scaler, trace=recorder)
+    events = build_workload(args, vocab)
+    report = router.run(events, vocab_size=vocab,
+                        horizon_s=args.horizon)
+    out = {
+        "summary": report.summary(),
+        "replicas": {r.name: {"summary": r.report.summary(),
+                              "device": r.device_name,
+                              "assigned": len(r.events),
+                              "drain_windows": r.drain_windows}
+                     for r in router.replicas},
+        "router": {"policy": args.router,
+                   "decisions": report.decisions},
+    }
+    if recorder is not None:
+        recorder.export_chrome(args.trace_out)
+        out["obs"] = recorder.stats()
+    return out, router
+
+
 def run(args: argparse.Namespace, *, cfg=None, params=None,
         ssd_dir: Optional[str] = None):
-    """Serve the arguments' workload once. ``cfg``, ``params`` and
-    ``ssd_dir`` as for :func:`build_engine`. Returns (the printed dict, the
-    ServingReport, the engine, the scheduler)."""
+    """Serve the arguments' workload once on one replica, writing the
+    observability outputs the arguments ask for. ``cfg``, ``params`` and
+    ``ssd_dir`` as for :func:`build_engine`. Returns (the printed dict,
+    the ServingReport, the engine, the scheduler)."""
     prefix_on = args.prefix_on
     eng = build_engine(args, cfg=cfg, params=params, ssd_dir=ssd_dir)
     vocab = eng.cfg.vocab_size if eng.cfg is not None else None
@@ -342,6 +445,31 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
     carbon_trace = build_trace(args)
     policy = make_policy(args.policy, trace=carbon_trace,
                          threshold_g_kwh=args.carbon_threshold)
+    recorder = metrics = block_trace = snapshotter = None
+    if args.trace_out:
+        from repro_torch.obs import TraceRecorder
+        recorder = TraceRecorder()
+    if args.metrics_out:
+        from repro_torch.obs import MetricsRegistry, PeriodicSnapshotter
+        metrics = MetricsRegistry()
+        snapshotter = PeriodicSnapshotter(
+            metrics, args.metrics_out + ".jsonl",
+            interval_s=args.metrics_interval)
+    if args.block_trace_out:
+        from repro_torch.obs import BlockTraceCollector
+        block_trace = BlockTraceCollector()
+    ledger = health = None
+    if args.ledger:
+        from repro_torch.obs import TimeLedger
+        ledger = TimeLedger()
+    if args.health_out:
+        from repro_torch.obs import HealthMonitor, MetricsRegistry, load_rules
+        if metrics is None:
+            # rules read live metrics; a private registry serves when no
+            # --metrics-out asked for exported ones
+            metrics = MetricsRegistry()
+        rules = load_rules(args.alert_rules) if args.alert_rules else None
+        health = HealthMonitor(metrics, rules)
     injector = None
     if args.fault_plan:
         from repro_torch.serving.faults import FaultInjector
@@ -360,6 +488,10 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
                                      args.prefix_capacity,
                                      prefix_carbon_aware=
                                      args.prefix_carbon_aware,
+                                     trace=recorder, metrics=metrics,
+                                     block_trace=block_trace,
+                                     snapshotter=snapshotter,
+                                     ledger=ledger, health=health,
                                      faults=injector,
                                      max_recoveries=args.max_recoveries,
                                      prefix_persist_dir=args.prefix_persist,
@@ -373,6 +505,16 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
     rep = sched.run(reqs)
     if args.prefix_persist:
         persist["saved"] = sched.prefix.save(args.prefix_persist)
+    obs = {}
+    if recorder is not None:
+        recorder.export_chrome(args.trace_out)
+        obs.update(recorder.stats())
+    if args.metrics_out:
+        snapshotter.close(eng.clock)
+        metrics.export_prometheus(args.metrics_out)
+    if block_trace is not None:
+        block_trace.export_jsonl(args.block_trace_out)
+        obs.update(block_trace.stats())
     out = {
         "summary": rep.summary(),
         "kv": rep.kv_stats,
@@ -381,6 +523,18 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
         "persist": persist,
         "carbon_g": rep.carbon,
     }
+    if obs:
+        out["obs"] = obs
+    if ledger is not None:
+        ledger.export(args.ledger)
+        out["ledger"] = {"residues": ledger.residues(),
+                         "conserved": not ledger.check(),
+                         "time_by_family_s": ledger.by_family()}
+    if health is not None:
+        health.export_jsonl(args.health_out)
+        out["health"] = {"alerts": len(health.alerts),
+                         "counts": health.counts(),
+                         "active": health.active()}
     if injector is not None:
         out["faults"] = injector.stats()
         out["failures"] = rep.failures()
@@ -388,7 +542,11 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
 
 
 def main(argv=None):
-    out, _, _, _ = run(parse_args(argv))
+    args = parse_args(argv)
+    if args.replicas > 1:
+        out, _ = run_cluster(args)
+    else:
+        out, _, _, _ = run(args)
     print(json.dumps(out, indent=1, default=float))
 
 

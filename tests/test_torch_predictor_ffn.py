@@ -58,6 +58,54 @@ def test_shared_topk_planted_ties_break_by_lowest_index(seed):
         assert np.all(np.diff(sel) > 0)
 
 
+_NAN = np.float32("nan")
+#: special values and the order ``jax.lax.top_k`` gives them: +NaN, +inf,
+#: ..., +0.0 above -0.0, ..., -inf, -NaN; ties by the lowest index
+_SPECIAL = {
+    "signed_zeros": np.array([0., -0., 0., -0., 1., -0., 0.], np.float32),
+    "nans": np.array([1., -_NAN, _NAN, 0., -_NAN, _NAN, -1.], np.float32),
+    "infs": np.array([np.inf, 1., -np.inf, np.inf, -np.inf, 0.], np.float32),
+    "ties": np.array([2., 1., 2., 1., 2., 0., 1.], np.float32),
+    "mixed": np.array([0., -0., 1., _NAN, -_NAN, np.inf, -np.inf, -1., 0.,
+                       -_NAN, _NAN], np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SPECIAL))
+@pytest.mark.parametrize("k_less", [False, True])
+def test_shared_topk_special_values_match_lax_top_k(case, k_less):
+    """The port's total-order key against ``jax.lax.top_k`` itself and the
+    reference's shared_topk_indices, on one row."""
+    import jax
+    scores = _SPECIAL[case]
+    k = len(scores) - 2 if k_less else len(scores)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores), k)[1])
+    got, ref = _topk_both(scores, k)
+    np.testing.assert_array_equal(ref, want)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_shared_topk_signed_zero_case_order():
+    got, _ = _topk_both(_SPECIAL["signed_zeros"], 7)
+    np.testing.assert_array_equal(got, [4, 0, 2, 6, 1, 3, 5])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_shared_topk_seeded_special_mix(seed):
+    """Seeded draws over zeros of both signs, NaNs of both signs, ±inf and
+    repeated finite values, one row and several (whose sums the reference
+    starts from +0.0), with k = f and k < f."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0., -0., 1., -1., _NAN, -_NAN, np.inf, -np.inf, 0.5,
+                     2.], np.float32)
+    for _ in range(25):
+        rows, f = int(rng.integers(1, 4)), int(rng.integers(2, 40))
+        scores = rng.choice(pool, (rows, f)).astype(np.float32)
+        for k in (f, int(rng.integers(1, f))):
+            got, want = _topk_both(scores, k)
+            np.testing.assert_array_equal(got, want)
+
+
 def test_predictor_scores_allclose():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 3, 32)).astype(np.float32)

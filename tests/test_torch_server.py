@@ -5,39 +5,29 @@ step API → RealModelRunner's row entry points and DecodeBatch →
 the reference's weights and gives its tokens per request, and its summary,
 ``kv``, ``cache``, ``prefix`` and ``carbon_g`` fields, exactly; last logits
 agree within 1e-4. Invariants inside the port: batched decode equals
-per-session decode, and the prefix cache on equals off, on tokens."""
-import contextlib
-import io
+per-session decode, and the prefix cache on equals off, on tokens. The
+parser takes every flag of the reference's and refuses what it refuses,
+with the same message."""
 import json
+import re
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config as jax_config
+from _torch_tiny import SHARED, reference_cli, tiny_model
+from _torch_tiny import tokens as _tokens
 from repro.core.engine import M2CacheEngine as JaxEngine
 from repro.launch import server as jax_server
-from repro.models import transformer as JT
 from repro.serving import ArrivalEvent as JaxArrival
 from repro.serving import ContinuousBatchScheduler as JaxScheduler
 from repro.serving import requests_from_trace as jax_requests
-from repro_torch.bridge import params_from_jax
-from repro_torch.configs.base import get_config
 from repro_torch.core.engine import M2CacheEngine
 from repro_torch.launch import server
 from repro_torch.serving import ArrivalEvent, ContinuousBatchScheduler
 from repro_torch.serving import requests_from_trace
 
-#: shared-prefix chat traffic with radix prefix reuse, chunked and batched
-#: prefill and a continuous decode batch
-SHARED = ["--arch", "qwen2.5-14b", "--tiny", "--workload", "shared-prefix",
-          "--prefix-cache", "--prefix-reuse", "0.7", "--turns", "2",
-          "--requests", "8", "--prefill-chunk", "8", "--prefill-bucket", "8",
-          "--gen-len", "3", "6", "--shared-prefix-len", "24", "--max-batch",
-          "4", "--dram-gb", "0.5", "--rate", "50"]
 #: closed arrivals with KV budgets tight enough to preempt and spill
 TIGHT = dict(hbm_kv_gb=0.8e-4, dram_kv_gb=1.6e-5)
 TIGHT_LENS = ((18, 16, 12, 19, 14, 10), (6, 10, 8, 7, 9, 6))
@@ -50,21 +40,9 @@ def _last_logits(sess):
     return np.asarray(sess.last[0])
 
 
-def _tokens(rep):
-    return {r.rid: r.final_tokens() for r in rep.requests}
-
-
 @pytest.fixture(scope="module")
 def model():
-    jcfg = jax_config("qwen2.5-14b", tiny=True)
-    jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
-                        m2=True)
-    pred = jp["layers"]["pattern"][0]["ffn"]["pred"]   # a trained predictor
-    pred["A"] = jnp.asarray(np.random.default_rng(21).standard_normal(
-        pred["A"].shape).astype(np.float32) / 4.0)
-    cfg = get_config("qwen2.5-14b", tiny=True)
-    return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
-                                          "cpu")
+    return tiny_model()
 
 
 def _tight_run(Engine, Scheduler, Arrival, make_requests, cfg, params,
@@ -82,23 +60,11 @@ def reference(model, tmp_path_factory):
     """The reference's runs, once per module: its server CLI on SHARED with
     these weights, and its scheduler on the tight trace."""
     jcfg, jp, _, _ = model
-    got = {}
-    run = JaxScheduler.run
-
-    def keep(self, reqs):
-        got["rep"] = run(self, reqs)
-        return got["rep"]
-    buf = io.StringIO()
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JT, "init_params", lambda *a, **k: jp)
-        mp.setattr(JaxScheduler, "run", keep)
-        mp.setattr(sys, "argv", ["server"] + SHARED)
-        with contextlib.redirect_stdout(buf):
-            jax_server.main()
+    out, (rep,) = reference_cli(SHARED, jp)
     tight = {p: _tight_run(JaxEngine, JaxScheduler, JaxArrival, jax_requests,
                            jcfg, jp, tmp_path_factory.mktemp(f"jax{p}"), p)
              for p in (None, "mixed")}
-    return json.loads(buf.getvalue()), got["rep"], tight
+    return out, rep, tight
 
 
 @pytest.fixture(scope="module")
@@ -207,17 +173,62 @@ def test_analytic_server_equals_reference(capsys, monkeypatch):
     assert ours == theirs
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"],
-                                  ["--trace-out", "x.trace.json"],
-                                  ["--metrics-out", "x.prom"],
-                                  ["--block-trace-out", "x.blocks.jsonl"],
-                                  ["--ledger", "x.ledger.json"],
-                                  ["--health-out", "x.alerts.jsonl"]])
-def test_unported_flags_are_refused(flag, capsys):
+#: argument lists the reference's parser refuses: the outputs and options a
+#: fleet does not support, --grid-shift on an aperiodic trace, the fleet's
+#: own flags on one replica, and options that need another option
+REFUSED = {
+    "fault_plan_fleet": ["--replicas", "2", "--fault-plan", "plan.json"],
+    "ledger_fleet": ["--replicas", "2", "--ledger", "x.ledger.json"],
+    "health_fleet": ["--replicas", "2", "--health-out", "x.alerts.jsonl"],
+    "metrics_fleet": ["--replicas", "2", "--metrics-out", "x.prom"],
+    "block_trace_fleet": ["--replicas", "2", "--block-trace-out", "x.jsonl"],
+    "persist_fleet": ["--replicas", "2", "--prefix-persist", "radix"],
+    "two_outputs_fleet": ["--replicas", "3", "--ledger", "x", "--metrics-out",
+                          "y"],
+    "grid_shift_aperiodic": ["--replicas", "2", "--grid-shift", "spread"],
+    "grid_shift_one": ["--grid-shift", "spread", "--carbon-trace", "diurnal"],
+    "autoscale_one": ["--autoscale"],
+    "replica_devices_one": ["--replica-devices", "rtx3090,m40"],
+    "horizon_one": ["--horizon", "10"],
+    "alert_rules_alone": ["--alert-rules", "rules.json"],
+    "persist_without_cache": ["--prefix-persist", "radix"],
+}
+
+
+def _refusal(main, argv, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["server"] + argv)
+    with pytest.raises(SystemExit) as exc:
+        main()
+    # the usage lines differ by the port's --device; the error line is last
+    return exc.value.code, capsys.readouterr().err.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refusals_equal_reference(case, monkeypatch, capsys):
+    """The port's parser refuses exactly what the reference's refuses, with
+    the same exit code and message."""
+    argv = ["--paper-model", "llama-7b"] + REFUSED[case]
+    want = _refusal(jax_server.main, argv, monkeypatch, capsys)
+    got = _refusal(lambda: server.parse_args(argv), argv, monkeypatch,
+                   capsys)
+    assert want[0] == 2 and want[1].startswith("server: error: ")
+    assert got == want
+
+
+def test_parser_takes_every_reference_flag(monkeypatch, capsys):
+    """Every option of the reference's server, with its choices and
+    defaults; the port adds --device only."""
+    monkeypatch.setattr(sys, "argv", ["server", "--help"])
     with pytest.raises(SystemExit):
-        server.parse_args(["--paper-model", "llama-7b"] + flag)
-    err = capsys.readouterr().err
-    assert flag[0] in err and "not yet ported" in err
+        jax_server.main()
+    theirs = set(re.findall(r"(--[a-z0-9-]+)", capsys.readouterr().out))
+    ours = {o for a in server.build_parser()._actions
+            for o in a.option_strings if o.startswith("--")}
+    assert ours - theirs == {"--device"}
+    assert theirs <= ours
+    assert vars(server.parse_args([])) == dict(
+        vars(server.build_parser().parse_args([])), prefix_on=False)
+    assert server.parse_args(["--replicas", "2"]).prefix_on
 
 
 def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
