@@ -48,12 +48,24 @@ Phases, each printing one JSON line:
                 (overlaps and first divergence equal, logit differences
                 within 1e-4), then the reference's probe settings (seeds
                 0-3, 24-token prompts, 8 steps, top-5) at full width for
-                int8 and int4, numbers of random weights with no gate.
-Phases 7-9 share one set of full-width weights; each prints its seconds,
-and a ``timing`` line gives every phase's.
+                int8 and int4, numbers of random weights with no gate;
+ 10. dense_archs — qwen2.5-32b, command-r-35b, mistral-large-123b and
+                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4, 2 and
+                all 24 layers): tiny through launch/serve and launch/server
+                on cuda against cpu (as phases 3 and 5); at full width
+                full's serve traffic and server_full's server traffic (prefix
+                cache cold, warm, off, and batched decode off: tokens
+                equal), every kernel of each path launched, wall and device
+                time per decode step and prefill chunk; the card freed and
+                the bank files removed between configs.
+Phases 4 and 6-9 share one set of full-width weights; each prints its
+seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
-(per-row qmatmul, chunked-prefill attention) and the two kernels no path
-runs yet (atu_update, mp_glu_ffn). qmatmul has two kernels (A for small
+(per-row qmatmul, chunked-prefill attention), the two kernels no path
+runs yet (atu_update, mp_glu_ffn), and (``kernels_dense``) the shapes
+only phase 10 gives: flash_decode at G = 12 (two head groups), 7 (D =
+64) and 8, both attention forms at G = 12 and at G = 7, D = 64, and one
+layer's FFN at d = 12288. qmatmul has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
 one layer's FFN at M = 1, 4, 8, 16 through both gives the crossover; the
@@ -165,9 +177,12 @@ def device_profile(fn, reps: int = 5) -> dict:
     fn()
     torch.cuda.synchronize()
     per = {}
-    # a second session where the first saw no CUDA kernel (it happened once,
-    # to the index_select + index_copy_ yardstick)
-    for attempt in range(2):
+    # more sessions where the first saw no CUDA kernel (it happened to the
+    # index_select + index_copy_ yardstick, and to two sessions in a row of
+    # flash_decode at 32 K slots)
+    for attempt in range(4):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -186,7 +201,7 @@ def device_profile(fn, reps: int = 5) -> dict:
             break
     if not per:
         return {"device_ms": "not measured", "why": "no CUDA kernel events "
-                "in two profiler sessions"}
+                "in four profiler sessions"}
     dev_ms = sum(per.values())
     top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
     return {"device_ms": dev_ms, "profiled_wall_ms": wall_ms,
@@ -306,6 +321,18 @@ def max_score(q, k) -> float:
     return float(s.abs().max()) / q.shape[-1] ** 0.5
 
 
+#: the largest score the large-score checks reach (the 3.5 x scale they had
+#: reached 56-58 at G = 5 and D = 128; other shapes' extremes fall lower)
+LARGE_SCORE = 57.0
+
+
+def large_scores(q, k):
+    """q and k scaled by one factor so that max|q . k| / sqrt(D) of query
+    head 0 against KV head 0 is LARGE_SCORE."""
+    f = (LARGE_SCORE / max_score(q, k)) ** 0.5
+    return q * f, k * f
+
+
 @contextlib.contextmanager
 def kernel_choice(kernel):
     """Route every qmatmul call to kernel A ("gemv", M <= 16) or kernel B
@@ -352,17 +379,19 @@ def checker(checks: list):
 
 
 @contextlib.contextmanager
-def decode_plan(range_slots: int = 0, stages: int = 0):
+def decode_plan(range_slots: int = 0, stages: int = 0, heads: int = 0):
     """Route every flash_decode call through ranges of ``range_slots``
-    slots and a ring of ``stages`` tiles (0 keeps the plan's own)."""
-    from repro_torch.kernels import flash_decode
-    saved = flash_decode.RANGE_SLOTS, flash_decode.STAGES
-    flash_decode.RANGE_SLOTS = range_slots or saved[0]
-    flash_decode.STAGES = stages or saved[1]
+    slots, a ring of ``stages`` tiles and blocks of ``heads`` query heads
+    (0 keeps the plan's own)."""
+    from repro_torch.kernels import flash_decode as fd
+    saved = fd.RANGE_SLOTS, fd.STAGES, fd.HEADS_PER_BLOCK
+    fd.RANGE_SLOTS = range_slots or saved[0]
+    fd.STAGES = stages or saved[1]
+    fd.HEADS_PER_BLOCK = heads or saved[2]
     try:
         yield
     finally:
-        flash_decode.RANGE_SLOTS, flash_decode.STAGES = saved
+        fd.RANGE_SLOTS, fd.STAGES, fd.HEADS_PER_BLOCK = saved
 
 
 def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False):
@@ -382,15 +411,15 @@ def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False):
 
 
 def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
-               holes=False, full_checks=False, sweep=(), stages=(),
+               holes=False, full_checks=False, sweep=(), stages=(), heads=(),
                plain_reps=20) -> dict:
     """flash_decode over B = len(lengths) rows of S slots (slot i at
     position i, as the decode step's mask gives them; with ``holes`` four
     empty slots in row 1) against its plain version; with ``full_checks``
     also a row with no valid slot, NaN and Inf in every masked slot (bit
     for bit), and a row alone against the same row in the group. Each range
-    size of ``sweep`` and ring depth of ``stages`` is held and profiled.
-    Timed beside the plain version and SDPA, with the bound counted over
+    size of ``sweep``, ring depth of ``stages`` and number of query heads a
+    block of ``heads`` is held and profiled. Timed beside the plain version and SDPA, with the bound counted over
     the valid slots only."""
     import torch
     import torch.nn.functional as F
@@ -426,9 +455,10 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
         require(torch.equal(alone[0], got[b]),
                 f"{label}: a row alone differs from the same row in a group")
     sms = build.sm_count(dev)
-    by_range, by_stages = {}, {}
+    by_range, by_stages, by_heads = {}, {}, {}
     for key, table, kw in ([(r, by_range, {"range_slots": r}) for r in sweep]
-                           + [(n, by_stages, {"stages": n}) for n in stages]):
+                           + [(n, by_stages, {"stages": n}) for n in stages]
+                           + [(n, by_heads, {"heads": n}) for n in heads]):
         with decode_plan(**kw):
             plan = _plan(S, hkv, G, D, sms)
             errs.append(check(f"{label} {kw}", run(), want, 1e-5))
@@ -445,6 +475,7 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
     row = {"max_abs_err": max(errs), "B": B, "S": S, "lengths": lengths,
            "valid_slots": n_valid, "plan": _plan(S, hkv, G, D, sms)._asdict(),
            "device_ms_by_range": by_range, "device_ms_by_stages": by_stages,
+           "device_ms_by_heads_per_block": by_heads,
            "kv_mb": 2 * kc.numel() * 4 / 1e6,
            "l2_note": "inputs exceed the 50 MB L2" if kc.numel() * 8 > 50e6
            else "inputs stay in the 50 MB L2 across repetitions",
@@ -461,21 +492,21 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
 # Phase 2: kernels at the main path's shapes
 
 
-def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
+def serve_ffn_rows(check, g, dev, cfg, B: int, P: int) -> tuple:
+    """qmatmul at a config's serve shapes, banks drawn from ``g``: each
+    tier's col and row forms, the identity gather and an odd int4 width
+    piece by piece, then one layer's FFN at decode (M = B) and prefill
+    (M = B * P), each through every kernel that takes its M, beside the
+    plain version, the library call and both bounds. Returns ({"qmatmul_gemv":
+    decode row, "qmatmul_mma": prefill row}, banks, idx, sizes)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.mp_ffn import tier_sizes
     from repro_torch.core.quantize import (build_neuron_banks, to_neuron_major,
                                            unpack_int4)
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.qmatmul import qmatmul_gathered
-
-    g = torch.Generator(device=dev).manual_seed(1234)
     d, f = cfg.d_model, cfg.d_ff
-    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G = hq // hkv
     sizes = tier_sizes(f, cfg)
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
     randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
@@ -485,8 +516,7 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
     banks = to_neuron_major(dense)          # the port's layout
     # scattered active set, as a trained (non-zero) predictor gives
     idx = torch.randperm(f, generator=g, device=dev)[:k]
-    out, checks = {}, []
-    check = checker(checks)
+    out = {}
 
     # --- gathered qmatmul, piece by piece (col, row, identity, odd int4)
     x4 = randn(B, d)
@@ -578,12 +608,32 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
             "library_profile": device_profile(lib)}
     out["qmatmul_gemv"] = dict(ffn["decode"], max_abs_err=max(errs))
     out["qmatmul_mma"] = dict(ffn["prefill"], max_abs_err=max(errs))
+    del lib_w
+    return out, banks, idx, sizes
+
+
+def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.flash_attention import _plan as whole_plan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    g = torch.Generator(device=dev).manual_seed(1234)
+    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = hq // hkv
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    out, checks = {}, []
+    check = checker(checks)
+    rows, banks, idx, sizes = serve_ffn_rows(check, g, dev, cfg, B, P)
+    out.update(rows)
 
     # --- the crossover: one layer's FFN (shared set) at M = 1, 4, 8, 16
     # through kernel A and through kernel B
     cross = {}
     for M in (1, 4, 8, 16):
-        x = randn(1, M, d)
+        x = randn(1, M, cfg.d_model)
         want = ref.mp_ffn_gathered_ref(x, banks, idx, sizes, cfg.ffn_act)
         got = per_kernel(check, f"crossover mp_ffn M={M}", M,
                          lambda: ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act),
@@ -627,18 +677,12 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
         out[name] = decode_row(check, randn, dev, name, S, hkv, G, D, lengths,
                                sweep=sweep, stages=(2, 3, 4), plain_reps=5)
 
-    # --- flash_attention at the prefill's shapes, plus ragged, windowed,
-    # G = 5 at a ragged S and scores of about +-60; a row alone against the
-    # same row in the group
-    q = randn(B, P, hq, D)
-    kp, vp = randn(B, P, hkv, D), randn(B, P, hkv, D)
-    got = flash_attention(q, kp, vp)
-    errs = [check("flash_attention", got, ref.flash_attention_ref(q, kp, vp),
-                  1e-5)]
-    alone = flash_attention(q[1:2].contiguous(), kp[1:2].contiguous(),
-                            vp[1:2].contiguous())
-    require(torch.equal(alone[0], got[1]),
-            "flash_attention: a row alone differs from the same row in a group")
+    # --- flash_attention at the prefill's shapes (a row alone against the
+    # same row in the group, scores of about +-60), plus ragged, windowed
+    # and G = 5 at a ragged S
+    out["flash_attention"] = whole_prompt_row(check, randn, dev, B, P, hq,
+                                              hkv, D)
+    errs = []
     qr, kr, vr = randn(2, 45, 8, 64), randn(2, 45, 2, 64), randn(2, 45, 2, 64)
     errs.append(check("flash_attention ragged S=45 D=64",
                       flash_attention(qr, kr, vr),
@@ -650,32 +694,8 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
     errs.append(check("flash_attention G=5 ragged S=77",
                       flash_attention(q5, k5, v5),
                       ref.flash_attention_ref(q5, k5, v5), 1e-5))
-    ql, kl = q * 3.5, kp * 3.5
-    big = max_score(ql, kl)
-    require(big > 50, f"flash_attention: large scores reach only {big:.3g}")
-    got_l, want64 = flash_attention(ql, kl, vp), attention_f64(ql, kl, vp)
-    want32 = ref.flash_attention_ref(ql, kl, vp)
-    errs.append(check(f"flash_attention scores to {big:.0f}", got_l, want32,
-                      1e-5))
-    errs.append(check(f"flash_attention scores to {big:.0f} vs float64",
-                      got_l, want64, 1e-5))
-    plain_err64 = max_err(want32, want64)
-    del ql, kl, got_l, want32, want64
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import _plan as whole_plan
-    out["flash_attention"] = {
-        "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
-        "max_abs_err": max(errs), "B": B, "S": P, "max_score_checked": big,
-        "plan": whole_plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
-        "plain_max_abs_err_vs_f64_at_large_scores": plain_err64,
-        **attention_row(lambda: flash_attention(q, kp, vp),
-                        lambda: ref.flash_attention_ref(q, kp, vp),
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True),
-                        (2 * q.numel() + 2 * kp.numel()) * 4,
-                        4 * B * hq * D * P * (P + 1) / 2)}
+    out["flash_attention"]["max_abs_err"] = max(
+        errs + [out["flash_attention"]["max_abs_err"]])
 
     # --- the same form at a 2048-token prompt (measurement only: the
     # products grow with S^2)
@@ -698,9 +718,54 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
                         4 * hq * D * SL * (SL + 1) / 2, plain_reps=5)}
     del q, kp, vp, qt, kt, vt, got
     log({"phase": "kernels", "checks": checks, "kernels": out})
-    del banks, lib_w
+    del banks
     torch.cuda.empty_cache()
     return out
+
+
+def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
+                     D: int) -> dict:
+    """flash_attention over B prompts of P tokens against its plain version,
+    a row alone against the same row in the group, scores of about +-60
+    against the plain version and float64, paired and unpaired query tiles;
+    timed beside the plain version, SDPA and both bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import _plan, flash_attention
+    label = f"flash_attention G={hq // hkv} D={D}"
+    q = randn(B, P, hq, D)
+    kp, vp = randn(B, P, hkv, D), randn(B, P, hkv, D)
+    got = flash_attention(q, kp, vp)
+    errs = [check(label, got, ref.flash_attention_ref(q, kp, vp), 1e-5)]
+    alone = flash_attention(q[1:2].contiguous(), kp[1:2].contiguous(),
+                            vp[1:2].contiguous())
+    require(torch.equal(alone[0], got[1]),
+            f"{label}: a row alone differs from the same row in a group")
+    ql, kl = large_scores(q, kp)
+    big = max_score(ql, kl)
+    require(big > 50, f"{label}: large scores reach only {big:.3g}")
+    got_l, want64 = flash_attention(ql, kl, vp), attention_f64(ql, kl, vp)
+    want32 = ref.flash_attention_ref(ql, kl, vp)
+    errs.append(check(f"{label} scores to {big:.0f}", got_l, want32, 1e-5))
+    errs.append(check(f"{label} scores to {big:.0f} vs float64", got_l,
+                      want64, 1e-5))
+    plain_err64 = max_err(want32, want64)
+    del ql, kl, got_l, want32, want64
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
+    return {
+        "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
+        "max_abs_err": max(errs), "B": B, "S": P, "Hq": hq, "Hkv": hkv,
+        "D": D, "max_score_checked": big,
+        "plan": _plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
+        "plain_max_abs_err_vs_f64_at_large_scores": plain_err64,
+        **attention_row(lambda: flash_attention(q, kp, vp),
+                        lambda: ref.flash_attention_ref(q, kp, vp),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True),
+                        (2 * q.numel() + 2 * kp.numel()) * 4,
+                        4 * B * hq * D * P * (P + 1) / 2)}
 
 
 # ---------------------------------------------------------------------------
@@ -753,7 +818,7 @@ def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
         errs.append(check("chunk_attention G=5 fronts 20, 76 of Skv=77",
                           chunk_attention(q5, k5, v5, p5),
                           ref.chunk_attention_ref(q5, k5, v5, p5), 1e-5))
-        ql, kl = q * 3.5, kb * 3.5
+        ql, kl = large_scores(q, kb)
         big = max_score(ql, kl)
         require(big > 50, f"chunk_attention: large scores reach only {big:.3g}")
         got_l = chunk_attention(ql, kl, vb, p0)
@@ -798,33 +863,29 @@ def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
     return row
 
 
-def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
-                         sbuf: int = 256) -> dict:
-    """Per-row gathered qmatmul (R rows with their own active sets, M = 1
-    and M = chunk), chunked-prefill attention at pos0 0/48/96/112 over a
-    ``sbuf``-slot buffer (and one chunk at the end of 2048 slots), atu_update
-    and mp_glu_ffn, each against its plain version, timed beside it, a
-    library call and the bound."""
+def server_ffn_rows(check, g, dev, cfg, R: int, chunk: int) -> tuple:
+    """Per-row gathered qmatmul at a config's server shapes, weights drawn
+    from ``g``: R rows, each with its own scattered active set, at M = 1
+    and M = chunk, each tier's col and row forms (a row alone against the
+    same row in the group) and one layer's FFN, each through every kernel
+    that takes its M, beside the plain version, the library call and both
+    bounds. Returns ({"qmatmul_gemv_rows": decode row,
+    "qmatmul_mma_rows": chunk row}, (wg, wu, wd), idx)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.mp_ffn import tier_sizes
     from repro_torch.core.quantize import (build_neuron_banks, to_neuron_major,
                                            unpack_int4)
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.atu_update import atu_update
     from repro_torch.kernels.qmatmul import qmatmul_gathered
-
-    g = torch.Generator(device=dev).manual_seed(4321)
     d, f = cfg.d_model, cfg.d_ff
-    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sizes = tier_sizes(f, cfg)
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
     randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
     wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
     wd = randn(f, d, scale=f ** -0.5)
     banks = to_neuron_major(build_neuron_banks(wg, wu, wd))
-    out, checks = {}, []
-    check = checker(checks)
+    out = {}
 
     # --- per-row qmatmul: R rows, each with its own scattered active set
     idx = torch.stack([torch.randperm(f, generator=g, device=dev)[:k]
@@ -912,6 +973,34 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
     out["qmatmul_gemv_rows"] = dict(shapes["decode"], max_abs_err=max(errs))
     out["qmatmul_mma_rows"] = dict(shapes["chunk"], max_abs_err=max(errs))
     del lib_w
+    del banks
+    return out, (wg, wu, wd), idx
+
+
+def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
+                         sbuf: int = 256) -> dict:
+    """Per-row gathered qmatmul (R rows with their own active sets, M = 1
+    and M = chunk), chunked-prefill attention at pos0 0/48/96/112 over a
+    ``sbuf``-slot buffer (and one chunk at the end of 2048 slots), atu_update
+    and mp_glu_ffn, each against its plain version, timed beside it, a
+    library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.mp_ffn import tier_sizes
+    from repro_torch.core.quantize import unpack_int4
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.atu_update import atu_update
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    d, f = cfg.d_model, cfg.d_ff
+    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sizes = tier_sizes(f, cfg)
+    k16, k8, k4 = sizes["fp16"], sizes["int8"], sizes["int4"]
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    out, checks = {}, []
+    check = checker(checks)
+    rows, (wg, wu, wd), idx = server_ffn_rows(check, g, dev, cfg, R, chunk)
+    out.update(rows)
 
     # --- chunked-prefill attention at pos0 0/48/96/112 over sbuf slots
     out["chunk_attention"] = chunk_rows(check, randn, dev, pos0=[0, 48, 96,
@@ -1004,8 +1093,67 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
             x, compact, act_name=cfg.ffn_act)),
         "library_profile": device_profile(lib_glu)}
     log({"phase": "kernels_server", "checks": checks, "kernels": out})
-    del banks, compact, deq, wg, wu, wd
+    del compact, deq, wg, wu, wd
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, continued: the kernels at the dense configs' new shapes
+
+
+def phase_kernels_dense(dev, B: int, P: int, gen_len: int, R: int = 4,
+                        chunk: int = 16, sbuf: int = 256) -> dict:
+    """The kernels at the shapes dense_archs gives them that no earlier row
+    has: flash_decode at G = 12 (mistral-large-123b, two head groups, at
+    the serve step and over a server decode batch, with a sweep of the
+    heads a block takes), G = 7 at D = 64 (internvl2-1b) and G = 8
+    (command-r-35b); both prefill attention forms at G = 12 and at G = 7,
+    D = 64; one layer's FFN at d = 12288 at the serve and server shapes.
+    Each against its plain version, timed beside it, the library call and
+    the bound."""
+    import torch
+    from repro_torch.configs.base import get_config
+    g = torch.Generator(device=dev).manual_seed(5678)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    out, checks = {}, []
+    check = checker(checks)
+    S, lengths = DECODE_ROWS["flash_decode"]
+    shapes = {name: get_config(arch) for name, arch in (
+        ("g12", "mistral-large-123b"), ("g7", "internvl2-1b"),
+        ("g8", "command-r-35b"))}
+    for name, cfg in shapes.items():
+        hkv, D = cfg.num_kv_heads, cfg.head_dim
+        G = cfg.num_heads // hkv
+        out[f"flash_decode_{name}"] = decode_row(
+            check, randn, dev, f"flash_decode_{name}", S, hkv, G, D, lengths,
+            holes=True, full_checks=name != "g8", sweep=(32, 64),
+            heads=(6, 4, 3) if name == "g12" else ())
+        out[f"flash_decode_{name}"]["config"] = cfg.name
+    S, lengths = DECODE_ROWS["flash_decode_rows"]
+    big = shapes["g12"]
+    out["flash_decode_rows_g12"] = decode_row(
+        check, randn, dev, "flash_decode_rows_g12", S, big.num_kv_heads,
+        big.num_heads // big.num_kv_heads, big.head_dim, lengths[:R],
+        full_checks=True, sweep=(32, 64, 128))
+    for name in ("g12", "g7"):
+        cfg = shapes[name]
+        hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        out[f"flash_attention_{name}"] = whole_prompt_row(
+            check, randn, dev, B, P, hq, hkv, D)
+        out[f"chunk_attention_{name}"] = chunk_rows(
+            check, randn, dev, pos0=[0, 48, 96, 112][:R], chunk=chunk,
+            sbuf=sbuf, hq=hq, hkv=hkv, D=D, splits=(0, 32, 64))
+        for k in ("flash_attention", "chunk_attention"):
+            out[f"{k}_{name}"]["config"] = cfg.name
+    rows = serve_ffn_rows(check, g, dev, big, B, P)[0]
+    rows.update(server_ffn_rows(check, g, dev, big, R, chunk)[0])
+    for name, row in rows.items():
+        out[f"{name}_d{big.d_model}"] = dict(row, config=big.name,
+                                             d=big.d_model, f=big.d_ff)
+    del rows
+    torch.cuda.empty_cache()
+    log({"phase": "kernels_dense", "checks": checks, "kernels": out})
     return out
 
 
@@ -1083,16 +1231,18 @@ def serve_args(**kw):
     return build_parser().parse_args(argv)
 
 
-def phase_tiny():
+def phase_tiny(arch: str = "qwen2.5-14b", label: str = "tiny"):
+    """``arch``'s tiny config through launch/serve on cuda against cpu,
+    from the same weights."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import run
     from repro_torch.models import transformer as T
-    cfg = get_config("qwen2.5-14b", tiny=True)
+    cfg = get_config(arch, tiny=True)
     params = T.init_params(cfg, seed=0, device="cpu")
     draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
     params_gpu = _tree_to(params, "cuda")
-    kw = dict(arch="qwen2.5-14b", tiny=True, batch=2, prompt_len=16,
+    kw = dict(arch=arch, tiny=True, batch=2, prompt_len=16,
               gen_len=8, dram_gb=0.5)
     runs = {}
     for device, p in (("cuda", params_gpu), ("cpu", params)):
@@ -1108,16 +1258,17 @@ def phase_tiny():
     (rg, lg, cg, sg), (rc, lc, _, sc) = runs["cuda"], runs["cpu"]
     err = float((lg - lc).abs().max())
     tol = 1e-4
-    line = {"phase": "tiny", "config": cfg.name, "tokens_equal":
+    line = {"phase": label, "config": cfg.name, "tokens_equal":
             bool((rg.tokens == rc.tokens).all()), "last_logits_max_abs_err": err,
             "tol_abs_rel": tol, "launches_cuda": cg,
             "modeled_s_equal": sg["modeled_s"] == sc["modeled_s"],
             "tokens": rg.tokens.tolist()}
     log(line)
-    require(line["tokens_equal"], "tiny: cuda and cpu tokens differ")
+    require(line["tokens_equal"], f"{label}: cuda and cpu tokens differ")
     require(torch.allclose(lg, lc, atol=tol, rtol=tol),
-            f"tiny: last logits differ by {err:.3g}")
-    require_path_kernels("tiny", "serve", cg, each_qmm_kernel=False)
+            f"{label}: last logits differ by {err:.3g}")
+    require_path_kernels(label, "serve", cg, each_qmm_kernel=False)
+    return line
 
 
 def _tree_to(tree, device):
@@ -1128,23 +1279,19 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_full(B: int, P: int, gen_len: int) -> dict:
+def phase_full(full, cfg, params, B: int, P: int, gen_len: int,
+               label: str = "full", ssd_dir: str = None) -> dict:
+    """``full_model``'s weights through launch/serve: B prompts of P tokens,
+    gen_len new tokens, twice (the same tokens), then one prefill and one
+    decode step profiled. The SSD tier's bank files go to ``ssd_dir`` (kept)
+    or to a temporary directory (removed)."""
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import run
-    from repro_torch.models import transformer as T
-    full = get_config("qwen2.5-14b")
-    cfg = dataclasses.replace(full, num_layers=FULL_LAYERS)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=0, device="cuda")
-    draw_pred_a(params, torch.Generator(device="cuda").manual_seed(1), "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     param_gb = sum(t.numel() * t.element_size()
                    for t in _leaves(params)) / 1e9
-    kw = dict(arch="qwen2.5-14b", batch=B, prompt_len=P, gen_len=gen_len,
+    kw = dict(arch=full.name, batch=B, prompt_len=P, gen_len=gen_len,
               device="cuda")
-    tmp = tempfile.mkdtemp(prefix="m2cache_ssd_")
+    tmp = ssd_dir or tempfile.mkdtemp(prefix="m2cache_ssd_")
     try:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -1165,17 +1312,18 @@ def phase_full(B: int, P: int, gen_len: int) -> dict:
         cost = decode_forward_cost(cfg, params, [P + gen_len // 2] * B,
                                    P + gen_len + 1, rows=False)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not ssd_dir:
+            shutil.rmtree(tmp, ignore_errors=True)
     line = {
-        "phase": "full", "config": cfg.name,
-        "depth_cut": f"num_layers {full.num_layers} -> {FULL_LAYERS}",
+        "phase": label, "config": cfg.name,
+        "depth_cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
         "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
                    "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                    "d_ff": cfg.d_ff, "vocab": cfg.vocab_size},
         "pred_A": "drawn N(0, 1/d) on the device generator for this run "
                   "(the reference's init zeroes it)",
         "batch": B, "prompt_len": P, "gen_len": gen_len,
-        "param_gb": param_gb, "init_s": init_s, "ssd_bank_files_gb": ssd_gb,
+        "param_gb": param_gb, "ssd_bank_files_gb": ssd_gb,
         "serve_wall_s": serve_s, "prefill_wall_s": wall["prefill"],
         "decode_wall_s_median": statistics.median(wall["decode"]),
         "decode_wall_s": wall["decode"], "peak_mem_gb": peak_gb,
@@ -1187,11 +1335,11 @@ def phase_full(B: int, P: int, gen_len: int) -> dict:
         "decode_forward": cost,
         "tokens": res.tokens.tolist()}
     log(line)
-    require(finite, "full: non-finite logits")
-    require(in_vocab, "full: token outside the vocabulary")
-    require(same, "full: a second run gave other tokens")
-    require_path_kernels("full", "serve", counts)
-    return counts
+    require(finite, f"{label}: non-finite logits")
+    require(in_vocab, f"{label}: token outside the vocabulary")
+    require(same, f"{label}: a second run gave other tokens")
+    require_path_kernels(label, "serve", counts)
+    return counts, line
 
 
 def decode_forward_cost(cfg, params, lengths, sbuf: int, rows: bool,
@@ -1295,18 +1443,19 @@ def last_logits(sess):
         else sess.last[0]
 
 
-def phase_server_tiny():
-    """The tiny server on cuda against cpu (same weights): shared-prefix
-    turns with prefix reuse, and a burst that fills the decode batch."""
+def phase_server_tiny(arch: str = "qwen2.5-14b", label: str = "server_tiny"):
+    """``arch``'s tiny server on cuda against cpu (same weights):
+    shared-prefix turns with prefix reuse, and a burst that fills the
+    decode batch."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.launch.server import run
     from repro_torch.models import transformer as T
-    cfg = get_config("qwen2.5-14b", tiny=True)
+    cfg = get_config(arch, tiny=True)
     params = T.init_params(cfg, seed=0, device="cpu")
     draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
     params_gpu = _tree_to(params, "cuda")
-    shared = ["--arch", "qwen2.5-14b", "--tiny", "--workload", "shared-prefix",
+    shared = ["--arch", arch, "--tiny", "--workload", "shared-prefix",
               "--prefix-cache", "--turns", "2", "--requests", "8",
               "--prefill-chunk", "8", "--gen-len", "3", "6",
               "--shared-prefix-len", "24", "--max-batch", "4", "--rate", "50",
@@ -1314,7 +1463,7 @@ def phase_server_tiny():
     burst = shared[:shared.index("--turns")] + shared[
         shared.index("--requests"):shared.index("--rate")] + [
         "--rate", "1e6", "--dram-gb", "0.5"]
-    line = {"phase": "server_tiny", "config": cfg.name}
+    line = {"phase": label, "config": cfg.name}
     for name, argv in (("shared_prefix", shared), ("burst", burst)):
         runs = {}
         for device, p in (("cuda", params_gpu), ("cpu", params)):
@@ -1345,19 +1494,20 @@ def phase_server_tiny():
                "launches_cuda": cg}
         line[name] = res
         require(res["tokens_equal_cuda_cpu"],
-                f"server_tiny {name}: cuda and cpu tokens differ")
+                f"{label} {name}: cuda and cpu tokens differ")
         require(all(res["modeled_fields_equal"].values()),
-                f"server_tiny {name}: modeled fields differ: "
+                f"{label} {name}: modeled fields differ: "
                 f"{res['modeled_fields_equal']}")
         require(res["tokens_equal_batched_vs_per_session"],
-                f"server_tiny {name}: batched decode changed the tokens")
-        require_path_kernels(f"server_tiny {name}", "server", cg,
+                f"{label} {name}: batched decode changed the tokens")
+        require_path_kernels(f"{label} {name}", "server", cg,
                              each_qmm_kernel=False)
     require(line["shared_prefix"]["prefix_hit_tokens"] > 0,
-            "server_tiny: no prefix hit")
+            f"{label}: no prefix hit")
     require(line["burst"]["decode_rows_per_step"] > 1.5,
-            "server_tiny: the burst never batched decode rows")
+            f"{label}: the burst never batched decode rows")
     log(line)
+    return line
 
 
 class StepClock:
@@ -1476,51 +1626,58 @@ def step_device_time(prof) -> dict:
     return out
 
 
-def phase_server_full(full, cfg, params) -> dict:
-    """qwen2.5-14b at full width, 4 layers (``full_model``), through the
-    server: cold with the prefix cache (the counted run), warm from the tree
-    it persisted (profiled), and with the prefix cache off."""
+def phase_server_full(full, cfg, params, label: str = "server_full",
+                      ssd_dir: str = None, per_session: bool = False) -> dict:
+    """``full_model``'s weights through the server on server_full's traffic:
+    cold with the prefix cache (the counted run), warm from the tree it
+    persisted (profiled), and with the prefix cache off; with
+    ``per_session`` also with batched decode off. The SSD tier's bank files
+    go to ``ssd_dir`` (kept, shared by the runs) or to one temporary
+    directory a run (removed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.server import run
     torch.cuda.synchronize()
+    argv0 = ["--arch", full.name] + SERVER_FULL[2:]
     tmp = tempfile.mkdtemp(prefix="m2cache_server_")
     persist = str(Path(tmp) / "radix")
     res = {}
     try:
-        def serve(label, argv, ssd):
+        def serve(name, argv):
             with StepClock() as clock:
                 t0 = time.perf_counter()
                 out, rep, eng, _ = run(server_args(argv, device="cuda"),
                                        cfg=cfg, params=params,
-                                       ssd_dir=str(Path(tmp) / ssd))
+                                       ssd_dir=ssd_dir or str(Path(tmp) / name))
                 wall = time.perf_counter() - t0
-            res[label] = {"out": json.loads(json.dumps(out, default=float)),
-                          "tokens": _tokens(rep), "wall_s": wall,
-                          "steps": clock.summary(),
-                          "restored": eng.prefix_restored_tokens,
-                          "finite": all(bool(torch.isfinite(last_logits(
-                              r.session)).all()) for r in rep.requests)}
+            res[name] = {"out": json.loads(json.dumps(out, default=float)),
+                         "tokens": _tokens(rep), "wall_s": wall,
+                         "steps": clock.summary(),
+                         "restored": eng.prefix_restored_tokens,
+                         "finite": all(bool(torch.isfinite(last_logits(
+                             r.session)).all()) for r in rep.requests)}
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        serve("cold", SERVER_FULL + ["--prefix-cache", "--prefix-persist",
-                                     persist], "cold")
+        serve("cold", argv0 + ["--prefix-cache", "--prefix-persist", persist])
         counts = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            serve("warm", SERVER_FULL + ["--prefix-cache", "--prefix-persist",
-                                         persist], "warm")
-        serve("off", SERVER_FULL, "off")
+            serve("warm", argv0 + ["--prefix-cache", "--prefix-persist",
+                                   persist])
+        serve("off", argv0)
+        if per_session:
+            serve("per_session", argv0 + ["--no-batched-decode",
+                                          "--prefill-bucket", "1"])
         cost = decode_forward_cost(cfg, params, SERVER_DECODE_LENGTHS,
                                    SERVER_BUCKET, rows=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     toks = {k: res[k]["tokens"] for k in res}
     line = {
-        "phase": "server_full", "config": cfg.name,
-        "depth_cut": f"num_layers {full.num_layers} -> {FULL_LAYERS}",
-        "args": SERVER_FULL, "peak_mem_gb": peak_gb, "launches": counts,
+        "phase": label, "config": cfg.name,
+        "depth_cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
+        "args": argv0, "peak_mem_gb": peak_gb, "launches": counts,
         "tokens_equal_cold_warm_off": toks["cold"] == toks["warm"]
         == toks["off"],
         "rids_differing": sorted(r for r in toks["cold"] if not (
@@ -1538,14 +1695,20 @@ def phase_server_full(full, cfg, params) -> dict:
         "summary_cold": res["cold"]["out"]["summary"],
         "finite_logits": all(res[k]["finite"] for k in res),
         "tokens": res["cold"]["tokens"]}
+    if per_session:
+        line["tokens_equal_batched_vs_per_session"] = \
+            toks["per_session"] == toks["off"]
+        line["steps_per_session"] = res["per_session"]["steps"]
     log(line)
-    require(line["finite_logits"], "server_full: non-finite logits")
+    require(line["finite_logits"], f"{label}: non-finite logits")
     require(line["tokens_equal_cold_warm_off"],
-            "server_full: tokens differ between cold, warm and prefix-off")
+            f"{label}: tokens differ between cold, warm and prefix-off")
     require((line["prefix_hit_tokens"]["warm"] or 0) > 0,
-            "server_full: the warm run hit no prefix")
-    require_path_kernels("server_full", "server", counts)
-    return counts
+            f"{label}: the warm run hit no prefix")
+    require(line.get("tokens_equal_batched_vs_per_session", True),
+            f"{label}: batched decode changed the tokens")
+    require_path_kernels(label, "server", counts)
+    return counts, line
 
 
 
@@ -1553,14 +1716,15 @@ def phase_server_full(full, cfg, params) -> dict:
 # Phases 7 to 9: the observed server, the fleet and the divergence probe
 
 
-def full_model(device: str = "cuda"):
-    """qwen2.5-14b at full width, depth cut to FULL_LAYERS, the weights of
-    server_full: seed 0, predictor A drawn from seed 1 on the device."""
+def full_model(arch: str = "qwen2.5-14b", layers: int = FULL_LAYERS,
+               device: str = "cuda"):
+    """``arch`` at full width, depth cut to ``layers``, random weights:
+    seed 0, predictor A drawn from seed 1 on the device."""
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.models import transformer as T
-    full = get_config("qwen2.5-14b")
-    cfg = dataclasses.replace(full, num_layers=FULL_LAYERS)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     params = T.init_params(cfg, seed=0, device=device)
     draw_pred_a(params, torch.Generator(device=device).manual_seed(1), device)
     return full, cfg, params
@@ -1823,6 +1987,83 @@ def phase_divergence(cfg, params) -> dict:
     return counts
 
 
+#: dense_archs: each dense-attention config the port serves besides
+#: qwen2.5-14b, at full width with its depth cut to this many layers
+#: (internvl2-1b whole)
+DENSE_ARCHS = {"qwen2.5-32b": 4, "command-r-35b": 4,
+               "mistral-large-123b": 2, "internvl2-1b": 24}
+
+
+def phase_dense_archs(B: int, P: int, gen_len: int) -> dict:
+    """Each config of DENSE_ARCHS in turn: its tiny config through
+    launch/serve and launch/server on cuda against cpu; then at full width
+    (depth cut) full's serve traffic and server_full's server traffic (the
+    prefix cache cold, warm and off, and batched decode off), every main
+    path kernel launched; the card freed and the bank files removed before
+    the next config. Returns each path's launch counts, keyed
+    "<arch>/serve" and "<arch>/server"."""
+    import gc
+    import torch
+    paths = {}
+    for arch, layers in DENSE_ARCHS.items():
+        t_arch = time.perf_counter()
+        tiny = phase_tiny(arch, label=f"dense_archs {arch} tiny")
+        server_tiny = phase_server_tiny(arch,
+                                        label=f"dense_archs {arch} server_tiny")
+        t0 = time.perf_counter()
+        full, cfg, params = full_model(arch, layers)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tmp = tempfile.mkdtemp(prefix="m2cache_ssd_")
+        try:
+            paths[f"{arch}/serve"], serve = phase_full(
+                full, cfg, params, B, P, gen_len,
+                label=f"dense_archs {arch} serve", ssd_dir=tmp)
+            paths[f"{arch}/server"], srv = phase_server_full(
+                full, cfg, params, label=f"dense_archs {arch} server",
+                ssd_dir=tmp, per_session=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dev_srv = srv["device_in_steps_warm"]
+        log({"phase": "dense_archs", "config": arch,
+             "depth_cut": serve["depth_cut"],
+             "widths": serve["widths"], "param_gb": serve["param_gb"],
+             "init_s": init_s, "ssd_bank_files_gb": serve["ssd_bank_files_gb"],
+             "tiny_tokens_equal_cuda_cpu": tiny["tokens_equal"],
+             "server_tiny_tokens_equal_cuda_cpu": all(
+                 server_tiny[k]["tokens_equal_cuda_cpu"]
+                 for k in ("shared_prefix", "burst")),
+             "serve": {
+                 "prefill_wall_ms": serve["prefill_wall_s"] * 1e3,
+                 "decode_step_wall_ms_median":
+                     serve["decode_wall_s_median"] * 1e3,
+                 "prefill_device_ms":
+                     serve["profile"]["prefill"].get("device_ms"),
+                 "decode_step_device_ms":
+                     serve["profile"]["decode_step"].get("device_ms"),
+                 "launches": paths[f"{arch}/serve"]},
+             "server": {
+                 "tokens_equal_cold_warm_off":
+                     srv["tokens_equal_cold_warm_off"],
+                 "tokens_equal_batched_vs_per_session":
+                     srv["tokens_equal_batched_vs_per_session"],
+                 "decode_step_wall_ms_median":
+                     srv["steps_cold"]["decode_step_wall_ms_median"],
+                 "prefill_chunk_wall_ms_median":
+                     srv["steps_cold"]["prefill_chunk_wall_ms_median"],
+                 "decode_step_device_ms": dev_srv.get("decode_step", {}).get(
+                     "device_ms_per_step", "not measured"),
+                 "prefill_step_device_ms": dev_srv.get("prefill_step", {}).get(
+                     "device_ms_per_step", "not measured"),
+                 "peak_mem_gb": srv["peak_mem_gb"],
+                 "launches": paths[f"{arch}/server"]},
+             "seconds": time.perf_counter() - t_arch})
+    return paths
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1873,34 +2114,59 @@ def main():
                  gen_len)
     kern.update(timed("kernels_server", phase_kernels_server, cfg,
                       torch.device("cuda")))
+    kern.update(timed("kernels_dense", phase_kernels_dense,
+                      torch.device("cuda"), B, P, gen_len))
     timed("tiny", phase_tiny)
-    paths = {"serve_full": timed("full", phase_full, B, P, gen_len)}
     timed("server_tiny", phase_server_tiny)
     full, full_cfg, params = timed("full_model", full_model)
+    paths = {"serve_full": timed("full", phase_full, full, full_cfg, params,
+                                 B, P, gen_len)[0]}
     paths["server_full"] = timed("server_full", phase_server_full, full,
-                                 full_cfg, params)
+                                 full_cfg, params)[0]
     for name, fn in (("server_obs_full", phase_server_obs_full),
                      ("cluster_full", phase_cluster_full),
                      ("divergence", phase_divergence)):
         paths[name] = timed(name, fn, full_cfg, params)
     del params
+    torch.cuda.empty_cache()
+    paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
     log({"phase": "timing", "seconds": seconds,
          "total_s": time.perf_counter() - t0})
 
-    # name -> (source, the TPU kernel it replaces, counter, paths that run it)
+    # name -> (source, the TPU kernel it replaces, counter, paths that run
+    # it); a dense config's launches count in the row of its own shape
+    # where the table has one, else in the row of the same kernel and form
     k = "src/repro/kernels/"
     c = "src/repro_torch/csrc/"
+    qwen32, cmdr, mistral, vl = DENSE_ARCHS
     server_paths = ("server_full", "server_obs_full", "cluster_full")
-    decode_paths = ("serve_full",) + server_paths + ("divergence",)
+    dense_serve = tuple(f"{a}/serve" for a in (qwen32, cmdr, vl))
+    dense_server = tuple(f"{a}/server" for a in (qwen32, cmdr, vl))
+    decode_paths = ("serve_full",) + server_paths + ("divergence",
+                                                     f"{qwen32}/serve",
+                                                     f"{qwen32}/server")
+    whole_paths = ("serve_full", "divergence", f"{qwen32}/serve",
+                   f"{cmdr}/serve")
+    chunk_paths = server_paths + (f"{qwen32}/server", f"{cmdr}/server")
     rows = {
         "qmatmul_gemv": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                         "qmatmul_gemv", ("serve_full", "divergence")),
+                         "qmatmul_gemv", ("serve_full", "divergence")
+                         + dense_serve),
         "qmatmul_mma": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                        "qmatmul_mma", ("serve_full", "divergence")),
+                        "qmatmul_mma", ("serve_full", "divergence")
+                        + dense_serve),
         "qmatmul_gemv_rows": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                              "qmatmul_gemv", server_paths),
+                              "qmatmul_gemv", server_paths + dense_server),
         "qmatmul_mma_rows": (c + "qmatmul.cu", k + "qmatmul.py:38",
-                             "qmatmul_mma", server_paths),
+                             "qmatmul_mma", server_paths + dense_server),
+        "qmatmul_gemv_d12288": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                                "qmatmul_gemv", (f"{mistral}/serve",)),
+        "qmatmul_mma_d12288": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                               "qmatmul_mma", (f"{mistral}/serve",)),
+        "qmatmul_gemv_rows_d12288": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                                     "qmatmul_gemv", (f"{mistral}/server",)),
+        "qmatmul_mma_rows_d12288": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                                    "qmatmul_mma", (f"{mistral}/server",)),
         "flash_decode": (c + "flash_decode.cu", k + "flash_decode.py:26",
                          "flash_decode", decode_paths),
         # the same kernel over a server decode batch, and at 4 K and 32 K
@@ -1911,21 +2177,44 @@ def main():
                               "flash_decode", decode_paths),
         "flash_decode_32k": (c + "flash_decode.cu", k + "flash_decode.py:26",
                              "flash_decode", decode_paths),
+        # G = 12 in two head groups, G = 7 at D = 64, G = 8
+        "flash_decode_g12": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                             "flash_decode", (f"{mistral}/serve",
+                                              f"{mistral}/server")),
+        "flash_decode_rows_g12": (c + "flash_decode.cu",
+                                  k + "flash_decode.py:26", "flash_decode",
+                                  (f"{mistral}/server",)),
+        "flash_decode_g7": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                            "flash_decode", (f"{vl}/serve", f"{vl}/server")),
+        "flash_decode_g8": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                            "flash_decode", (f"{cmdr}/serve",
+                                             f"{cmdr}/server")),
         "flash_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "flash_attention",
-                            ("serve_full", "divergence")),
+                            whole_paths),
         "chunk_attention": (c + "flash_attention.cu",
                             k + "flash_attention.py:26", "chunk_attention",
-                            server_paths),
+                            chunk_paths),
+        "flash_attention_g12": (c + "flash_attention.cu",
+                                k + "flash_attention.py:26",
+                                "flash_attention", (f"{mistral}/serve",)),
+        "flash_attention_g7": (c + "flash_attention.cu",
+                               k + "flash_attention.py:26",
+                               "flash_attention", (f"{vl}/serve",)),
+        "chunk_attention_g12": (c + "flash_attention.cu",
+                                k + "flash_attention.py:26",
+                                "chunk_attention", (f"{mistral}/server",)),
+        "chunk_attention_g7": (c + "flash_attention.cu",
+                               k + "flash_attention.py:26",
+                               "chunk_attention", (f"{vl}/server",)),
         # the two forms at a 2048-token prompt: the same kernels, whose
         # launches are those of the rows above
         "flash_attention_long": (c + "flash_attention.cu",
                                  k + "flash_attention.py:26",
-                                 "flash_attention", ("serve_full",
-                                                     "divergence")),
+                                 "flash_attention", whole_paths),
         "chunk_attention_long": (c + "flash_attention.cu",
                                  k + "flash_attention.py:26",
-                                 "chunk_attention", server_paths),
+                                 "chunk_attention", chunk_paths),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),

@@ -40,7 +40,9 @@ def params_from_jax(np_tree, cfg, device) -> dict:
     ``layers.pattern[i]``'s leading F axis is unstacked into one dictionary
     per layer, in layer order; every leaf keeps its name and its bytes, and
     each layer's FFN banks are stored neuron-major
-    (``core.quantize.to_neuron_major``)."""
+    (``core.quantize.to_neuron_major``). Leaves come over as the tree has
+    them: a parallel block's layer has no ``norm2``, a tied model's tree no
+    ``unembed``."""
     dev = torch.device(device)
     pat, F, rem = T.pattern_split(cfg)
     layers = []

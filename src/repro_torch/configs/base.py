@@ -150,10 +150,19 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _REGISTRY: dict = {}
 
-#: architectures the port serves so far (the JAX package has more)
+#: architectures the port serves so far (the JAX package has more): every
+#: dense-attention config of the reference
 _MODULE_FOR = {
     "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "command-r-35b": "command_r_35b",
+    "mistral-large-123b": "mistral_large_123b",
+    "internvl2-1b": "internvl2_1b",
 }
+
+
+#: the ``--arch`` values the port serves
+SERVED = tuple(_MODULE_FOR)
 
 
 def get_config(name: str, tiny: bool = False) -> ModelConfig:

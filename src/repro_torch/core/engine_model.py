@@ -20,7 +20,7 @@ that hold no session are not computed.
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -349,10 +349,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def extract_layer_banks(cfg, params) -> List[dict]:
+def extract_layer_banks(cfg, params) -> Iterator[dict]:
     """Per-layer quantized neuron banks (numpy) for the SSD tier, in layer
     order and in the reference's layout (the files equal the reference's
-    byte for byte); transposed on the params' device before the host copy."""
-    return [{k: _to_numpy(v)
-             for k, v in to_reference_layout(layer["ffn"]["banks"]).items()}
-            for layer in params["layers"]]
+    byte for byte); transposed on the params' device before the host copy.
+    Yields one layer at a time, so the host holds one layer's banks (5.8 GB
+    at mistral-large-123b's widths), not the model's."""
+    for layer in params["layers"]:
+        yield {k: _to_numpy(v)
+               for k, v in to_reference_layout(layer["ffn"]["banks"]).items()}

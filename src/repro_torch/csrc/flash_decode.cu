@@ -24,13 +24,20 @@
 // reading.
 //
 // Design:
-//  * Grid (range, KV head, row): a block of 8 warps takes `range` absolute
-//    slots of one (row, KV head) and all G query heads of that KV head, so
-//    a K/V byte read once serves G heads. The range comes from one row's
+//  * Grid (range, head group, row): a block of 8 warps takes `range`
+//    absolute slots of one (row, KV head) and G / groups of that KV head's
+//    G query heads, so a K/V byte read once serves them all. Up to 8 query
+//    heads (a warp each in the softmax) take one group; more are spread
+//    evenly over ceil(G / 8) groups, as the prefill forms spread them
+//    (mistral-large's 12 as 2 x 6), each group a block that reads the K/V
+//    range again, mostly from L2. Head group y is query heads y * (G /
+//    groups) .. of the row, KV head y / groups: q and out seen as (B, Hkv *
+//    groups, G / groups, D). The range and the groups come from one row's
 //    shape and the card's SM count (kernels/flash_decode.py::_plan), never
 //    from B, lengths or the slot positions, so a row's bits do not depend
-//    on the rows beside it. G is a template parameter (1 to 8), so that
-//    every loop over heads unrolls whole.
+//    on the rows beside it; a head's bits do not depend on its group
+//    either. The heads of a block are a template parameter (1 to 8), so
+//    that every loop over heads unrolls whole.
 //  * A block first reads its range's slot positions, all in flight at
 //    once, 32 consecutive slots to a warp (one coalesced load), into one
 //    valid-slot bit mask per 32-slot tile (a ballot). Only tiles with a
@@ -81,7 +88,7 @@
 namespace {
 
 constexpr int kTile = 32;            // slots per tile: one per lane
-constexpr int kWarps = 8;            // a warp per query head (G <= 8)
+constexpr int kWarps = 8;            // a warp per query head of a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = kWarps;
 constexpr int kMinStages = 1;        // one stage only for a one-tile range
@@ -98,9 +105,12 @@ struct Params {
   const int* slot_pos;
   const int* lengths;
   float* out;
-  float* parts;      // ranges > 1: acc (B, Hkv, ranges, G, D), m, l (.., G)
-  int* counts;       // ranges > 1: one counter per (row, KV head), 0
-  int S, Hkv, G;
+  float* parts;      // ranges > 1: acc (B, Hkv * groups, ranges, G, D),
+                     // then m, l (.., G)
+  int* counts;       // ranges > 1: one counter per (row, head group), 0
+  int S, Hkv;
+  int G;             // query heads of a block: of a KV head / groups
+  int groups;        // blocks a KV head's query heads are spread over
   int range, ranges, stages;
   float scale;
 };
@@ -245,9 +255,10 @@ flash_decode_kernel(const Params p) {
   unsigned* mask_s = reinterpret_cast<unsigned*>(smem + L::kMask);
   float* ring = smem + L::kRing;
 
-  const int rg = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int rg = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / p.groups;           // the KV head
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long bh = (long long)b * p.Hkv + h;
+  const long long bh = (long long)b * gridDim.y + blockIdx.y;  // (row, group)
   const int s0 = rg * p.range;
   const int s1 = min(p.S, s0 + p.range);
   const int ntiles = (s1 - s0 + kTile - 1) / kTile;
@@ -427,11 +438,11 @@ flash_decode_kernel(const Params p) {
   }
 
   // this range's (m, l, acc) to scratch
-  const long long nparts = (long long)gridDim.z * p.Hkv * p.ranges;
+  const long long nparts = (long long)gridDim.z * gridDim.y * p.ranges;
   float4* pacc = reinterpret_cast<float4*>(p.parts);      // (nparts, G, C)
   float* pm = p.parts + nparts * G * D;                    // (nparts, G)
   float* pl = pm + nparts * G;
-  const long long first = bh * p.ranges;                   // this (b, h)'s range 0
+  const long long first = bh * p.ranges;                   // this group's range 0
   for (int e = tid; e < G * C; e += kThreads)
     pacc[(first + rg) * G * C + e] = range_acc(e);
   if (tid < G) {
@@ -444,7 +455,7 @@ flash_decode_kernel(const Params p) {
   if (!last_s) return;
   if (tid == 0) p.counts[bh] = 0;      // ready for the next launch
 
-  // the last block: the first kR ranges' partials of its elements in
+  // the last block of the group: the first kR ranges' partials of its elements in
   // flight first; meanwhile warp g takes head g's (m, l) of every range,
   // M, each weight exp(m_r - M) once and the denominator in ascending
   // order; then the elements, in ascending order of the ranges
@@ -539,13 +550,13 @@ int launch(const Params& p, int B, cudaStream_t st) {
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
-  flash_decode_kernel<D, G><<<dim3(p.ranges, p.Hkv, B), kThreads,
+  flash_decode_kernel<D, G><<<dim3(p.ranges, p.Hkv * p.groups, B), kThreads,
                               L::bytes(p.stages), st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// G, the query heads of a KV head, is a compile-time constant of the
-// kernel, so that its loops over heads unroll whole
+// G, the query heads of a block, is a compile-time constant of the kernel,
+// so that its loops over heads unroll whole
 template <int D>
 int launch_g(const Params& p, int B, cudaStream_t st) {
   switch (p.G) {
@@ -567,18 +578,20 @@ int launch_g(const Params& p, int B, cudaStream_t st) {
 // slot_pos (B, S) and lengths (B,) int32; out (B, Hkv, G, D). Ranges of
 // `range` slots (a multiple of 32, at most 2048; the last one takes the
 // rest of S); a ring of `stages` tiles (1 to 6; 1 only where a range is one
-// tile). With more than one range, parts holds parts_floats floats (at
-// least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least B*Hkv,
-// all 0; they are 0 again when the launch ends). Returns a cudaError_t (0
-// on success).
+// tile); a KV head's G query heads in `groups` blocks of G / groups <= 8
+// heads. With more than one range, parts holds parts_floats floats (at
+// least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least
+// B*Hkv*groups, all 0; they are 0 again when the launch ends). Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_decode_fwd(const float* q, const float* k,
                                 const float* v, const int* slot_pos,
                                 const int* lengths, float* out, float* parts,
                                 long long parts_floats, int* counts,
                                 long long count_ints, int B, int S, int Hkv,
                                 int G, int D, int range, int stages,
-                                float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || G > kMaxG || stages < kMinStages ||
+                                int groups, float scale, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || G < 1 || groups < 1 || G % groups ||
+      G / groups > kMaxG || stages < kMinStages ||
       stages > kMaxStages || (stages < 2 && range != kTile) || range < kTile ||
       range % kTile || range > kMaxTiles * kTile)
     return (int)cudaErrorInvalidValue;
@@ -593,14 +606,15 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
   p.counts = counts;
   p.S = S;
   p.Hkv = Hkv;
-  p.G = G;
+  p.G = G / groups;
+  p.groups = groups;
   p.range = range;
   p.ranges = (S + range - 1) / range;
   p.stages = stages;
   p.scale = scale;
   if (p.ranges > kMaxRanges) return (int)cudaErrorInvalidValue;
   if (p.ranges > 1 &&
-      (!parts || !counts || count_ints < (long long)B * Hkv ||
+      (!parts || !counts || count_ints < (long long)B * Hkv * groups ||
        parts_floats < (long long)B * Hkv * p.ranges * G * (D + 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -22,8 +22,11 @@ launches = 0
 
 #: slots of a tile: one per lane of a warp
 TILE = 32
-#: query heads per KV head the kernel takes
-MAX_G = 8
+#: query heads of a block at most (a warp each in the softmax); a KV head's
+#: G query heads are spread evenly over ceil(G / MAX_HEADS) blocks
+MAX_HEADS = 8
+#: query heads per KV head the kernel takes: two blocks of MAX_HEADS
+MAX_G = 2 * MAX_HEADS
 #: blocks of one row wanted on each SM at most: a row's ranges fit one wave
 #: (measured: at 4 K and 32 K slots a block per SM streaming long ranges
 #: beats two with half as many tiles, and both beat a wave and a bit)
@@ -32,6 +35,8 @@ BLOCKS_PER_SM = 1
 STAGES = 3
 #: slots per range when > 0 (a multiple of TILE), whatever the rule says
 RANGE_SLOTS = 0
+#: query heads of a block when > 0 (it must divide G), whatever the rule says
+HEADS_PER_BLOCK = 0
 #: a range's tiles and a row's ranges, at most (the kernel's limits)
 MAX_RANGE_TILES = 64
 MAX_RANGES = 128
@@ -45,24 +50,43 @@ _scratch_cache: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 class Plan(NamedTuple):
     range_slots: int    # absolute slots a block takes, a multiple of TILE
     stages: int         # cp.async ring depth, in tiles
+    groups: int = 1     # blocks a KV head's G query heads are spread over
+
+
+def head_groups(G: int) -> int:
+    """Blocks a KV head's G query heads are spread over: ceil(G /
+    MAX_HEADS), each the same number of heads (``HEADS_PER_BLOCK`` > 0 sets
+    that number instead); a ValueError where G does not split so."""
+    if HEADS_PER_BLOCK:
+        groups = G // HEADS_PER_BLOCK if G % HEADS_PER_BLOCK == 0 else 0
+    else:
+        groups = math.ceil(G / MAX_HEADS)
+    _require(1 <= G <= MAX_G and groups >= 1 and G % groups == 0
+             and G // groups <= MAX_HEADS,
+             f"G={G} query heads per KV head: the kernel takes 1..{MAX_G}, "
+             f"split evenly over blocks of at most {MAX_HEADS}")
+    return groups
 
 
 def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
-    """A block's range and ring from one row's shape and the card's SM
-    count, never from B, the lengths or the slot positions: ranges of a
-    whole number of tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one
-    row on every SM and no more, within the kernel's limits (``RANGE_SLOTS``
-    > 0 sets the range instead); a ring of ``STAGES`` tiles, or of a
-    range's tiles where that is shorter (and of 2 at least for more than
-    one tile). G and D do not change the plan."""
+    """A block's range, ring and head groups from one row's shape and the
+    card's SM count, never from B, the lengths or the slot positions: G's
+    query heads in :func:`head_groups` blocks; ranges of a whole number of
+    tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one row (every KV
+    head and head group) on every SM and no more, within the kernel's
+    limits (``RANGE_SLOTS`` > 0 sets the range instead); a ring of
+    ``STAGES`` tiles, or of a range's tiles where that is shorter (and of 2
+    at least for more than one tile). D does not change the plan, nor does
+    G up to MAX_HEADS."""
+    groups = head_groups(G)
     tiles = math.ceil(S / TILE)
     if RANGE_SLOTS:
         per = RANGE_SLOTS // TILE
     else:
-        per = math.ceil(tiles / max(1, BLOCKS_PER_SM * sms // Hkv))
+        per = math.ceil(tiles / max(1, BLOCKS_PER_SM * sms // (Hkv * groups)))
     per = min(max(per, math.ceil(tiles / MAX_RANGES)), tiles, MAX_RANGE_TILES)
     # a ring of one stage holds a one-tile range only
-    return Plan(per * TILE, max(min(STAGES, per), min(2, per)))
+    return Plan(per * TILE, max(min(STAGES, per), min(2, per)), groups)
 
 
 def ranges(S: int, range_slots: int) -> int:
@@ -76,7 +100,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_decode").flash_decode_fwd
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I, I,
                        ctypes.c_float, P]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -99,8 +123,7 @@ def check_inputs(q, k, v, slot_positions, lengths):
     _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
              f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
-    _require(1 <= G <= MAX_G, f"G={G} query heads per KV head not in "
-             f"1..{MAX_G}")
+    head_groups(G)
     _require(slot_positions.dtype == torch.int32
              and tuple(slot_positions.shape) == (B, S)
              and slot_positions.is_contiguous(),
@@ -152,7 +175,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = ranges(S, plan.range_slots)
     parts = counts = None
     if n > 1:
-        parts, counts = _scratch(B * Hkv * n * G * (D + 2), B * Hkv, q.device)
+        parts, counts = _scratch(B * Hkv * n * G * (D + 2),
+                                 B * Hkv * plan.groups, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     slot_positions.data_ptr(), lengths.data_ptr(),
@@ -162,7 +186,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     None if counts is None else counts.data_ptr(),
                     0 if counts is None else counts.numel(),
                     B, S, Hkv, G, D, plan.range_slots, plan.stages,
-                    1.0 / math.sqrt(D), stream)
+                    plan.groups, 1.0 / math.sqrt(D), stream)
     build.check(err, "flash_decode_fwd")
     launches += 1
     return out

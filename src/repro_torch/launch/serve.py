@@ -4,8 +4,10 @@ Real tiny model on the GPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
       --tiny --gen-len 16 --batch 2
 
-The same on the CPU (plain PyTorch versions of the kernels):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \
+The same on the CPU (plain PyTorch versions of the kernels), for any
+served config (qwen2.5-14b, qwen2.5-32b, command-r-35b,
+mistral-large-123b, internvl2-1b):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-large-123b \
       --tiny --device cpu
 
 Paper-scale analytic mode (LLaMA geometry, modeled clock):
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import SERVED, get_config
 from repro_torch.core.engine import (PAPER_MODELS, GenerationResult,
                                      M2CacheEngine)
 from repro_torch.models import transformer as T
@@ -29,7 +31,8 @@ from repro_torch.models import transformer as T
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="a config the port serves: " + ", ".join(SERVED))
     ap.add_argument("--paper-model", default=None,
                     choices=list(PAPER_MODELS) + [None])
     ap.add_argument("--tiny", action="store_true")

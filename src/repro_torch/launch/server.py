@@ -6,8 +6,10 @@ Real tiny model on the GPU (actual decode, modeled clock):
   PYTHONPATH=src python -m repro_torch.launch.server --arch qwen2.5-14b \
       --tiny --requests 6 --rate 2.0 --max-batch 4
 
-The same on the CPU (plain PyTorch versions of the kernels):
-  PYTHONPATH=src python -m repro_torch.launch.server --arch qwen2.5-14b \
+The same on the CPU (plain PyTorch versions of the kernels), for any
+served config (qwen2.5-14b, qwen2.5-32b, command-r-35b,
+mistral-large-123b, internvl2-1b):
+  PYTHONPATH=src python -m repro_torch.launch.server --arch command-r-35b \
       --tiny --device cpu --requests 4 --max-batch 2 --gen-len 4 6
 
 Radix prefix cache on chat-style shared-prefix traffic:
@@ -42,6 +44,7 @@ from pathlib import Path
 from typing import Optional
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import SERVED
 from repro_torch.core.carbon import CarbonIntensityTrace
 from repro_torch.core.engine import PAPER_MODELS, M2CacheEngine
 from repro_torch.serving import (ROUTER_POLICIES, CarbonAutoscaler,
@@ -134,7 +137,8 @@ def build_workload(args, vocab_size=None):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="a config the port serves: " + ", ".join(SERVED))
     ap.add_argument("--paper-model", default=None,
                     choices=list(PAPER_MODELS) + [None])
     ap.add_argument("--tiny", action="store_true")

@@ -1,5 +1,6 @@
-"""Model assembly, dense attention family with the M2Cache FFN
-(``repro/models/transformer.py``'s serving path).
+"""Model assembly, dense attention families (``dense``, and ``vlm``'s
+decoder) with the M2Cache FFN (``repro/models/transformer.py``'s serving
+path).
 
 Parameters are plain dictionaries of tensors with the reference's leaf
 names; where the reference stacks the layers of one pattern position on a
@@ -12,9 +13,11 @@ a CPU int64 tensor (B,) when the rows are separate requests at their own
 positions (the server's stacked rows, where the reference vmaps a one-row
 graph over a per-row ``pos``).
 
-Ported so far: dense attention layers, ``mode`` "prefill", "prefill_resume"
-and "decode", ``m2=True``. Other families, windows, logit softcaps,
-parallel blocks and the int8 KV cache raise NotImplementedError.
+Ported so far: dense attention layers, serial or parallel (command-r's
+attention and FFN side by side on one norm), the vlm family's prepended
+``prefix`` embeddings, ``mode`` "prefill", "prefill_resume" and "decode",
+``m2=True``. Other families, MoE FFNs, windows, logit softcaps and the
+int8 KV cache raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -47,14 +50,12 @@ def pattern_split(cfg) -> Tuple[tuple, int, int]:
 
 def check_supported(cfg, *, m2: bool = True):
     """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.window_size:
         raise NotImplementedError("sliding-window attention is not ported yet")
     if cfg.logit_softcap:
         raise NotImplementedError("logit softcap is not ported yet")
-    if cfg.parallel_block:
-        raise NotImplementedError("parallel attention+FFN blocks are not ported")
     if cfg.num_experts:
         raise NotImplementedError("MoE FFNs are not ported yet")
     if not (m2 and cfg.m2_enabled):
@@ -94,7 +95,8 @@ def _ffn_specs(cfg, dtype) -> Dict:
 
 
 def _layer_specs(cfg, dtype) -> Dict:
-    """One attention layer (transformer.py:110-124)."""
+    """One attention layer (transformer.py:110-124): a parallel block has
+    no ``norm2``."""
     d = cfg.d_model
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out = {
@@ -105,7 +107,8 @@ def _layer_specs(cfg, dtype) -> Dict:
     }
     if cfg.qkv_bias:
         out["bqkv"] = (((hq + 2 * hkv) * hd,), torch.float32, "vector")
-    out["norm2"] = ((d,), torch.float32, "vector")
+    if not cfg.parallel_block:
+        out["norm2"] = ((d,), torch.float32, "vector")
     return out
 
 
@@ -230,8 +233,10 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     "prefill_resume" (an S-token chunk at pos0, attending over the whole
     buffer). ``rows``: the batch rows are separate requests: per-row FFN
     active sets, and the products and norms run one row at a time.
-    ``slots``: :func:`decode_slots` of pos0 (decode only). Returns
-    (y, active ids: (k,) or (B, k) with ``rows``)."""
+    ``slots``: :func:`decode_slots` of pos0 (decode only). A parallel block
+    (transformer.py:625-627) feeds the FFN the normed ``h`` that fed QKV
+    and adds both outputs to x. Returns (y, active ids: (k,) or (B, k) with
+    ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -239,12 +244,13 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
         """The products and norms of separate requests: one row at a time."""
         return each_row(fn, t) if rows else fn(t)
 
-    def qkv_proj(t):
-        qkv = apply_norm(cfg, t, p["norm1"]) @ p["wqkv"]
+    def norm_qkv(t):
+        h = apply_norm(cfg, t, p["norm1"])
+        qkv = h @ p["wqkv"]
         if cfg.qkv_bias:
             qkv = qkv + p["bqkv"].to(qkv.dtype)
-        return qkv
-    qkv = dense(qkv_proj, x)
+        return h, qkv
+    h, qkv = dense(norm_qkv, x)
     q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hkv, hd)
@@ -273,11 +279,19 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
             # and whatever sits above the prefill front
             attn_out = ops.chunk_attention(q, ck, cv, positions)
 
-    x = x + dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
-    h2 = dense(lambda t: apply_norm(cfg, t, p["norm2"]), x)
-    ffn_out, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"],
-                                    h2, rows=rows)
-    return x + ffn_out, info["active_idx"]
+    attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
+
+    def ffn(t):
+        return mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], t,
+                               rows=rows)
+    if cfg.parallel_block:
+        ffn_out, info = ffn(h)
+        y = x + attn_out + ffn_out
+    else:
+        x = x + attn_out
+        ffn_out, info = ffn(dense(lambda t: apply_norm(cfg, t, p["norm2"]), x))
+        y = x + ffn_out
+    return y, info["active_idx"]
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +312,14 @@ def unembed(cfg, params, x):
 
 
 @torch.no_grad()
-def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True,
-            rows: bool = False):
+def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
+            m2: bool = True, rows: bool = False):
     """Returns (logits, cache, aux); ``cache`` is updated in place.
 
-    tokens: (B, S) integer ids. mode: prefill | prefill_resume | decode;
+    tokens: (B, S) integer ids. prefix: (B, N, d) precomputed frontend
+    embeddings (vlm patches), prepended outside decode: they fill the
+    cache's first N slots of the run and get no logits (transformer.py:
+    711-714, 775-776). mode: prefill | prefill_resume | decode;
     decode and prefill_resume start each row at its ``cache["pos"]``.
     ``rows``: every batch row is its own request, with its own FFN active
     sets, and gives the bits it gives alone — what the reference computes
@@ -313,8 +330,12 @@ def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True,
     check_supported(cfg, m2=m2)
     if mode not in ("prefill", "prefill_resume", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
-    B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
+    n_prefix = 0
+    if prefix is not None and mode != "decode":
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        n_prefix = prefix.shape[1]
+    B, S = x.shape[:2]
     sbuf = cache["pattern"][0]["k"].shape[2]
     pos = row_positions(cache, B)
     if mode == "prefill":
@@ -334,7 +355,8 @@ def forward(cfg, params, tokens, *, cache, mode: str, m2: bool = True,
         idxs.append(idx)
 
     def head(t):
-        return unembed(cfg, params, apply_norm(cfg, t, params["final_norm"]))
+        t = apply_norm(cfg, t, params["final_norm"])
+        return unembed(cfg, params, t[:, n_prefix:])
     logits = each_row(head, x) if rows else head(x)
     advance = 1 if mode == "decode" else S
     cache["pos"] = cache["pos"] + advance

@@ -1,7 +1,7 @@
-"""Shared pieces of the port's CPU parity tests of the server path: the
-qwen2.5-14b tiny weights in both packages (the reference's init, a drawn
-predictor ``A``, loaded into torch), and one run of the reference's
-server CLI on those weights."""
+"""Shared pieces of the port's CPU parity tests of the server path: a tiny
+config's weights in both packages (the reference's init, a drawn predictor
+``A``, loaded into torch; qwen2.5-14b unless another arch is named), and
+one run of the reference's server CLI on those weights."""
 import contextlib
 import io
 import json
@@ -28,15 +28,20 @@ SHARED = ["--arch", "qwen2.5-14b", "--tiny", "--workload", "shared-prefix",
           "4", "--dram-gb", "0.5", "--rate", "50"]
 
 
-def tiny_model():
+def shared_argv(arch: str) -> list:
+    """SHARED's traffic served by the tiny config of ``arch``."""
+    return ["--arch", arch] + SHARED[2:]
+
+
+def tiny_model(arch: str = "qwen2.5-14b"):
     """(reference cfg, reference params, port cfg, port params on the CPU)."""
-    jcfg = jax_config("qwen2.5-14b", tiny=True)
+    jcfg = jax_config(arch, tiny=True)
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
                         m2=True)
     pred = jp["layers"]["pattern"][0]["ffn"]["pred"]   # a trained predictor
     pred["A"] = jnp.asarray(np.random.default_rng(21).standard_normal(
         pred["A"].shape).astype(np.float32) / 4.0)
-    cfg = get_config("qwen2.5-14b", tiny=True)
+    cfg = get_config(arch, tiny=True)
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                                           "cpu")
 

@@ -188,7 +188,12 @@ def _decode_inputs(dev, B, S, Hkv, G, D, seed=0):
     (1, 1000, 1, 8, 64, False), (2, 4096, 8, 5, 128, False),
     (1, 32768, 8, 5, 128, False),
     (1, 256, 1, 2, 32, True),             # tests/test_kernels.py's ring
-    (3, 4096, 8, 5, 128, True)])
+    (3, 4096, 8, 5, 128, True),
+    (4, 145, 8, 12, 128, False),          # mistral-large-123b: 2 head groups
+    (4, 145, 2, 7, 64, False),            # internvl2-1b
+    (4, 145, 8, 8, 128, False),           # command-r-35b
+    (2, 4096, 8, 12, 128, False), (2, 300, 2, 7, 64, True),
+    (1, 1000, 1, 16, 64, False)])         # G = 16: two groups of 8
 def test_flash_decode_matches_plain(dev, B, S, Hkv, G, D, ring):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import flash_decode
@@ -269,12 +274,39 @@ def test_flash_decode_repeats_bitwise_in_one_launch(dev, B, S):
     assert fd.launches == before + 2
 
 
+@pytest.mark.parametrize("S", [145, 4096])
+def test_flash_decode_head_groups_keep_each_heads_bits(dev, monkeypatch, S):
+    """G = 12 in 2, 3, 4, 6 or 12 blocks of heads (the ranges fixed): every
+    head gets the same bits, also a row alone, and masked NaN/Inf change
+    none."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, slots = _decode_inputs(dev, 4, S, 8, 12, 128, seed=S + 12)
+    lengths = torch.tensor([S - 1, S // 3, S - 9, 40], device=dev,
+                           dtype=torch.int32)
+    monkeypatch.setattr(fd, "RANGE_SLOTS", 64)
+    want = fd.flash_decode(q, k, v, slots, lengths)
+    for hb in (1, 2, 3, 4):
+        monkeypatch.setattr(fd, "HEADS_PER_BLOCK", hb)
+        assert torch.equal(fd.flash_decode(q, k, v, slots, lengths), want)
+    monkeypatch.setattr(fd, "HEADS_PER_BLOCK", 0)
+    alone = fd.flash_decode(q[1:2].contiguous(), k[1:2].contiguous(),
+                            v[1:2].contiguous(), slots[1:2].contiguous(),
+                            lengths[1:2].contiguous())
+    assert torch.equal(alone[0], want[1])
+    masked = slots > lengths[:, None]
+    kn, vn = k.clone(), v.clone()
+    kn[masked], vn[masked] = float("nan"), float("inf")
+    assert torch.equal(fd.flash_decode(q, kn, vn, slots, lengths), want)
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,mag", [
     (4, 128, 40, 8, 128, 0, 1.0), (2, 45, 8, 2, 64, 0, 1.0),
     (1, 70, 4, 4, 32, 16, 1.0),
     (1, 77, 10, 2, 128, 0, 1.0),          # G = 5 at a ragged S
     (2, 77, 10, 2, 128, 24, 1.0),         # G = 5, windowed
     (3, 50, 16, 1, 64, 0, 1.0),           # G = 16: two head groups
+    (4, 128, 96, 8, 128, 0, 1.0),         # mistral-large-123b: G = 12
+    (4, 128, 14, 2, 64, 0, 1.0),          # internvl2-1b: G = 7, D = 64
     (4, 128, 40, 8, 128, 0, 3.5)])        # scores reach about +-60
 def test_flash_attention_matches_plain(dev, B, S, Hq, Hkv, D, window, mag):
     from repro_torch.kernels import ref
@@ -388,6 +420,8 @@ def test_qmatmul_rows_match_plain_and_alone_equals_grouped(dev, prec, sfx, M,
                                           # a key tile and a key range
     ((7,), 40, 4, 4, 32, 1.0),            # G = 1
     ((2032,), 2048, 40, 8, 128, 1.0),     # a chunk at the end of 2 K slots
+    ((0, 48, 96, 112), 256, 96, 8, 128, 1.0),    # G = 12
+    ((0, 48, 96, 112), 256, 14, 2, 64, 1.0),     # G = 7, D = 64
     ((0, 48, 96, 112), 256, 40, 8, 128, 3.5)])   # scores reach about +-60
 def test_chunk_attention_matches_plain_and_ignores_garbage(dev, pos0, Sbuf, Hq,
                                                            Hkv, D, mag):
@@ -498,3 +532,66 @@ def test_rows_forward_bits_do_not_depend_on_the_batch(dev, mode):
         assert torch.equal(logits[r:r + 1], alone)
         assert torch.equal(aux["active_idx"]["pattern"][0][r],
                            ar["active_idx"]["pattern"][0])
+
+
+@pytest.mark.parametrize("arch,widen", [
+    ("qwen2.5-32b", None), ("command-r-35b", None),
+    ("mistral-large-123b", None), ("internvl2-1b", None),
+    ("mistral-large-123b", dict(num_heads=24, head_dim=64)),   # G = 12
+    ("internvl2-1b", dict(num_heads=14, head_dim=64))])        # G = 7
+def test_dense_arch_tiny_on_cuda_equals_cpu(dev, arch, widen):
+    """Each dense-attention config at tiny size (and widened to the full
+    configs' G at head dim 64): greedy tokens and active sets on the card
+    equal the CPU's, last logits within 1e-4; rows mode keeps a row's bits
+    alone."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine_model import RealModelRunner, _stack_rows
+    from repro_torch.kernels import flash_attention, flash_decode, qmatmul
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, tiny=True)
+    if widen:
+        cfg = dataclasses.replace(cfg, **widen)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        layer["ffn"]["pred"]["A"] = torch.randn(
+            layer["ffn"]["pred"]["A"].shape, generator=g) / 16
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(dev)
+    gparams = to(params)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+    before = (qmatmul.launches, flash_decode.launches,
+              flash_attention.launches)
+    gpu = RealModelRunner(cfg, gparams, max_seq=20, device=dev)
+    tok_gpu, idx_gpu = gpu.generate(prompts, 6)
+    after = (qmatmul.launches, flash_decode.launches,
+             flash_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+    cpu = RealModelRunner(cfg, params, max_seq=20, device="cpu")
+    tok_cpu, idx_cpu = cpu.generate(prompts, 6)
+    np.testing.assert_array_equal(tok_gpu, tok_cpu)
+    for a, b in zip(idx_gpu, idx_cpu):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits,
+                               rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(4)
+    caches = []
+    for p in (16, 32, 48):
+        c = T.init_cache(cfg, 1, 64, device=dev)
+        T.forward(cfg, gparams, torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, p))).to(dev), cache=c, mode="prefill")
+        caches.append(c)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(dev)
+    logits, _, _ = T.forward(cfg, gparams, tokens, cache=_stack_rows(caches),
+                             mode="decode", rows=True)
+    for r, c in enumerate(caches):
+        alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
+                                mode="decode")
+        assert torch.equal(logits[r:r + 1], alone)

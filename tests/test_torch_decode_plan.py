@@ -10,6 +10,7 @@ plan. ``models/transformer.forward(mode="decode")`` builds the slot mask
 once (``decode_slots``) and every layer shares it; the forward still
 equals the reference. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``)."""
+import ctypes
 import inspect
 import math
 
@@ -114,9 +115,9 @@ def test_plan_is_the_same_for_any_batch_and_any_lengths(monkeypatch, S, want):
         slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
         lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
         fd.flash_decode(q, kv, kv, slots, lengths)
-    # (B, S, Hkv, G, D, range, stages, scale) of each launch
+    # (B, S, Hkv, G, D, range, stages, head groups, scale) of each launch
     assert [c[10:] for c in calls] == [
-        (B, S, 8, 5, 128, *want, 1 / math.sqrt(128)) for B in (1, 4, 3)]
+        (B, S, 8, 5, 128, *want, 1, 1 / math.sqrt(128)) for B in (1, 4, 3)]
     # partials are sized for the batch, from the same range
     n = fd.ranges(S, want[0])
     if n > 1:
@@ -173,6 +174,121 @@ def test_wrapper_raises_and_never_falls_back(case, match):
           }[case]
     with pytest.raises(ValueError, match=match):
         _decode(**kw)
+
+
+# --- query heads spread over head groups (G up to 16) -------------------
+
+#: (Hkv, G) of every registered config: qwen2.5 G = 5, internvl2-1b 7,
+#: command-r-35b 8, mistral-large-123b 12
+ARCH_HEADS = {5: 8, 7: 2, 8: 8, 12: 8}
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", sorted(ARCH_HEADS))
+def test_head_group_plan_takes_one_rows_shape(monkeypatch, G, D):
+    """Up to 8 query heads take one block, 12 two blocks of 6; the plan of
+    every registered G is the same for any B and any lengths, and D does not
+    change it."""
+    Hkv, S = ARCH_HEADS[G], 145
+    plan = fd._plan(S, Hkv, G, D, 132)
+    assert plan.groups == (1 if G <= fd.MAX_HEADS else 2)
+    assert plan == fd._plan(S, Hkv, G, 192 - D, 132)
+    calls = _record_launches(monkeypatch)
+    rng = np.random.default_rng(G)
+    for B in (1, 4, 3):
+        q = torch.zeros(B, Hkv, G, D)
+        kv = torch.zeros(B, S, Hkv, D)
+        slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+        lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
+        fd.flash_decode(q, kv, kv, slots, lengths)
+    assert [c[10:] for c in calls] == [
+        (B, S, Hkv, G, D, *plan, 1 / math.sqrt(D)) for B in (1, 4, 3)]
+    # a row's head groups fit one wave of the card's SMs
+    assert fd.ranges(S, plan.range_slots) * Hkv * plan.groups <= 132
+
+
+def _emulated_kernel(q, k, v, slots, lengths, writes):
+    """A launch that does what csrc/flash_decode.cu does, in float64 from
+    the pointers it is given: block (range, y, row) takes head group y, KV
+    head y // groups, and query heads y * G/groups .. of the row (q and out
+    seen as (B, Hkv * groups, G / groups, D)); a group's ranges are
+    combined into its heads' output. ``writes`` counts each head's stores."""
+    def launch(*args):
+        (B, S, Hkv, G, D, rs, _, groups) = args[10:18]
+        hb = G // groups
+        out = np.ctypeslib.as_array(
+            (ctypes.c_float * (B * Hkv * G * D)).from_address(args[5]))
+        out = out.reshape(B, Hkv * groups, hb, D)
+        qg = q.double().numpy().reshape(B, Hkv * groups, hb, D)
+        n = fd.ranges(S, rs)
+        for b in range(B):
+            for y in range(Hkv * groups):
+                h = y // groups
+                kk = k[b, :, h].double().numpy()
+                vv = v[b, :, h].double().numpy()
+                part = [np.arange(r * rs, min(S, (r + 1) * rs))
+                        for r in range(n)]
+                cols = np.concatenate(part)
+                assert np.array_equal(cols, np.arange(S))
+                pos = slots[b].numpy()[cols]
+                ok = (pos >= 0) & (pos <= int(lengths[b]))
+                sc = qg[b, y] @ kk[cols].T / math.sqrt(D)
+                sc = np.where(ok[None], sc, -1e30)
+                w = np.exp(sc - sc.max(-1, keepdims=True))
+                out[b, y] = (w / w.sum(-1, keepdims=True)) @ vv[cols]
+                writes[b, h * G + (y % groups) * hb:
+                       h * G + (y % groups + 1) * hb] += 1
+        return 0
+    return launch
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", sorted(ARCH_HEADS))
+def test_head_groups_cover_every_query_head_once(monkeypatch, G, D):
+    """The wrapper's launch, emulated block by block as the kernel maps
+    head groups, stores each query head of each KV head once and gives the
+    plain version's output (within 1e-5: fp32 inputs, float64 sums)."""
+    from repro_torch.kernels import ref
+    _record_launches(monkeypatch)
+    Hkv, S, B = ARCH_HEADS[G], 145, 2
+    g = torch.Generator().manual_seed(G * D)
+    q = torch.randn(B, Hkv, G, D, generator=g)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g) for _ in range(2))
+    slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+    slots[1, 5:9] = -1
+    lengths = torch.tensor([S - 1, 100], dtype=torch.int32)
+    writes = np.zeros((B, Hkv * G), dtype=int)
+    monkeypatch.setattr(fd, "_kernel", lambda: _emulated_kernel(
+        q, k, v, slots, lengths, writes))
+    got = fd.flash_decode(q, k, v, slots, lengths)
+    assert (writes == 1).all()
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, slots,
+                                                         lengths),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("G", [9, 11, 13, 17, 24])
+def test_g_the_kernel_cannot_take_raises_before_any_launch(monkeypatch, G):
+    """A G that does not split evenly into blocks of at most 8 heads, or
+    one above 16, raises ValueError from the plan and from the wrapper,
+    before a launch."""
+    calls = _record_launches(monkeypatch)
+    with pytest.raises(ValueError, match=f"G={G}"):
+        fd._plan(145, 8, G, 128, 132)
+    with pytest.raises(ValueError, match=f"G={G}"):
+        fd.flash_decode(torch.zeros(1, 2, G, 64), torch.zeros(1, 40, 2, 64),
+                        torch.zeros(1, 40, 2, 64),
+                        torch.zeros(1, 40, dtype=torch.int32),
+                        torch.zeros(1, dtype=torch.int32))
+    assert calls == []
+
+
+def test_heads_knob_sets_the_groups(monkeypatch):
+    monkeypatch.setattr(fd, "HEADS_PER_BLOCK", 4)
+    assert fd._plan(145, 8, 12, 128, 132).groups == 3
+    monkeypatch.setattr(fd, "HEADS_PER_BLOCK", 5)
+    with pytest.raises(ValueError, match="G=12"):
+        fd._plan(145, 8, 12, 128, 132)
 
 
 # --- the decode step's mask, built once per forward ---------------------

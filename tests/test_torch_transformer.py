@@ -135,7 +135,10 @@ def test_init_params_follows_reference_rules_and_shapes():
 @pytest.mark.parametrize("change", [dict(family="moe", num_experts=4),
                                     dict(window_size=8),
                                     dict(logit_softcap=30.0),
-                                    dict(parallel_block=True)])
+                                    dict(family="hybrid",
+                                         block_pattern=("rglru", "attn")),
+                                    dict(family="ssm"),
+                                    dict(family="audio")])
 def test_unported_configs_raise(change):
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen2.5-14b", tiny=True), **change)
