@@ -50,14 +50,32 @@ Phases, each printing one JSON line:
                 0-3, 24-token prompts, 8 steps, top-5) at full width for
                 int8 and int4, numbers of random weights with no gate;
  10. dense_archs — qwen2.5-32b, command-r-35b, mistral-large-123b and
-                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4, 2 and
-                all 24 layers): tiny through launch/serve and launch/server
+                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4 and
+                2 layers, internvl2-1b at all 24): tiny through launch/serve and launch/server
                 on cuda against cpu (as phases 3 and 5); at full width
                 full's serve traffic and server_full's server traffic (prefix
                 cache cold, warm, off, and batched decode off: tokens
                 equal), every kernel of each path launched, wall and device
                 time per decode step and prefill chunk; the card freed and
                 the bank files removed between configs.
+ 11. moe_archs — the MoE configs (MOE_ARCHS): grok-1-314b and
+                llama4-maverick-400b-a17b tiny through both entry points on
+                cuda against cpu, with a drawn router, with the
+                reference's zero router (ties) and with a drawn router at
+                the full configs' capacity factor 1.25 (tokens dropped);
+                grok-1-314b at full width (depth 64 -> 1: 19.3 GB of fp32
+                experts) through serve and server as phase 10 runs a dense
+                config, its attention kernels' softcap forms launched and
+                no qmatmul, the tokens dropped by capacity at prefill
+                printed, the card's routing of each prefill shape done
+                again on the CPU (experts, positions and keep equal) with
+                each row's choices per expert. llama4 at full
+                width (73 GB of fp32 tables and experts) is not run.
+ 12. softcap_library — the softcap rows' library call, compiled
+                flex_attention with the row's cap and mask, held against
+                the plain version within 1e-3 x max(1, max|plain|) and
+                timed, in a process of its own after the rest: compiling
+                it cost later profiler sessions kernel events.
 Phases 4 and 6-9 share one set of full-width weights; each prints its
 seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
@@ -65,7 +83,11 @@ The kernel phase (2) also holds the server path's kernels at its shapes
 runs yet (atu_update, mp_glu_ffn), and (``kernels_dense``) the shapes
 only phase 10 gives: flash_decode at G = 12 (two head groups), 7 (D =
 64) and 8, both attention forms at G = 12 and at G = 7, D = 64, and one
-layer's FFN at d = 12288. qmatmul has two kernels (A for small
+layer's FFN at d = 12288; and (``kernels_moe``) the three attention
+kernels' logit-softcap forms at grok-1-314b's shapes (G = 6, cap 30), at
+scores of about +-60 where the cap saturates, beside the uncapped form
+(their library call compiled flex_attention with the same cap and mask;
+SDPA, which has no cap, only as a yardstick). qmatmul has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
 one layer's FFN at M = 1, 4, 8, 16 through both gives the crossover; the
@@ -93,6 +115,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -295,11 +318,12 @@ def split_slots(slots: int):
         chunk_attention.SPLIT_SLOTS = saved
 
 
-def attention_f64(q, k, v, pos0=None):
+def attention_f64(q, k, v, pos0=None, softcap: float = 0.0):
     """Causal attention of queries at ``pos0[b] + i`` (0 when None) over
-    slots at positions 0..Skv-1, all in float64: the yardstick of the
-    large-score checks, where the plain versions' own fp32 rounding of
-    the scores is of the order of the tolerance."""
+    slots at positions 0..Skv-1, all in float64 (``softcap`` > 0: scores
+    capped before the mask): the yardstick of the large-score checks, where
+    the plain versions' own fp32 rounding of the scores is of the order of
+    the tolerance."""
     import torch
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -307,11 +331,159 @@ def attention_f64(q, k, v, pos0=None):
           else pos0.long())
     qg = q.double().reshape(B, S, Hkv, Hq // Hkv, D)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / D ** 0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     q_pos = p0[:, None] + torch.arange(S, device=q.device)[None]
     mask = torch.arange(Skv, device=q.device)[None, None] <= q_pos[:, :, None]
     s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
     o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
     return o.reshape(B, S, Hq, D)
+
+
+#: the mask of each kind of softcap row, as flex_attention's mask_mod over
+#: the row's mask tensor: decode (the valid slots, (B, S) bool), the whole
+#: prompt (causal) and the chunk (a key up to the row's front, pos0 (B,))
+MASK_MODS = {
+    "decode": lambda m: lambda b, h, q_idx, kv_idx: m[b, kv_idx],
+    "causal": lambda m: lambda b, h, q_idx, kv_idx: kv_idx <= q_idx,
+    "chunk": lambda m: lambda b, h, q_idx, kv_idx: kv_idx <= m[b] + q_idx,
+}
+
+
+def flex_softcap(q, k, v, softcap: float, mask_mod):
+    """A call with no arguments of compiled flex_attention on (B, H, L, D)
+    tensors, GQA on, with ``tanh(s / softcap) * softcap`` on the scaled
+    score and ``mask_mod`` as the mask: one PyTorch call that computes a
+    softcap row's function."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    flex = torch.compile(flex_attention, dynamic=False)
+    block = create_block_mask(mask_mod, q.shape[0], None, q.shape[2],
+                              k.shape[2], device=q.device)
+
+    def score_mod(s, b, h, q_idx, kv_idx):
+        return torch.tanh(s / softcap) * softcap
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block,
+                        enable_gqa=True)
+
+
+#: how far the library call of a softcap row may stray from the plain
+#: version, relative to max(1, max|plain|): flex_attention's own fp32
+#: rounding is far inside it, a wrong mask or cap far outside
+LIBRARY_TOL = 1e-3
+
+#: softcap rows whose library call runs in a process of its own at the
+#: end of the script: label -> (row, its inputs). Compiling it (Inductor)
+#: cost a later profiler session kernel events (a one-kernel flash_decode
+#: call counted 0.8), and a session after the whole run saw none of its
+#: kernels, while a fresh process sees them all
+SOFTCAP_LIBRARY = {}
+
+
+def softcap_row(label: str, row: dict, q, k, v, mask_kind: str, mask,
+                want) -> dict:
+    """A softcap row: SDPA, which has no cap, moves to its own label as a
+    yardstick; the library call, compiled flex_attention on q, k, v
+    ((B, H, L, D)) with the row's cap and ``MASK_MODS[mask_kind](mask)``,
+    is queued for :func:`phase_softcap_library` with the plain version
+    ``want`` in its layout."""
+    row["sdpa_uncapped_ms"] = row.pop("library_ms")
+    row["sdpa_uncapped_profile"] = row.pop("library_profile")
+    row["sdpa_uncapped_note"] = "SDPA without the cap, a yardstick only"
+    row["library_ms"] = None
+    SOFTCAP_LIBRARY[label] = (row, {
+        "q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "mask_kind": mask_kind,
+        "mask": None if mask is None else mask.cpu(), "want": want.cpu(),
+        "softcap": row["softcap"]})
+    return row
+
+
+def softcap_library(path: str) -> dict:
+    """The library calls of the rows saved at ``path``, in this process:
+    each first call (which compiles it) held against the plain version
+    within LIBRARY_TOL x max(1, max|plain|), then timed and profiled.
+    Returns label -> its numbers."""
+    import torch
+    out = {}
+    for label, r in torch.load(path).items():
+        dev = torch.device("cuda")
+        q, k, v, want = (r[n].to(dev) for n in ("q", "k", "v", "want"))
+        mask = None if r["mask"] is None else r["mask"].to(dev)
+        lib = flex_softcap(q, k, v, r["softcap"],
+                           MASK_MODS[r["mask_kind"]](mask))
+        t = time.perf_counter()
+        got = lib()
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t
+        err = max_err(got, want)
+        scale = max(1.0, float(want.abs().max()))
+        require(err <= LIBRARY_TOL * scale,
+                f"{label}: flex_attention with the softcap differs from the "
+                f"plain version by {err:.3g}")
+        c = r["softcap"]
+        prof = device_profile(lib)
+        kernels = prof.get("top_kernels_ms", {})
+        require(len(kernels) <= 1, f"{label}: the library call ran "
+                f"{sorted(kernels)}, not one kernel")
+        out[label] = {
+            "library": f"torch.compile(flex_attention), score_mod "
+                       f"tanh(s / {c:g}) * {c:g}, the row's mask as a block "
+                       "mask, enable_gqa",
+            "library_max_abs_err": err, "library_compile_s": compile_s,
+            "library_ms": time_ms(lib), "library_profile": prof,
+            # the kernel's mean over the events the profiler kept (with
+            # Inductor in the process it loses some: 0.6-0.8 a call)
+            "library_device_ms": (prof["device_ms"] / prof["kernels_per_call"]
+                                  if kernels else "not measured"),
+            "library_graph_ms": graph_ms(lib)}
+    return out
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn`` captured in a CUDA graph: the median
+    of CUDA-event timings around a replay, which leaves the host's work
+    per call out (a second measure of a call whose kernel events the
+    profiler loses some of)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps=reps)
+
+
+def phase_softcap_library() -> dict:
+    """The queued softcap rows' library calls, run by this script in a
+    process of its own (``--softcap-library``) from their inputs saved
+    under build/; each row takes its numbers. Returns label -> them."""
+    import torch
+    path = ROOT / "build" / "softcap_library.pt"
+    path.parent.mkdir(exist_ok=True)
+    torch.save({k: r for k, (_, r) in SOFTCAP_LIBRARY.items()}, path)
+    try:
+        done = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--softcap-library",
+             str(path)], capture_output=True, text=True, timeout=600)
+    finally:
+        path.unlink(missing_ok=True)
+    lines = done.stdout.strip().splitlines()
+    require(done.returncode == 0 and lines,
+            f"softcap_library: exit {done.returncode}: "
+            f"{done.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    for label, (row, _) in SOFTCAP_LIBRARY.items():
+        row.update(out[label])
+        out[label].update(ms=row["ms"], device_ms=row["profile"].get(
+            "device_ms"), sdpa_uncapped_ms=row["sdpa_uncapped_ms"])
+    SOFTCAP_LIBRARY.clear()
+    log({"phase": "softcap_library", "rows": out})
+    return out
 
 
 def max_score(q, k) -> float:
@@ -412,7 +584,7 @@ def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False):
 
 def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
                holes=False, full_checks=False, sweep=(), stages=(), heads=(),
-               plain_reps=20) -> dict:
+               plain_reps=20, softcap: float = 0.0) -> dict:
     """flash_decode over B = len(lengths) rows of S slots (slot i at
     position i, as the decode step's mask gives them; with ``holes`` four
     empty slots in row 1) against its plain version; with ``full_checks``
@@ -420,17 +592,27 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
     for bit), and a row alone against the same row in the group. Each range
     size of ``sweep``, ring depth of ``stages`` and number of query heads a
     block of ``heads`` is held and profiled. Timed beside the plain version and SDPA, with the bound counted over
-    the valid slots only."""
+    the valid slots only. ``softcap`` > 0: the capped form, every call
+    and the plain version with the cap, q and k scaled so that the scores
+    reach about +-60 (the cap saturates), the uncapped form's device time
+    beside it, the library call compiled flex_attention with the cap, and
+    SDPA (uncapped) as a yardstick only."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.flash_decode import _plan, flash_decode
+    from repro_torch.kernels.flash_decode import _plan
+    from repro_torch.kernels.flash_decode import flash_decode as _fd
     B = len(lengths)
     hq = hkv * G
     q, kc, vc, slots, ln = decode_inputs(randn, dev, S, hkv, G, D, lengths,
                                          holes)
+    if softcap:
+        f = (LARGE_SCORE / max_score(q.reshape(B, 1, hq, D), kc)) ** 0.5
+        q, kc = q * f, kc * f
+    flash_decode = lambda *a: _fd(*a, softcap=softcap)
     run = lambda: flash_decode(q, kc, vc, slots, ln)
-    got, want = run(), ref.flash_decode_ref(q, kc, vc, slots, ln)
+    got = run()
+    want = ref.flash_decode_ref(q, kc, vc, slots, ln, softcap=softcap)
     errs = [check(f"{label} B={B} S={S}", got, want, 1e-5)]
     require(torch.equal(run(), got), f"{label}: two calls differ")
     prof = device_profile(run)
@@ -442,7 +624,8 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
         none[0] = -1
         errs.append(check(f"{label} row 0 without a valid slot",
                           flash_decode(q, kc, vc, none, ln),
-                          ref.flash_decode_ref(q, kc, vc, none, ln), 1e-5))
+                          ref.flash_decode_ref(q, kc, vc, none, ln,
+                                               softcap=softcap), 1e-5))
         kn, vn = kc.clone(), vc.clone()
         kn[~valid], vn[~valid] = float("nan"), float("inf")
         require(torch.equal(flash_decode(q, kn, vn, slots, ln), got),
@@ -480,10 +663,18 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
            "l2_note": "inputs exceed the 50 MB L2" if kc.numel() * 8 > 50e6
            else "inputs stay in the 50 MB L2 across repetitions",
            "ms": time_ms(run), "plain_ms": time_ms(
-               lambda: ref.flash_decode_ref(q, kc, vc, slots, ln),
+               lambda: ref.flash_decode_ref(q, kc, vc, slots, ln,
+                                            softcap=softcap),
                reps=plain_reps),
            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
            "profile": prof, "library_profile": device_profile(lib)}
+    if softcap:
+        row["softcap"] = softcap
+        row["max_score_checked"] = max_score(q.reshape(B, 1, hq, D), kc)
+        row["uncapped_device_ms"] = device_profile(
+            lambda: _fd(q, kc, vc, slots, ln)).get("device_ms")
+        softcap_row(label, row, qt, kt, vt, "decode", valid,
+                    want.reshape(B, hq, 1, D))
     del q, kc, vc, kt, vt
     return row
 
@@ -724,20 +915,27 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
 
 
 def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
-                     D: int) -> dict:
+                     D: int, softcap: float = 0.0) -> dict:
     """flash_attention over B prompts of P tokens against its plain version,
     a row alone against the same row in the group, scores of about +-60
     against the plain version and float64, paired and unpaired query tiles;
-    timed beside the plain version, SDPA and both bounds."""
+    timed beside the plain version, SDPA and both bounds. ``softcap`` > 0:
+    the capped form everywhere, the uncapped form's device time beside it,
+    the library call compiled flex_attention with the cap, and SDPA
+    (uncapped) as a yardstick only."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.flash_attention import _plan, flash_attention
-    label = f"flash_attention G={hq // hkv} D={D}"
+    from repro_torch.kernels.flash_attention import _plan
+    from repro_torch.kernels.flash_attention import flash_attention as _fa
+    flash_attention = lambda *a: _fa(*a, softcap=softcap)
+    label = f"flash_attention G={hq // hkv} D={D}" + (
+        f" softcap={softcap:g}" if softcap else "")
     q = randn(B, P, hq, D)
     kp, vp = randn(B, P, hkv, D), randn(B, P, hkv, D)
     got = flash_attention(q, kp, vp)
-    errs = [check(label, got, ref.flash_attention_ref(q, kp, vp), 1e-5)]
+    errs = [check(label, got, ref.flash_attention_ref(q, kp, vp,
+                                                      softcap=softcap), 1e-5)]
     alone = flash_attention(q[1:2].contiguous(), kp[1:2].contiguous(),
                             vp[1:2].contiguous())
     require(torch.equal(alone[0], got[1]),
@@ -745,8 +943,9 @@ def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
     ql, kl = large_scores(q, kp)
     big = max_score(ql, kl)
     require(big > 50, f"{label}: large scores reach only {big:.3g}")
-    got_l, want64 = flash_attention(ql, kl, vp), attention_f64(ql, kl, vp)
-    want32 = ref.flash_attention_ref(ql, kl, vp)
+    got_l = flash_attention(ql, kl, vp)
+    want64 = attention_f64(ql, kl, vp, softcap=softcap)
+    want32 = ref.flash_attention_ref(ql, kl, vp, softcap=softcap)
     errs.append(check(f"{label} scores to {big:.0f}", got_l, want32, 1e-5))
     errs.append(check(f"{label} scores to {big:.0f} vs float64", got_l,
                       want64, 1e-5))
@@ -754,18 +953,27 @@ def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
     del ql, kl, got_l, want32, want64
     qt = q.transpose(1, 2).contiguous()
     kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
-    return {
+    row = {
         "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
         "max_abs_err": max(errs), "B": B, "S": P, "Hq": hq, "Hkv": hkv,
         "D": D, "max_score_checked": big,
         "plan": _plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
         "plain_max_abs_err_vs_f64_at_large_scores": plain_err64,
         **attention_row(lambda: flash_attention(q, kp, vp),
-                        lambda: ref.flash_attention_ref(q, kp, vp),
+                        lambda: ref.flash_attention_ref(q, kp, vp,
+                                                        softcap=softcap),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=True, enable_gqa=True),
                         (2 * q.numel() + 2 * kp.numel()) * 4,
                         4 * B * hq * D * P * (P + 1) / 2)}
+    if softcap:
+        row["softcap"] = softcap
+        row["uncapped_device_ms"] = device_profile(
+            lambda: _fa(q, kp, vp)).get("device_ms")
+        softcap_row(label, row, qt, kt, vt, "causal", None,
+                    ref.flash_attention_ref(q, kp, vp,
+                                            softcap=softcap).transpose(1, 2))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -773,24 +981,31 @@ def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
 
 
 def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
-               splits) -> dict:
+               splits, softcap: float = 0.0) -> dict:
     """chunk_attention at ``pos0`` over ``sbuf`` slots against its plain
     version; with several rows also garbage above the fronts, a row alone
     against the row in the group, G = 5 at fronts inside a key tile and a
     key range, and scores of about +-60; each key split of ``splits`` held
     and profiled; then timed beside the plain version, SDPA and the bounds.
+    ``softcap`` > 0: the capped form everywhere, the uncapped form's device
+    time beside it, the library call compiled flex_attention with the cap,
+    and SDPA (uncapped) as a yardstick only.
     """
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.chunk_attention import _plan, chunk_attention
+    from repro_torch.kernels.chunk_attention import _plan
+    from repro_torch.kernels.chunk_attention import chunk_attention as _ca
+    chunk_attention = lambda *a: _ca(*a, softcap=softcap)
+    plain = lambda *a: ref.chunk_attention_ref(*a, softcap=softcap)
     R = len(pos0)
     q = randn(R, chunk, hq, D)
     kb, vb = randn(R, sbuf, hkv, D), randn(R, sbuf, hkv, D)
     p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
-    label = f"chunk_attention pos0={pos0} S_buf={sbuf}"
+    label = f"chunk_attention pos0={pos0} S_buf={sbuf}" + (
+        f" softcap={softcap:g}" if softcap else "")
     got = chunk_attention(q, kb, vb, p0)
-    want = ref.chunk_attention_ref(q, kb, vb, p0)
+    want = plain(q, kb, vb, p0)
     errs = [check(label, got, want, 1e-5)]
     row = {}
     if R > 1:
@@ -812,18 +1027,18 @@ def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
         pr = torch.tensor([3, 29], dtype=torch.int32, device=dev)
         errs.append(check("chunk_attention ragged Skv=45 D=64",
                           chunk_attention(qr, kr, vr, pr),
-                          ref.chunk_attention_ref(qr, kr, vr, pr), 1e-5))
+                          plain(qr, kr, vr, pr), 1e-5))
         q5, k5, v5 = randn(2, 16, 10, D), randn(2, 77, 2, D), randn(2, 77, 2, D)
         p5 = torch.tensor([5, 61], dtype=torch.int32, device=dev)
         errs.append(check("chunk_attention G=5 fronts 20, 76 of Skv=77",
                           chunk_attention(q5, k5, v5, p5),
-                          ref.chunk_attention_ref(q5, k5, v5, p5), 1e-5))
+                          plain(q5, k5, v5, p5), 1e-5))
         ql, kl = large_scores(q, kb)
         big = max_score(ql, kl)
         require(big > 50, f"chunk_attention: large scores reach only {big:.3g}")
         got_l = chunk_attention(ql, kl, vb, p0)
-        want32 = ref.chunk_attention_ref(ql, kl, vb, p0)
-        want64 = attention_f64(ql, kl, vb, p0)
+        want32 = plain(ql, kl, vb, p0)
+        want64 = attention_f64(ql, kl, vb, p0, softcap=softcap)
         errs.append(check(f"chunk_attention scores to {big:.0f}", got_l,
                           want32, 1e-5))
         errs.append(check(f"chunk_attention scores to {big:.0f} vs float64",
@@ -855,11 +1070,17 @@ def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
         "pos0": pos0, "plan": plan._asdict(),
         "by_split": by_split, "split_extra_launches": 0,
         **attention_row(lambda: chunk_attention(q, kb, vb, p0),
-                        lambda: ref.chunk_attention_ref(q, kb, vb, p0),
+                        lambda: plain(q, kb, vb, p0),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask, enable_gqa=True),
                         2 * q.numel() * 4 + 2 * keys * hkv * D * 4 + R * 4,
                         4 * pairs * hq * D)})
+    if softcap:
+        row["softcap"] = softcap
+        row["uncapped_device_ms"] = device_profile(
+            lambda: _ca(q, kb, vb, p0)).get("device_ms")
+        softcap_row(label, row, qt, kt, vt, "chunk", p0,
+                    want.transpose(1, 2))
     return row
 
 
@@ -1162,15 +1383,32 @@ def phase_kernels_dense(dev, B: int, P: int, gen_len: int, R: int = 4,
 
 
 #: the kernels each main path launches at full width (the rest must stay
-#: at 0 there): qmatmul's kernel A at decode, kernel B at prefill
+#: at 0 there): qmatmul's kernel A at decode, kernel B at prefill; an MoE
+#: config's paths launch no qmatmul (its experts are products in PyTorch,
+#: as the reference's einsums), and a config with a logit softcap only the
+#: attention kernels' softcap forms ("<kernel>_softcap")
 PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                           "flash_attention"),
                 "server": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                            "chunk_attention"),
                 # the KV-divergence probe: whole-prompt prefill, then decode
                 "divergence": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
-                               "flash_attention")}
+                               "flash_attention"),
+                "serve_moe": ("flash_decode", "flash_attention"),
+                "server_moe": ("flash_decode", "chunk_attention"),
+                "serve_moe_softcap": ("flash_decode_softcap",
+                                      "flash_attention_softcap"),
+                "server_moe_softcap": ("flash_decode_softcap",
+                                       "chunk_attention_softcap")}
 _QMM = ("qmatmul_gemv", "qmatmul_mma")
+_CAPPED = ("flash_decode", "flash_attention", "chunk_attention")
+
+
+def path_of(cfg, kind: str) -> str:
+    """The PATH_KERNELS key of a config's "serve" or "server" path."""
+    if not cfg.num_experts:
+        return kind
+    return f"{kind}_moe" + ("_softcap" if cfg.logit_softcap else "")
 
 
 def counters():
@@ -1184,6 +1422,9 @@ def counters():
             "flash_decode": (flash_decode, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "chunk_attention": (chunk_attention, "launches"),
+            "flash_decode_softcap": (flash_decode, "launches_softcap"),
+            "flash_attention_softcap": (flash_attention, "launches_softcap"),
+            "chunk_attention_softcap": (chunk_attention, "launches_softcap"),
             "atu_update": (atu_update, "launches")}
 
 
@@ -1200,26 +1441,40 @@ def require_path_kernels(phase: str, path: str, counts: dict,
                          each_qmm_kernel: bool = True):
     """Every kernel of the path ran; no kernel off the path did. With
     ``each_qmm_kernel`` off (the tiny phases, whose prefill chunks may stay
-    below the crossover) qmatmul counts as one kernel."""
+    below the crossover) qmatmul counts as one kernel. A softcap form on the
+    path counts under its kernel's total too, and every launch of that
+    kernel must then be capped."""
     want = set(PATH_KERNELS[path])
     if each_qmm_kernel:
         ran = {n for n, c in counts.items() if c > 0 and n != "qmatmul"}
     else:
-        want = (want - set(_QMM)) | {"qmatmul"}
+        if want & set(_QMM):
+            want = (want - set(_QMM)) | {"qmatmul"}
         ran = {n for n, c in counts.items() if c > 0 and n not in _QMM}
+    capped = {n for n in _CAPPED if f"{n}_softcap" in want}
+    want |= capped
     require(ran == want,
             f"{phase}: kernels launched {sorted(ran)}, the {path} path "
             f"runs {sorted(want)}: {counts}")
+    for n in capped:
+        require(counts[n] == counts[f"{n}_softcap"],
+                f"{phase}: {counts[n] - counts[f'{n}_softcap']} launches of "
+                f"{n} without the softcap on the {path} path: {counts}")
 
 
 def draw_pred_a(params, gen, device):
     """A trained predictor's A is non-zero; the reference's init zeroes it
-    (so every active set would be 0..k-1). Draw it so the gathers are real."""
+    (so every active set would be 0..k-1). Draw it so the gathers are real.
+    An MoE layer's router, zero at the reference's init too (every token
+    would tie and take experts 0..k-1), is drawn the same way, so that
+    routing bugs cannot hide behind the tie order."""
     import torch
     for layer in params["layers"]:
-        A = layer["ffn"]["pred"]["A"]
-        layer["ffn"]["pred"]["A"] = torch.randn(
-            A.shape, generator=gen, device=device) * A.shape[0] ** -0.5
+        ffn = layer["ffn"]
+        name, tree = ("A", ffn["pred"]) if "pred" in ffn else ("router", ffn)
+        w = tree[name]
+        tree[name] = torch.randn(w.shape, generator=gen,
+                                 device=device) * w.shape[0] ** -0.5
 
 
 def serve_args(**kw):
@@ -1231,16 +1486,29 @@ def serve_args(**kw):
     return build_parser().parse_args(argv)
 
 
-def phase_tiny(arch: str = "qwen2.5-14b", label: str = "tiny"):
-    """``arch``'s tiny config through launch/serve on cuda against cpu,
-    from the same weights."""
-    import torch
+def tiny_config(arch: str, capacity_factor: float = 0.0):
+    """``arch``'s tiny config; ``capacity_factor`` > 0 replaces an MoE
+    config's (the tiny configs' 4.0 drops no token)."""
     from repro_torch.configs.base import get_config
+    cfg = get_config(arch, tiny=True)
+    if capacity_factor:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity_factor)
+    return cfg
+
+
+def phase_tiny(arch: str = "qwen2.5-14b", label: str = "tiny",
+               zero_router: bool = False, capacity_factor: float = 0.0):
+    """``arch``'s tiny config through launch/serve on cuda against cpu,
+    from the same weights (``zero_router``: an MoE config's router left at
+    the reference's zero init, every token tied; ``capacity_factor`` > 0:
+    an MoE config's capacity factor in place of the tiny one's)."""
+    import torch
     from repro_torch.launch.serve import run
     from repro_torch.models import transformer as T
-    cfg = get_config(arch, tiny=True)
+    cfg = tiny_config(arch, capacity_factor)
     params = T.init_params(cfg, seed=0, device="cpu")
-    draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
+    if not zero_router:
+        draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
     params_gpu = _tree_to(params, "cuda")
     kw = dict(arch=arch, tiny=True, batch=2, prompt_len=16,
               gen_len=8, dram_gb=0.5)
@@ -1267,7 +1535,8 @@ def phase_tiny(arch: str = "qwen2.5-14b", label: str = "tiny"):
     require(line["tokens_equal"], f"{label}: cuda and cpu tokens differ")
     require(torch.allclose(lg, lc, atol=tol, rtol=tol),
             f"{label}: last logits differ by {err:.3g}")
-    require_path_kernels(label, "serve", cg, each_qmm_kernel=False)
+    require_path_kernels(label, path_of(cfg, "serve"), cg,
+                         each_qmm_kernel=False)
     return line
 
 
@@ -1320,8 +1589,9 @@ def phase_full(full, cfg, params, B: int, P: int, gen_len: int,
         "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
                    "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                    "d_ff": cfg.d_ff, "vocab": cfg.vocab_size},
-        "pred_A": "drawn N(0, 1/d) on the device generator for this run "
-                  "(the reference's init zeroes it)",
+        ("router" if cfg.num_experts else "pred_A"):
+            "drawn N(0, 1/d) on the device generator for this run "
+            "(the reference's init zeroes it)",
         "batch": B, "prompt_len": P, "gen_len": gen_len,
         "param_gb": param_gb, "ssd_bank_files_gb": ssd_gb,
         "serve_wall_s": serve_s, "prefill_wall_s": wall["prefill"],
@@ -1338,7 +1608,7 @@ def phase_full(full, cfg, params, B: int, P: int, gen_len: int,
     require(finite, f"{label}: non-finite logits")
     require(in_vocab, f"{label}: token outside the vocabulary")
     require(same, f"{label}: a second run gave other tokens")
-    require_path_kernels(label, "serve", counts)
+    require_path_kernels(label, path_of(cfg, "serve"), counts)
     return counts, line
 
 
@@ -1443,17 +1713,19 @@ def last_logits(sess):
         else sess.last[0]
 
 
-def phase_server_tiny(arch: str = "qwen2.5-14b", label: str = "server_tiny"):
+def phase_server_tiny(arch: str = "qwen2.5-14b", label: str = "server_tiny",
+                      zero_router: bool = False, capacity_factor: float = 0.0):
     """``arch``'s tiny server on cuda against cpu (same weights):
     shared-prefix turns with prefix reuse, and a burst that fills the
-    decode batch."""
+    decode batch (``zero_router`` and ``capacity_factor`` as in
+    :func:`phase_tiny`)."""
     import torch
-    from repro_torch.configs.base import get_config
     from repro_torch.launch.server import run
     from repro_torch.models import transformer as T
-    cfg = get_config(arch, tiny=True)
+    cfg = tiny_config(arch, capacity_factor)
     params = T.init_params(cfg, seed=0, device="cpu")
-    draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
+    if not zero_router:
+        draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
     params_gpu = _tree_to(params, "cuda")
     shared = ["--arch", arch, "--tiny", "--workload", "shared-prefix",
               "--prefix-cache", "--turns", "2", "--requests", "8",
@@ -1500,7 +1772,7 @@ def phase_server_tiny(arch: str = "qwen2.5-14b", label: str = "server_tiny"):
                 f"{res['modeled_fields_equal']}")
         require(res["tokens_equal_batched_vs_per_session"],
                 f"{label} {name}: batched decode changed the tokens")
-        require_path_kernels(f"{label} {name}", "server", cg,
+        require_path_kernels(f"{label} {name}", path_of(cfg, "server"), cg,
                              each_qmm_kernel=False)
     require(line["shared_prefix"]["prefix_hit_tokens"] > 0,
             f"{label}: no prefix hit")
@@ -1707,7 +1979,7 @@ def phase_server_full(full, cfg, params, label: str = "server_full",
             f"{label}: the warm run hit no prefix")
     require(line.get("tokens_equal_batched_vs_per_session", True),
             f"{label}: batched decode changed the tokens")
-    require_path_kernels(label, "server", counts)
+    require_path_kernels(label, path_of(cfg, "server"), counts)
     return counts, line
 
 
@@ -1989,7 +2261,7 @@ def phase_divergence(cfg, params) -> dict:
 
 #: dense_archs: each dense-attention config the port serves besides
 #: qwen2.5-14b, at full width with its depth cut to this many layers
-#: (internvl2-1b whole)
+#: (internvl2-1b runs all 24)
 DENSE_ARCHS = {"qwen2.5-32b": 4, "command-r-35b": 4,
                "mistral-large-123b": 2, "internvl2-1b": 24}
 
@@ -2064,6 +2336,257 @@ def phase_dense_archs(B: int, P: int, gen_len: int) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, continued, and phase 11: the MoE family
+
+
+#: moe_archs: each MoE config the port serves, with the depth it runs at
+#: full width (None: tiny only; llama4's full width needs 73 GB of fp32
+#: tables and experts before any K/V, and waits for a bf16 path)
+MOE_ARCHS = {"grok-1-314b": 1, "llama4-maverick-400b-a17b": None}
+
+
+def phase_kernels_moe(dev, B: int, P: int, gen_len: int, R: int = 4,
+                      chunk: int = 16, sbuf: int = 256) -> dict:
+    """The three attention kernels' softcap forms at grok-1-314b's shapes
+    (G = 6, D = 128, cap 30): flash_decode at the serve step (ring of
+    holes, a row with no valid slot, NaN/Inf in masked slots, a row alone
+    against the row in the group, ranges 32 and 64) and over a server
+    decode batch, the whole prompt and the chunk at an offset (each key
+    split), at scores of about +-60 where the cap saturates. Each against
+    its plain version (capped too), timed beside it and the bound, the
+    uncapped form's device time beside it; the library call is compiled
+    flex_attention with the same cap and mask, SDPA (uncapped) only a
+    yardstick."""
+    import torch
+    from repro_torch.configs.base import get_config
+    g = torch.Generator(device=dev).manual_seed(9012)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    cfg = get_config("grok-1-314b")
+    hq, hkv, D, cap = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.logit_softcap)
+    G = hq // hkv
+    out, checks = {}, []
+    check = checker(checks)
+    S, lengths = DECODE_ROWS["flash_decode"]
+    out["flash_decode_softcap"] = decode_row(
+        check, randn, dev, "flash_decode_softcap", S, hkv, G, D, lengths,
+        holes=True, full_checks=True, sweep=(32, 64), softcap=cap)
+    S, lengths = DECODE_ROWS["flash_decode_rows"]
+    out["flash_decode_rows_softcap"] = decode_row(
+        check, randn, dev, "flash_decode_rows_softcap", S, hkv, G, D,
+        lengths[:R], full_checks=True, softcap=cap)
+    out["flash_attention_softcap"] = whole_prompt_row(
+        check, randn, dev, B, P, hq, hkv, D, softcap=cap)
+    out["chunk_attention_softcap"] = chunk_rows(
+        check, randn, dev, pos0=[0, 48, 96, 112][:R], chunk=chunk, sbuf=sbuf,
+        hq=hq, hkv=hkv, D=D, splits=(0, 32, 64), softcap=cap)
+    for row in out.values():
+        row["config"] = cfg.name
+    torch.cuda.empty_cache()
+    log({"phase": "kernels_moe", "checks": checks, "kernels": out})
+    return out
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Record every moe_ffn call's input shape and dropped fraction, and for
+    each shape of more than one token a row the first call's routing: its
+    input, router and what ``moe.route`` returned (all kept on the device
+    until the run ends). Yields (calls, routed)."""
+    from repro_torch.models import moe
+    calls, routed = [], {}
+    real_ffn, real_route = moe.moe_ffn, moe.route
+
+    def counted(x, *a, **kw):
+        y, aux = real_ffn(x, *a, **kw)
+        calls.append((tuple(x.shape), aux["dropped_frac"]))
+        return y, aux
+
+    def route(x, router_w, **kw):
+        out = real_route(x, router_w, **kw)
+        if x.shape[1] > 1 and tuple(x.shape) not in routed:
+            routed[tuple(x.shape)] = (x, router_w, kw, out)
+        return out
+    moe.moe_ffn, moe.route = counted, route
+    try:
+        yield calls, routed
+    finally:
+        moe.moe_ffn, moe.route = real_ffn, real_route
+
+
+def drop_summary(calls) -> dict:
+    """Dropped fraction of the recorded moe_ffn calls, by tokens a row."""
+    by = {}
+    for shape, frac in calls:
+        by.setdefault(shape[1], []).append(float(frac))
+    return {f"S={S}": {"calls": len(v), "mean": sum(v) / len(v),
+                       "max": max(v)} for S, v in sorted(by.items())}
+
+
+def route_on_cpu(label: str, routed) -> dict:
+    """Each recorded routing of :func:`moe_drops` done again on the CPU from
+    the same input and router: experts, positions and keep must equal the
+    card's (logits within 1e-5 x max(1, max|logits|)). Returns, by tokens
+    a row, the capacity, each row's choices and kept choices per expert,
+    the logits' difference, and the mean cosine of two tokens' inputs in
+    one row and in two rows (how much a row's tokens share, and so which
+    experts they favour)."""
+    import torch
+    from repro_torch.models import moe
+    out = {}
+    for shape, (x, router_w, kw, card) in sorted(routed.items()):
+        cpu = moe.route(x.cpu(), router_w.cpu(), **kw)
+        _, _, experts, pos, keep, C = (t.cpu() if torch.is_tensor(t) else t
+                                       for t in card)
+        for name, a, b in (("experts", experts, cpu[2]),
+                           ("positions", pos, cpu[3]), ("keep", keep, cpu[4])):
+            require(torch.equal(a, b),
+                    f"{label}: {name} of the card's routing at {shape} differ "
+                    f"from the CPU's")
+        require(C == cpu[5], f"{label}: capacity {C} against {cpu[5]}")
+        err = max_err(card[0].cpu(), cpu[0])
+        require(err <= 1e-5 * max(1.0, float(cpu[0].abs().max())),
+                f"{label}: router logits at {shape} differ by {err:.3g}")
+        E, flat = kw["E"], experts.reshape(shape[0], -1)
+        load = [torch.bincount(r, minlength=E).tolist() for r in flat]
+        kept = [torch.bincount(r[k], minlength=E).tolist()
+                for r, k in zip(flat, keep)]
+        u = torch.nn.functional.normalize(x.cpu().double(), dim=-1)
+        cos = torch.einsum("bsd,ctd->bsct", u, u)      # every pair of tokens
+        same = torch.eye(shape[0], dtype=torch.bool)[:, None, :, None]
+        off = ~torch.eye(shape[1], dtype=torch.bool)[None, :, None, :]
+        within = cos[(same & off).expand_as(cos)]
+        across = cos[(~same).expand_as(cos)]
+        out[f"S={shape[1]}"] = {
+            "rows": shape[0], "capacity": C, "choices_per_expert": load,
+            "kept_per_expert": kept, "logits_max_abs_err": err,
+            "equal_on_cpu": True,
+            "input_cosine_within_row_mean": float(within.mean()),
+            "input_cosine_across_rows_mean": (float(across.mean())
+                                              if across.numel() else None)}
+    return out
+
+
+def phase_moe_archs(B: int, P: int, gen_len: int) -> dict:
+    """Each config of MOE_ARCHS in turn: its tiny config through launch/serve
+    and launch/server on cuda against cpu, with a drawn router and with the
+    reference's zero router (ties); then, where it runs at full width (depth
+    cut), full's serve traffic and server_full's server traffic (the prefix
+    cache cold, warm, off, and batched decode off: tokens equal), every
+    kernel of each path launched (the attention kernels' softcap forms
+    where the config caps, no qmatmul), the tokens dropped at prefill, wall
+    and device time per decode step and prefill chunk; the card freed and
+    the bank files removed afterwards. Returns each full path's launch
+    counts, keyed "<arch>/serve" and "<arch>/server"."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_config
+    paths = {}
+    for arch, layers in MOE_ARCHS.items():
+        t_arch = time.perf_counter()
+        tiny, tiny_drops = {}, {}
+        cap = get_config(arch).moe_capacity_factor
+        for key, zero, factor in (("drawn_router", False, 0.0),
+                                  ("zero_router", True, 0.0),
+                                  (f"drawn_router_capacity_{cap:g}", False,
+                                   cap)):
+            with moe_drops() as (calls, _):
+                tiny[key] = (
+                    phase_tiny(arch, label=f"moe_archs {arch} tiny {key}",
+                               zero_router=zero, capacity_factor=factor),
+                    phase_server_tiny(arch, label=f"moe_archs {arch} "
+                                      f"server_tiny {key}", zero_router=zero,
+                                      capacity_factor=factor))
+            tiny_drops[key] = drop_summary(calls)
+        dropped = max(v["max"] for v in tiny_drops[key].values())
+        require(dropped > 0, f"moe_archs {arch}: no token dropped at "
+                f"capacity {cap:g}")
+        line = {"phase": "moe_archs", "config": arch,
+                "tiny_dropped_frac": tiny_drops,
+                "tiny_tokens_equal_cuda_cpu": {
+                    k: t["tokens_equal"] for k, (t, _) in tiny.items()},
+                "server_tiny_tokens_equal_cuda_cpu": {
+                    k: all(st[w]["tokens_equal_cuda_cpu"]
+                           for w in ("shared_prefix", "burst"))
+                    for k, (_, st) in tiny.items()}}
+        if layers is None:
+            line.update(full_width="not run: tiny only",
+                        seconds=time.perf_counter() - t_arch)
+            log(line)
+            continue
+        t0 = time.perf_counter()
+        full, cfg, params = full_model(arch, layers)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tmp = tempfile.mkdtemp(prefix="m2cache_ssd_")
+        try:
+            with moe_drops() as (serve_calls, serve_routed):
+                paths[f"{arch}/serve"], serve = phase_full(
+                    full, cfg, params, B, P, gen_len,
+                    label=f"moe_archs {arch} serve", ssd_dir=tmp)
+            with moe_drops() as (server_calls, server_routed):
+                paths[f"{arch}/server"], srv = phase_server_full(
+                    full, cfg, params, label=f"moe_archs {arch} server",
+                    ssd_dir=tmp, per_session=True)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        routing = {
+            "serve": route_on_cpu(f"moe_archs {arch} serve", serve_routed),
+            "server": route_on_cpu(f"moe_archs {arch} server", server_routed)}
+        del serve_routed, server_routed
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dev_srv = srv["device_in_steps_warm"]
+        line.update({
+            "depth_cut": serve["depth_cut"], "widths": serve["widths"],
+            "experts": (full.num_experts, full.num_experts_per_tok),
+            "capacity_factor": full.moe_capacity_factor,
+            "logit_softcap": full.logit_softcap,
+            "param_gb": serve["param_gb"], "init_s": init_s,
+            "ssd_bank_files_gb": serve["ssd_bank_files_gb"],
+            "dropped_frac_serve": drop_summary(serve_calls),
+            "dropped_frac_server": drop_summary(server_calls),
+            "routing_at_prefill": routing,
+            "serve": {
+                "prefill_wall_ms": serve["prefill_wall_s"] * 1e3,
+                "decode_step_wall_ms_median":
+                    serve["decode_wall_s_median"] * 1e3,
+                "prefill_device_ms":
+                    serve["profile"]["prefill"].get("device_ms"),
+                "prefill_busy_share":
+                    serve["profile"]["prefill"].get("busy_share"),
+                "decode_step_device_ms":
+                    serve["profile"]["decode_step"].get("device_ms"),
+                "decode_step_busy_share":
+                    serve["profile"]["decode_step"].get("busy_share"),
+                "peak_mem_gb": serve["peak_mem_gb"],
+                "launches": paths[f"{arch}/serve"]},
+            "server": {
+                "tokens_equal_cold_warm_off":
+                    srv["tokens_equal_cold_warm_off"],
+                "tokens_equal_batched_vs_per_session":
+                    srv["tokens_equal_batched_vs_per_session"],
+                "decode_step_wall_ms_median":
+                    srv["steps_cold"]["decode_step_wall_ms_median"],
+                "prefill_chunk_wall_ms_median":
+                    srv["steps_cold"]["prefill_chunk_wall_ms_median"],
+                "decode_step_device_ms": dev_srv.get("decode_step", {}).get(
+                    "device_ms_per_step", "not measured"),
+                "decode_step_busy_share": dev_srv.get("decode_step", {}).get(
+                    "busy_share", "not measured"),
+                "prefill_step_device_ms": dev_srv.get("prefill_step", {}).get(
+                    "device_ms_per_step", "not measured"),
+                "prefill_step_busy_share": dev_srv.get("prefill_step", {}).get(
+                    "busy_share", "not measured"),
+                "peak_mem_gb": srv["peak_mem_gb"],
+                "launches": paths[f"{arch}/server"]},
+            "seconds": time.perf_counter() - t_arch})
+        log(line)
+    return paths
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2082,6 +2605,10 @@ def main():
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
+    # the softcap rows' library call is compiled: its caches stay in build/
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs an NVIDIA GPU")
@@ -2116,6 +2643,8 @@ def main():
                       torch.device("cuda")))
     kern.update(timed("kernels_dense", phase_kernels_dense,
                       torch.device("cuda"), B, P, gen_len))
+    kern.update(timed("kernels_moe", phase_kernels_moe,
+                      torch.device("cuda"), B, P, gen_len))
     timed("tiny", phase_tiny)
     timed("server_tiny", phase_server_tiny)
     full, full_cfg, params = timed("full_model", full_model)
@@ -2130,6 +2659,8 @@ def main():
     del params
     torch.cuda.empty_cache()
     paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
+    paths.update(timed("moe_archs", phase_moe_archs, B, P, gen_len))
+    timed("softcap_library", phase_softcap_library)
     log({"phase": "timing", "seconds": seconds,
          "total_s": time.perf_counter() - t0})
 
@@ -2139,6 +2670,7 @@ def main():
     k = "src/repro/kernels/"
     c = "src/repro_torch/csrc/"
     qwen32, cmdr, mistral, vl = DENSE_ARCHS
+    grok = next(a for a, depth in MOE_ARCHS.items() if depth)
     server_paths = ("server_full", "server_obs_full", "cluster_full")
     dense_serve = tuple(f"{a}/serve" for a in (qwen32, cmdr, vl))
     dense_server = tuple(f"{a}/server" for a in (qwen32, cmdr, vl))
@@ -2215,6 +2747,24 @@ def main():
         "chunk_attention_long": (c + "flash_attention.cu",
                                  k + "flash_attention.py:26",
                                  "chunk_attention", chunk_paths),
+        # the softcap forms at grok-1-314b's shapes (G = 6): their launches
+        # are grok's paths' (and its server's decode batch shares the row)
+        "flash_decode_softcap": (c + "flash_decode.cu",
+                                 k + "flash_decode.py:26",
+                                 "flash_decode_softcap",
+                                 (f"{grok}/serve", f"{grok}/server")),
+        "flash_decode_rows_softcap": (c + "flash_decode.cu",
+                                      k + "flash_decode.py:26",
+                                      "flash_decode_softcap",
+                                      (f"{grok}/server",)),
+        "flash_attention_softcap": (c + "flash_attention.cu",
+                                    k + "flash_attention.py:26",
+                                    "flash_attention_softcap",
+                                    (f"{grok}/serve",)),
+        "chunk_attention_softcap": (c + "flash_attention.cu",
+                                    k + "flash_attention.py:26",
+                                    "chunk_attention_softcap",
+                                    (f"{grok}/server",)),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),
@@ -2230,10 +2780,16 @@ def main():
             "plain_ms": kk["plain_ms"], "bound_ms": kk["bound_ms"],
             "bound_by": kk["bound_by"], "library_ms": kk["library_ms"],
             "device_ms": kk["profile"].get("device_ms"),
-            "library_device_ms": kk.get("library_profile", {}).get(
-                "device_ms", "not measured"),
+            "library_device_ms": None if kk["library_ms"] is None else
+            kk.get("library_device_ms", kk.get("library_profile", {}).get(
+                "device_ms", "not measured")),
+            **({"library_graph_ms": kk["library_graph_ms"]}
+               if "library_graph_ms" in kk else {}),
             **{key: kk[key] for key in ("gemv_device_ms", "mma_device_ms",
-                                        "bound_tf32_ms", "bound_tf32_by")
+                                        "bound_tf32_ms", "bound_tf32_by",
+                                        "uncapped_device_ms",
+                                        "sdpa_uncapped_ms",
+                                        "library_max_abs_err")
                if key in kk}})
     print(nvidia_smi(), flush=True)
     log({"kernels": table})
@@ -2243,4 +2799,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--softcap-library"]:
+        log(softcap_library(sys.argv[2]))
+    else:
+        main()

@@ -149,8 +149,9 @@ def bind(lib):
     from repro_torch.kernels import flash_attention as fa
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     f1, f2 = lib.flash_attention_fwd, lib.flash_attention_chunk_fwd
-    f1.argtypes = [P, P, P, P, I, I, I, I, I, F, I, I, I, I, P]
-    f2.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, I, I, I, P]
+    f1.argtypes = [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P]
+    f2.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, F, I, I, I,
+                  P]
     f1.restype = f2.restype = I
     fa._fn, ca._fn = f1, f2
 

@@ -128,7 +128,7 @@ def bind(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f = lib.flash_decode_fwd
     f.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I,
-                  ctypes.c_float, P]
+                  ctypes.c_float, ctypes.c_float, P]
     f.restype = I
     fd._fn = f
 

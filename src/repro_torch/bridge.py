@@ -39,10 +39,11 @@ def params_from_jax(np_tree, cfg, device) -> dict:
 
     ``layers.pattern[i]``'s leading F axis is unstacked into one dictionary
     per layer, in layer order; every leaf keeps its name and its bytes, and
-    each layer's FFN banks are stored neuron-major
+    each layer's M2Cache FFN banks are stored neuron-major
     (``core.quantize.to_neuron_major``). Leaves come over as the tree has
     them: a parallel block's layer has no ``norm2``, a tied model's tree no
-    ``unembed``."""
+    ``unembed``, an MoE layer's FFN its experts, router and predictor
+    leaves and no banks."""
     dev = torch.device(device)
     pat, F, rem = T.pattern_split(cfg)
     layers = []
@@ -54,7 +55,8 @@ def params_from_jax(np_tree, cfg, device) -> dict:
         layers.append(_map(np_tree["layers"]["remainder"][i],
                            lambda a: to_tensor(a, dev)))
     for layer in layers:
-        layer["ffn"]["banks"] = to_neuron_major(layer["ffn"]["banks"])
+        if "banks" in layer["ffn"]:
+            layer["ffn"]["banks"] = to_neuron_major(layer["ffn"]["banks"])
     out = {"layers": layers}
     for name in ("final_norm", "embed", "unembed"):
         if name in np_tree:

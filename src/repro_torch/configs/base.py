@@ -151,13 +151,15 @@ class ModelConfig:
 _REGISTRY: dict = {}
 
 #: architectures the port serves so far (the JAX package has more): every
-#: dense-attention config of the reference
+#: dense-attention config of the reference, and its two MoE configs
 _MODULE_FOR = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen2.5-32b": "qwen2_5_32b",
     "command-r-35b": "command_r_35b",
     "mistral-large-123b": "mistral_large_123b",
     "internvl2-1b": "internvl2_1b",
+    "grok-1-314b": "grok_1_314b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 

@@ -353,8 +353,15 @@ def extract_layer_banks(cfg, params) -> Iterator[dict]:
     """Per-layer quantized neuron banks (numpy) for the SSD tier, in layer
     order and in the reference's layout (the files equal the reference's
     byte for byte); transposed on the params' device before the host copy.
-    Yields one layer at a time, so the host holds one layer's banks (5.8 GB
-    at mistral-large-123b's widths), not the model's."""
+    An MoE layer streams its raw expert weights ``wg``, ``wu``, ``wd`` (an
+    expert is a coarse neuron group) and no shared expert. Yields one layer
+    at a time, so the host holds one layer's banks (5.8 GB at
+    mistral-large-123b's widths, 19.3 GB of grok-1-314b's experts), not the
+    model's."""
     for layer in params["layers"]:
-        yield {k: _to_numpy(v)
-               for k, v in to_reference_layout(layer["ffn"]["banks"]).items()}
+        ffn = layer["ffn"]
+        if "banks" in ffn:
+            yield {k: _to_numpy(v)
+                   for k, v in to_reference_layout(ffn["banks"]).items()}
+        else:
+            yield {k: _to_numpy(ffn[k]) for k in ("wg", "wu", "wd")}

@@ -14,8 +14,11 @@
 // query head hq reads KV head hq / G (G = Hq / Hkv); query i of row b sits
 // at position pos0[b] + i (pos0 = 0 and Skv = S in the whole-prompt form),
 // key slot j at position j; causal mask k_pos <= q_pos, plus an optional
-// sliding window k_pos > q_pos - window (whole-prompt form only); masked
-// scores -1e30 as in the Pallas kernel; output acc / max(l, 1e-20) in
+// sliding window k_pos > q_pos - window (whole-prompt form only); with a
+// logit softcap c > 0 (grok-1's 30) a kept score s, already scaled, becomes
+// tanh(s / c) * c, as the reference's jnp attention caps it before the mask
+// (the Pallas kernel takes no cap); masked scores -1e30 (never capped) as
+// in the Pallas kernel; output acc / max(l, 1e-20) in
 // (B, S, Hq, D) fp32. S and Skv are ragged. Slots above the chunk's front
 // pos0[b] + S - 1 may hold garbage (pad tokens of the last chunk, bytes of
 // scrubbed or restored blocks): they are never copied into shared memory
@@ -83,6 +86,11 @@
 //    for two blocks of 5 warps per SM it was slower on the card at the
 //    main paths' shapes (faster only at a 2048-token prompt;
 //    scripts/attention_variants.py).
+//  * The softcap is a template flag: the uncapped kernels are the code
+//    they were, and the capped ones add tanhf (not tanh.approx.f32, whose
+//    ~5e-4 relative error times c = 30 would move a score by ~0.015) and
+//    an IEEE division to each kept score: +14 % of device time at grok's
+//    whole prompt, +4 % in the chunk form (PERF.md).
 // The plan (heads per block, query sub-tiles, key split) depends on one
 // row's shape (S, Skv, Hq, Hkv, D) and the card's SM count, never on B or
 // pos0, so a row gives the same bits alone and in a group.
@@ -137,6 +145,7 @@ struct Params {
   int pair;              // no split: a block takes two query tiles
   int window;
   float scale;
+  float softcap;         // > 0: tanh(s / softcap) * softcap on kept scores
 };
 
 // v = hi + lo: hi is v rounded to TF32's 10 mantissa bits (half away from
@@ -181,7 +190,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // One query tile (qt) of one key range (rg) of KV head h, head group hg,
 // batch row b: the tile loop, then the normalised output, or with a split
 // this range's partial and, in the last range to finish, the combine.
-template <int D>
+// kCap: the kept scores take the softcap.
+template <int D, bool kCap>
 __device__ __forceinline__ void query_tile(const Params& p, float* smem,
                                            int& is_last, int qt, int rg,
                                            int h, int hg, int b) {
@@ -327,7 +337,9 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
         const int qp = c < 2 ? qp0 : qp1;
         bool ok = kp <= qp;
         if (p.window > 0) ok = ok && kp > qp - p.window;
-        s[jn][c] = ok ? s[jn][c] * p.scale : kNegInf;
+        float x = s[jn][c] * p.scale;
+        if constexpr (kCap) x = tanhf(x / p.softcap) * p.softcap;
+        s[jn][c] = ok ? x : kNegInf;
         if (c < 2) mx0 = fmaxf(mx0, s[jn][c]);
         else mx1 = fmaxf(mx1, s[jn][c]);
       }
@@ -528,7 +540,7 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
 // paired block takes the k-th longest and then the k-th shortest, so that
 // every block does about the same causal work and one wave holds twice
 // the query tiles.
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 prefill_attention(const Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -540,11 +552,12 @@ prefill_attention(const Params p) {
 #pragma unroll 1
   for (int job = 0; job < jobs; ++job) {   // one copy of the tile's code
     if (job) __syncthreads();              // Q and the ring are free again
-    query_tile<D>(p, smem, is_last, job ? xq : qt, rg, h, hg, blockIdx.z);
+    query_tile<D, kCap>(p, smem, is_last, job ? xq : qt, rg, h, hg,
+                        blockIdx.z);
   }
 }
 
-template <int D>
+template <int D, bool kCap>
 int launch_d(const Params& p, int B, int warps, cudaStream_t st) {
   const int smem = Smem<D>::bytes(warps);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -554,14 +567,14 @@ int launch_d(const Params& p, int B, int warps, cudaStream_t st) {
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(ready & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        prefill_attention<D, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
   dim3 grid(p.pair ? (p.q_tiles + 1) / 2 : p.q_tiles * p.ranges,
             p.Hkv * p.groups, B);
-  prefill_attention<D><<<grid, warps * 32, smem, st>>>(p);
+  prefill_attention<D, kCap><<<grid, warps * 32, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -570,7 +583,7 @@ int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
            cudaStream_t st) {
   if (p.Hkv < 1 || p.Hq % p.Hkv || p.hb < 1 || p.qsub < 1 ||
       p.hb * p.qsub > kMaxWarps || p.split < 0 || p.split % kBKV ||
-      (p.pair && p.split))
+      (p.pair && p.split) || !(p.softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   p.G = p.Hq / p.Hkv;
   p.groups = (p.G + p.hb - 1) / p.hb;
@@ -584,18 +597,22 @@ int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
         parts_floats < slots * p.ranges * warps * 16 * (D + 2))
       return (int)cudaErrorInvalidValue;
   }
+  const bool cap = p.softcap > 0.f;
   switch (D) {
-    case 32: return launch_d<32>(p, B, warps, st);
-    case 64: return launch_d<64>(p, B, warps, st);
-    case 128: return launch_d<128>(p, B, warps, st);
+    case 32: return cap ? launch_d<32, true>(p, B, warps, st)
+                        : launch_d<32, false>(p, B, warps, st);
+    case 64: return cap ? launch_d<64, true>(p, B, warps, st)
+                        : launch_d<64, false>(p, B, warps, st);
+    case 128: return cap ? launch_d<128, true>(p, B, warps, st)
+                         : launch_d<128, false>(p, B, warps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 Params make_params(const float* q, const float* k, const float* v,
                    const int* pos0, float* out, int S, int Skv, int Hq,
-                   int Hkv, float scale, int window, int hb, int qsub,
-                   int split, int pair) {
+                   int Hkv, float scale, float softcap, int window, int hb,
+                   int qsub, int split, int pair) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -607,6 +624,7 @@ Params make_params(const float* q, const float* k, const float* v,
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.scale = scale;
+  p.softcap = softcap;
   p.window = window;
   p.hb = hb;
   p.qsub = qsub;
@@ -619,16 +637,17 @@ Params make_params(const float* q, const float* k, const float* v,
 
 // The whole-prompt form: q (B, S, Hq, D), k and v (B, S, Hkv, D), all
 // 16-byte aligned; hb heads of a KV head and qsub 16-row sub-tiles per
-// block (hb * qsub <= 8); pair != 0 gives a block two query tiles.
+// block (hb * qsub <= 8); pair != 0 gives a block two query tiles;
+// softcap > 0 caps the kept scaled scores (0: no cap).
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    const float* v, float* out, int B, int S,
                                    int Hq, int Hkv, int D, float scale,
-                                   int window, int hb, int qsub, int pair,
-                                   void* stream) {
+                                   float softcap, int window, int hb,
+                                   int qsub, int pair, void* stream) {
   if (window < 0) return (int)cudaErrorInvalidValue;
   return launch(make_params(q, k, v, nullptr, out, S, S, Hq, Hkv, scale,
-                            window, hb, qsub, 0, pair),
+                            softcap, window, hb, qsub, 0, pair),
                 B, D, 0, 0, (cudaStream_t)stream);
 }
 
@@ -637,17 +656,18 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
 // pos0[b] + S <= Skv. split > 0 (a multiple of 32) splits the key axis into
 // ranges of that many slots; parts (parts_floats floats) and counts
 // (count_ints ints, all 0) are then its scratch, and counts are 0 again
-// when the launch ends. Returns a cudaError_t (0 on success).
+// when the launch ends; softcap as in the whole-prompt form. Returns a
+// cudaError_t (0 on success).
 extern "C" int flash_attention_chunk_fwd(const float* q, const float* k,
                                          const float* v, const int* pos0,
                                          float* out, float* parts,
                                          long long parts_floats, int* counts,
                                          long long count_ints, int B, int S,
                                          int Skv, int Hq, int Hkv, int D,
-                                         float scale, int hb, int qsub,
-                                         int split, void* stream) {
-  Params p = make_params(q, k, v, pos0, out, S, Skv, Hq, Hkv, scale, 0, hb,
-                         qsub, split, 0);
+                                         float scale, float softcap, int hb,
+                                         int qsub, int split, void* stream) {
+  Params p = make_params(q, k, v, pos0, out, S, Skv, Hq, Hkv, scale, softcap,
+                         0, hb, qsub, split, 0);
   p.parts = parts;
   p.counts = counts;
   return launch(p, B, D, parts_floats, count_ints, (cudaStream_t)stream);

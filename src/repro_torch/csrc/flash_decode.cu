@@ -6,7 +6,10 @@
 // masking: q (B, Hkv, G, D), k and v in the cache's own (B, S, Hkv, D)
 // layout, slot_positions (B, S) int32 and lengths (B,) int32; a slot takes
 // part when 0 <= slot_positions[b, s] <= lengths[b], wherever it sits in
-// the buffer (ring buffers too). Masked scores are -1e30 (not -inf), as in
+// the buffer (ring buffers too). With a logit softcap c > 0 (grok-1's 30)
+// a valid slot's score s, already scaled, becomes tanh(s / c) * c, as the
+// reference's jnp attention caps it before the mask (the Pallas kernel
+// takes no cap). Masked scores are -1e30 (not -inf, never capped), as in
 // the Pallas kernel and its oracle. Output (B, Hkv, G, D) fp32 =
 // acc / max(l, 1e-20); query head g of KV head h is q head h*G + g. A row
 // with no valid slot gives what the oracle's softmax over S equal scores
@@ -37,7 +40,11 @@
 //    from B, lengths or the slot positions, so a row's bits do not depend
 //    on the rows beside it; a head's bits do not depend on its group
 //    either. The heads of a block are a template parameter (1 to 8), so
-//    that every loop over heads unrolls whole.
+//    that every loop over heads unrolls whole; so is the softcap, so that
+//    the uncapped kernels are the code they were and the capped ones add
+//    tanhf (not tanh.approx.f32, whose ~5e-4 relative error times c = 30
+//    would move a score by ~0.015) and an IEEE division to each summed
+//    score, before the mask.
 //  * A block first reads its range's slot positions, all in flight at
 //    once, 32 consecutive slots to a warp (one coalesced load), into one
 //    valid-slot bit mask per 32-slot tile (a ballot). Only tiles with a
@@ -113,6 +120,7 @@ struct Params {
   int groups;        // blocks a KV head's query heads are spread over
   int range, ranges, stages;
   float scale;
+  float softcap;     // > 0: tanh(s / softcap) * softcap on valid scores
 };
 
 // A block's dynamic shared memory, in floats: a fixed part, then the ring.
@@ -234,7 +242,7 @@ __device__ void mean_of_v(const Params& p, int b, int h, long long bh,
   }
 }
 
-template <int D, int G>
+template <int D, int G, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_decode_kernel(const Params p) {
   using L = Smem<D>;
@@ -372,6 +380,7 @@ flash_decode_kernel(const Params p) {
       float sc = part[g * kTile + lane];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) sc += part[(w * kMaxG + g) * kTile + lane];
+      if constexpr (kCap) sc = tanhf(sc / p.softcap) * p.softcap;
       if (!((bits >> lane) & 1u)) sc = kNegInf;
       const float mn = fmaxf(m_run, warp_max(sc));
       const float a = expf(m_run - mn);
@@ -536,7 +545,7 @@ flash_decode_kernel(const Params p) {
   }
 }
 
-template <int D, int G>
+template <int D, int G, bool kCap>
 int launch(const Params& p, int B, cudaStream_t st) {
   using L = Smem<D>;
   static unsigned long long ready = 0;   // the shared-memory opt-in, once
@@ -545,31 +554,38 @@ int launch(const Params& p, int B, cudaStream_t st) {
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(ready & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_decode_kernel<D, G, kCap>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         L::bytes(kMaxStages));
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
-  flash_decode_kernel<D, G><<<dim3(p.ranges, p.Hkv * p.groups, B), kThreads,
-                              L::bytes(p.stages), st>>>(p);
+  flash_decode_kernel<D, G, kCap><<<dim3(p.ranges, p.Hkv * p.groups, B),
+                                    kThreads, L::bytes(p.stages), st>>>(p);
   return (int)cudaGetLastError();
 }
 
 // G, the query heads of a block, is a compile-time constant of the kernel,
 // so that its loops over heads unroll whole
-template <int D>
+template <int D, bool kCap>
 int launch_g(const Params& p, int B, cudaStream_t st) {
   switch (p.G) {
-    case 1: return launch<D, 1>(p, B, st);
-    case 2: return launch<D, 2>(p, B, st);
-    case 3: return launch<D, 3>(p, B, st);
-    case 4: return launch<D, 4>(p, B, st);
-    case 5: return launch<D, 5>(p, B, st);
-    case 6: return launch<D, 6>(p, B, st);
-    case 7: return launch<D, 7>(p, B, st);
-    case 8: return launch<D, 8>(p, B, st);
+    case 1: return launch<D, 1, kCap>(p, B, st);
+    case 2: return launch<D, 2, kCap>(p, B, st);
+    case 3: return launch<D, 3, kCap>(p, B, st);
+    case 4: return launch<D, 4, kCap>(p, B, st);
+    case 5: return launch<D, 5, kCap>(p, B, st);
+    case 6: return launch<D, 6, kCap>(p, B, st);
+    case 7: return launch<D, 7, kCap>(p, B, st);
+    case 8: return launch<D, 8, kCap>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int D>
+int launch_cap(const Params& p, int B, cudaStream_t st) {
+  return p.softcap > 0.f ? launch_g<D, true>(p, B, st)
+                         : launch_g<D, false>(p, B, st);
 }
 
 }  // namespace
@@ -581,16 +597,19 @@ int launch_g(const Params& p, int B, cudaStream_t st) {
 // tile); a KV head's G query heads in `groups` blocks of G / groups <= 8
 // heads. With more than one range, parts holds parts_floats floats (at
 // least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least
-// B*Hkv*groups, all 0; they are 0 again when the launch ends). Returns a
-// cudaError_t (0 on success).
+// B*Hkv*groups, all 0; they are 0 again when the launch ends); softcap > 0
+// caps the valid scaled scores (0: no cap). Returns a cudaError_t (0 on
+// success).
 extern "C" int flash_decode_fwd(const float* q, const float* k,
                                 const float* v, const int* slot_pos,
                                 const int* lengths, float* out, float* parts,
                                 long long parts_floats, int* counts,
                                 long long count_ints, int B, int S, int Hkv,
                                 int G, int D, int range, int stages,
-                                int groups, float scale, void* stream) {
+                                int groups, float scale, float softcap,
+                                void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || G < 1 || groups < 1 || G % groups ||
+      !(softcap >= 0.f) ||
       G / groups > kMaxG || stages < kMinStages ||
       stages > kMaxStages || (stages < 2 && range != kTile) || range < kTile ||
       range % kTile || range > kMaxTiles * kTile)
@@ -612,6 +631,7 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
   p.ranges = (S + range - 1) / range;
   p.stages = stages;
   p.scale = scale;
+  p.softcap = softcap;
   if (p.ranges > kMaxRanges) return (int)cudaErrorInvalidValue;
   if (p.ranges > 1 &&
       (!parts || !counts || count_ints < (long long)B * Hkv * groups ||
@@ -619,9 +639,9 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch_g<32>(p, B, st);
-    case 64: return launch_g<64>(p, B, st);
-    case 128: return launch_g<128>(p, B, st);
+    case 32: return launch_cap<32>(p, B, st);
+    case 64: return launch_cap<64>(p, B, st);
+    case 128: return launch_cap<128>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,8 +21,10 @@ from repro_torch.kernels.flash_attention import Plan, check_inputs
 from repro_torch.kernels.flash_attention import _plan as _tiles
 
 #: launches of the kernel since the count was last set to 0 (a split's
-#: combine runs inside the same launch)
+#: combine runs inside the same launch), and of those the ones with a logit
+#: softcap
 launches = 0
+launches_softcap = 0
 
 #: key slots of one range when a chunk splits its key axis (a multiple of
 #: 32; 0 never splits)
@@ -59,8 +61,9 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_chunk_fwd
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I,
-                       ctypes.c_float, I, I, I, P]
+        F = ctypes.c_float
+        fn.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, F, I,
+                       I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -88,14 +91,17 @@ def _scratch(plan: Plan, B: int, S: int, Skv: int, Hq: int, Hkv: int, D: int,
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    pos0: torch.Tensor) -> torch.Tensor:
+                    pos0: torch.Tensor, *, softcap: float = 0.0
+                    ) -> torch.Tensor:
     """Causal attention of an S-token chunk at positions ``pos0[b] + i``
     over each row's whole KV buffer (slot j at position j).
     q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D); pos0: (B,) int32 on the
-    device, with ``pos0[b] + S <= Skv`` (unchecked: it lives on the device).
+    device, with ``pos0[b] + S <= Skv`` (unchecked: it lives on the device);
+    ``softcap`` > 0 caps the scaled scores before the mask (tanh(s / c) * c).
     Returns (B, S, Hq, D) float32; slots above a row's chunk are never
     read."""
-    global launches
+    global launches, launches_softcap
+    _require(softcap >= 0, f"softcap {softcap} < 0")
     B = q.shape[0] if q.dim() == 4 else -1
     _require(pos0.dtype == torch.int32 and tuple(pos0.shape) == (B,)
              and pos0.is_contiguous(),
@@ -118,8 +124,9 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     0 if parts is None else parts.numel(),
                     None if counts is None else counts.data_ptr(),
                     0 if counts is None else counts.numel(),
-                    B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D),
+                    B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
                     plan.heads_per_block, plan.qsub, plan.split, stream)
     build.check(err, "flash_attention_chunk_fwd")
     launches += 1
+    launches_softcap += int(softcap > 0)
     return out

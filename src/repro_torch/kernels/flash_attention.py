@@ -17,8 +17,10 @@ import torch
 
 from repro_torch.kernels import build
 
-#: launches of the kernel since the count was last set to 0
+#: launches of the kernel since the count was last set to 0, and of those
+#: the ones with a logit softcap
 launches = 0
+launches_softcap = 0
 
 #: warps of a block at most; each owns 16 query rows of one head
 MAX_WARPS = 8
@@ -59,8 +61,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_fwd
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, ctypes.c_float, I, I, I, I,
-                       P]
+        F = ctypes.c_float
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -93,12 +95,14 @@ def check_inputs(q, k, v, require):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Causal (+ optional sliding-window) attention with queries and keys
     both at positions 0..S-1. q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with
-    Hq % Hkv == 0. Returns (B, S, Hq, D) float32."""
-    global launches
+    Hq % Hkv == 0; ``softcap`` > 0 caps the scaled scores before the mask
+    (tanh(s / c) * c). Returns (B, S, Hq, D) float32."""
+    global launches, launches_softcap
     _require(window >= 0, f"window {window} < 0")
+    _require(softcap >= 0, f"softcap {softcap} < 0")
     check_inputs(q, k, v, _require)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -109,8 +113,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plan = _plan(S, Hq, Hkv, D, build.sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), int(window),
-                    plan.heads_per_block, plan.qsub, int(plan.pair), stream)
+                    B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
+                    int(window), plan.heads_per_block, plan.qsub,
+                    int(plan.pair), stream)
     build.check(err, "flash_attention_fwd")
     launches += 1
+    launches_softcap += int(softcap > 0)
     return out

@@ -17,8 +17,10 @@ import torch
 from repro_torch.kernels import build
 
 #: launches of the kernel since the count was last set to 0 (the ranges'
-#: combine runs inside the same launch)
+#: combine runs inside the same launch), and of those the ones with a logit
+#: softcap
 launches = 0
+launches_softcap = 0
 
 #: slots of a tile: one per lane of a warp
 TILE = 32
@@ -100,8 +102,9 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_decode").flash_decode_fwd
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        F = ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I, I,
-                       ctypes.c_float, P]
+                       F, F, P]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -159,12 +162,15 @@ def _scratch(floats: int, counters: int, device):
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 slot_positions: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 slot_positions: torch.Tensor, lengths: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); slot_positions: (B, S) int32
     absolute position per cache slot (-1 = empty); lengths: (B,) int32
-    current decode position (inclusive). Returns (B, Hkv, G, D) float32."""
-    global launches
+    current decode position (inclusive); ``softcap`` > 0 caps the scaled
+    scores before the mask (tanh(s / c) * c). Returns (B, Hkv, G, D)
+    float32."""
+    global launches, launches_softcap
+    _require(softcap >= 0, f"softcap {softcap} < 0")
     check_inputs(q, k, v, slot_positions, lengths)
     B, Hkv, G, D = q.shape
     S = k.shape[1]
@@ -186,7 +192,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     None if counts is None else counts.data_ptr(),
                     0 if counts is None else counts.numel(),
                     B, S, Hkv, G, D, plan.range_slots, plan.stages,
-                    plan.groups, 1.0 / math.sqrt(D), stream)
+                    plan.groups, 1.0 / math.sqrt(D), float(softcap), stream)
     build.check(err, "flash_decode_fwd")
     launches += 1
+    launches_softcap += int(softcap > 0)
     return out

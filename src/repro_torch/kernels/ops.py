@@ -119,34 +119,40 @@ def atu_update(bank, unit, src_idx, dst_idx, *, bg: int = 8):
                              dst_idx.to(torch.int32).contiguous(), bg=bg)
 
 
-def decode_attention(q, k, v, slots, lengths):
+def decode_attention(q, k, v, slots, lengths, *, softcap: float = 0.0):
     """One query token per row over the cache buffer, causal by absolute
     position. q: (B, 1, Hq, D) at positions ``lengths`` (B,) int32; k, v:
     (B, S, Hkv, D); slots: (B, S) int32, each slot's position, -1 where it
     takes no part (``models/transformer.decode_slots``, built once per
-    forward). Returns (B, 1, Hq, D)."""
+    forward). ``softcap`` > 0: the logit softcap on the scaled scores,
+    before the mask (here and in the two prefill forms). Returns
+    (B, 1, Hq, D)."""
     if _on_cpu(q):
         return chunked_attention(q, k, v, lengths[:, None], slots,
-                                 kv_valid=slots >= 0)
+                                 softcap=softcap, kv_valid=slots >= 0)
     B, _, Hq, D = q.shape
     out = flash_decode(q.reshape(B, k.shape[2], Hq // k.shape[2], D), k, v,
-                       slots, lengths)
+                       slots, lengths, softcap=softcap)
     return out.reshape(B, 1, Hq, D)
 
 
-def prefill_attention(q, k, v, positions):
+def prefill_attention(q, k, v, positions, *, softcap: float = 0.0):
     """Causal self-attention over a prompt that starts at position 0.
     q: (B, S, Hq, D); k, v: (B, S, Hkv, D); positions: (B, S)."""
     if _on_cpu(q):
-        return chunked_attention(q, k, v, positions, positions)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        return chunked_attention(q, k, v, positions, positions,
+                                 softcap=softcap)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           softcap=softcap)
 
 
-def chunk_attention(q, k, v, positions):
+def chunk_attention(q, k, v, positions, *, softcap: float = 0.0):
     """An S-token prefill chunk over the whole cache buffer, causal by
     absolute position. q: (B, S, Hq, D) at ``positions`` (B, S), which run
     from each row's start; k, v: (B, Sbuf, Hkv, D), slot j at position j."""
     if _on_cpu(q):
-        return ref.chunk_attention_ref(q, k, v, positions[:, 0])
+        return ref.chunk_attention_ref(q, k, v, positions[:, 0],
+                                       softcap=softcap)
     return chunk_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                        positions[:, 0].to(torch.int32).contiguous())
+                        positions[:, 0].to(torch.int32).contiguous(),
+                        softcap=softcap)

@@ -131,34 +131,46 @@ def atu_update_ref(bank, unit, src_idx, dst_idx, *, bg: int = 8):
     return unit
 
 
-def chunk_attention_ref(q, k, v, pos0):
+def _cap(s, softcap: float):
+    """The attention logit softcap on scaled scores, before the mask:
+    tanh(s / c) * c (none when c is 0)."""
+    return torch.tanh(s / softcap) * softcap if softcap else s
+
+
+def chunk_attention_ref(q, k, v, pos0, *, softcap: float = 0.0):
     """Causal attention of a chunk at positions ``pos0[b] + i`` over each
-    row's whole buffer. q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D); pos0: (B,)."""
+    row's whole buffer. q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D); pos0: (B,).
+    ``softcap`` > 0 caps the scaled scores before the mask."""
     B, S = q.shape[:2]
     Skv = k.shape[1]
     q_pos = pos0.long()[:, None] + torch.arange(S, device=q.device)[None]
     kv_pos = torch.arange(Skv, device=q.device)[None].expand(B, Skv)
-    return chunked_attention(q, k, v, q_pos, kv_pos)
+    return chunked_attention(q, k, v, q_pos, kv_pos, softcap=softcap)
 
 
-def flash_decode_ref(q, k, v, slot_positions, lengths):
-    """q: (B,Hkv,G,D); k,v: (B,S,Hkv,D); slot_positions: (B,S); lengths: (B,)."""
+def flash_decode_ref(q, k, v, slot_positions, lengths, *,
+                     softcap: float = 0.0):
+    """q: (B,Hkv,G,D); k,v: (B,S,Hkv,D); slot_positions: (B,S); lengths: (B,).
+    ``softcap`` > 0 caps the scaled scores before the mask (a masked slot
+    stays at -1e30)."""
     D = q.shape[-1]
     qf = q.float() * (1.0 / math.sqrt(D))
-    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float())
+    s = _cap(torch.einsum("bhgd,bshd->bhgs", qf, k.float()), softcap)
     valid = (slot_positions >= 0) & (slot_positions <= lengths[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhgs,bshd->bhgd", p, v.float())
 
 
-def flash_attention_ref(q, k, v, *, window: int = 0):
-    """Dense causal (+window) attention. q: (B,S,Hq,D); k,v: (B,S,Hkv,D)."""
+def flash_attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0):
+    """Dense causal (+window) attention. q: (B,S,Hq,D); k,v: (B,S,Hkv,D).
+    ``softcap`` > 0 caps the scaled scores before the mask."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    s = _cap(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D),
+             softcap)
     pos = torch.arange(S, device=q.device)
     mask = pos[None, :] <= pos[:, None]
     if window:

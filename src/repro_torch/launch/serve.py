@@ -6,9 +6,13 @@ Real tiny model on the GPU:
 
 The same on the CPU (plain PyTorch versions of the kernels), for any
 served config (qwen2.5-14b, qwen2.5-32b, command-r-35b,
-mistral-large-123b, internvl2-1b):
+mistral-large-123b, internvl2-1b, and the MoE grok-1-314b and
+llama4-maverick-400b-a17b, whose routers start at zero as the reference's
+do):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-large-123b \
       --tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
+      --tiny --device cpu --gen-len 4 --batch 2 --dram-gb 0.5
 
 Paper-scale analytic mode (LLaMA geometry, modeled clock):
   PYTHONPATH=src python -m repro_torch.launch.serve --paper-model llama-13b \

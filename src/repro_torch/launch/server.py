@@ -8,9 +8,12 @@ Real tiny model on the GPU (actual decode, modeled clock):
 
 The same on the CPU (plain PyTorch versions of the kernels), for any
 served config (qwen2.5-14b, qwen2.5-32b, command-r-35b,
-mistral-large-123b, internvl2-1b):
+mistral-large-123b, internvl2-1b, and the MoE grok-1-314b and
+llama4-maverick-400b-a17b):
   PYTHONPATH=src python -m repro_torch.launch.server --arch command-r-35b \
       --tiny --device cpu --requests 4 --max-batch 2 --gen-len 4 6
+  PYTHONPATH=src python -m repro_torch.launch.server --arch grok-1-314b \
+      --tiny --device cpu
 
 Radix prefix cache on chat-style shared-prefix traffic:
   PYTHONPATH=src python -m repro_torch.launch.server --arch qwen2.5-14b \

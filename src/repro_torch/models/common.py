@@ -128,3 +128,19 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
                     window=window, softcap=softcap, kv_valid=kv_valid)
             for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GLU feed-forward (the paper's neuron substrate)
+
+
+def glu_ffn(x, w_gate, w_up, w_down, act_name: str):
+    """y = (act(x W_gate) * (x W_up)) W_down.
+
+    A *neuron* in the paper's sense is the triple
+    (W_gate[:, j], W_up[:, j], W_down[j, :]).
+    """
+    act = activation(act_name)
+    h = act(torch.einsum("...d,df->...f", x, w_gate))
+    h = h * torch.einsum("...d,df->...f", x, w_up)
+    return torch.einsum("...f,fd->...d", h, w_down)

@@ -1,6 +1,6 @@
-"""Model assembly, dense attention families (``dense``, and ``vlm``'s
-decoder) with the M2Cache FFN (``repro/models/transformer.py``'s serving
-path).
+"""Model assembly, attention families (``dense``, ``vlm``'s decoder and
+``moe``) with the M2Cache FFN or the MoE FFN (``repro/models/
+transformer.py``'s serving path).
 
 Parameters are plain dictionaries of tensors with the reference's leaf
 names; where the reference stacks the layers of one pattern position on a
@@ -13,11 +13,14 @@ a CPU int64 tensor (B,) when the rows are separate requests at their own
 positions (the server's stacked rows, where the reference vmaps a one-row
 graph over a per-row ``pos``).
 
-Ported so far: dense attention layers, serial or parallel (command-r's
-attention and FFN side by side on one norm), the vlm family's prepended
-``prefix`` embeddings, ``mode`` "prefill", "prefill_resume" and "decode",
-``m2=True``. Other families, MoE FFNs, windows, logit softcaps and the
-int8 KV cache raise NotImplementedError.
+Ported so far: attention layers, serial or parallel (command-r's
+attention and FFN side by side on one norm), with the attention logit
+softcap (grok-1); the vlm family's prepended ``prefix`` embeddings; the
+M2Cache FFN, and for MoE layers the capacity-dispatched experts
+(``models/moe.py``: no banks, no active neurons, the reference's
+``_ffn_apply``); ``mode`` "prefill", "prefill_resume" and "decode",
+``m2=True``. Other families, windows and the int8 KV cache raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models.common import apply_norm, each_row, rope
 
 # ---------------------------------------------------------------------------
@@ -50,25 +54,40 @@ def pattern_split(cfg) -> Tuple[tuple, int, int]:
 
 def check_supported(cfg, *, m2: bool = True):
     """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.window_size:
         raise NotImplementedError("sliding-window attention is not ported yet")
-    if cfg.logit_softcap:
-        raise NotImplementedError("logit softcap is not ported yet")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     if not (m2 and cfg.m2_enabled):
         raise NotImplementedError("only the M2Cache FFN (m2=True) is ported")
 
 
 def _ffn_specs(cfg, dtype) -> Dict:
-    """(shape, dtype, kind) of one layer's M2Cache FFN (transformer.py:77-102),
-    in the reference's layout: :func:`init_params` draws the fp weights in
-    it and then stores gate and up neuron-major."""
+    """(shape, dtype, kind) of one layer's FFN: the MoE experts
+    (transformer.py:57-76: the router, (E, d, f) gate and up, (E, f, d)
+    down, a shared expert where the config has one, and the per-expert
+    predictor leaves, which nothing reads), else the M2Cache FFN
+    (transformer.py:77-102), in the reference's layout: :func:`init_params`
+    draws the fp weights in it and then stores gate and up neuron-major."""
     d, f, r = cfg.d_model, cfg.d_ff, cfg.m2_predictor_rank
-    assert d % 2 == 0 and f % 2 == 0
     i8, f32 = torch.int8, torch.float32
+    if cfg.num_experts:
+        E = cfg.num_experts
+        out = {
+            "router": ((d, E), f32, "replicated"),
+            "wg": ((E, d, f), dtype, "expert_in"),
+            "wu": ((E, d, f), dtype, "expert_in"),
+            "wd": ((E, f, d), dtype, "expert_out"),
+        }
+        if cfg.shared_expert_d_ff:
+            fs = cfg.shared_expert_d_ff
+            out["shared_wg"] = ((d, fs), dtype, "col")
+            out["shared_wu"] = ((d, fs), dtype, "col")
+            out["shared_wd"] = ((fs, d), dtype, "row")
+        out["pred_A"] = ((d, r), f32, "replicated")
+        out["pred_B"] = ((r, f), f32, "replicated")
+        return out
+    assert d % 2 == 0 and f % 2 == 0
     return {
         "banks": {
             "wg_fp": ((d, f), dtype, "m2_in"),
@@ -131,8 +150,9 @@ def _is_spec(x) -> bool:
 
 def _init_one(spec, gen, device):
     """The reference's init rule (transformer.py:253-260): float vectors and
-    replicated leaves start at zero (so the predictor's A is zero), int8
-    leaves at zero, everything else N(0, 1/fan_in)."""
+    replicated leaves start at zero (so the predictor's A and an MoE
+    router are zero), int8 leaves at zero, everything else
+    N(0, 1/fan_in)."""
     shape, dtype, kind = spec
     if kind in ("vector", "replicated") and len(shape) and dtype != torch.int8:
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -157,9 +177,9 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
     """Materialise parameters from a ``torch.Generator`` (seeded with ``seed``
     on ``device`` unless one is given), then build every layer's quantized
     banks from its fp weights (transformer.py:298-321), gate and up stored
-    neuron-major (``core.quantize.to_neuron_major``). The numbers differ
-    from ``jax.random``'s; parity tests carry the reference's params over
-    with ``repro_torch.bridge`` instead."""
+    neuron-major (``core.quantize.to_neuron_major``); MoE layers have no
+    banks. The numbers differ from ``jax.random``'s; parity tests carry the
+    reference's params over with ``repro_torch.bridge`` instead."""
     device = resolve_device(device)
     gen = generator
     if gen is None:
@@ -167,6 +187,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
         gen.manual_seed(seed)
     params = _materialise(model_param_specs(cfg, dtype=dtype), gen, device)
     for layer in params["layers"]:
+        if "banks" not in layer["ffn"]:
+            continue
         b = layer["ffn"]["banks"]
         layer["ffn"]["banks"] = to_neuron_major(build_neuron_banks(
             b["wg_fp"], b["wu_fp"], b["wd_fp"]))
@@ -235,7 +257,9 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     active sets, and the products and norms run one row at a time.
     ``slots``: :func:`decode_slots` of pos0 (decode only). A parallel block
     (transformer.py:625-627) feeds the FFN the normed ``h`` that fed QKV
-    and adds both outputs to x. Returns (y, active ids: (k,) or (B, k) with
+    and adds both outputs to x. The attention takes ``cfg.logit_softcap``.
+    Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
+    load-balance loss: 0.0 for an M2Cache FFN, a (B,) tensor with
     ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -260,8 +284,9 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    cap = cfg.logit_softcap
     if mode == "prefill":                   # from position 0
-        attn_out = ops.prefill_attention(q, k, v, positions)
+        attn_out = ops.prefill_attention(q, k, v, positions, softcap=cap)
         kv["k"][:, :S] = k.to(kv["k"].dtype)
         kv["v"][:, :S] = v.to(kv["v"].dtype)
     else:
@@ -273,25 +298,47 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
         ck[b_idx, positions] = k.to(ck.dtype)
         cv[b_idx, positions] = v.to(cv.dtype)
         if mode == "decode":
-            attn_out = ops.decode_attention(q, ck, cv, *slots)
+            attn_out = ops.decode_attention(q, ck, cv, *slots, softcap=cap)
         else:
             # causal mask kv_pos <= q_pos hides the chunk's future tokens
             # and whatever sits above the prefill front
-            attn_out = ops.chunk_attention(q, ck, cv, positions)
+            attn_out = ops.chunk_attention(q, ck, cv, positions, softcap=cap)
 
     attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
 
     def ffn(t):
-        return mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], t,
-                               rows=rows)
+        if cfg.num_experts:
+            y, lb = dense(lambda tr: _moe_apply(cfg, p["ffn"], tr), t)
+            empty = torch.zeros((B, 0) if rows else (0,), dtype=torch.int32,
+                                device=t.device)
+            return y, empty, lb if rows else lb[0]
+        y, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], t,
+                                  rows=rows)
+        return y, info["active_idx"], 0.0
     if cfg.parallel_block:
-        ffn_out, info = ffn(h)
+        ffn_out, idx, lb = ffn(h)
         y = x + attn_out + ffn_out
     else:
         x = x + attn_out
-        ffn_out, info = ffn(dense(lambda t: apply_norm(cfg, t, p["norm2"]), x))
+        ffn_out, idx, lb = ffn(dense(lambda t: apply_norm(cfg, t, p["norm2"]),
+                                     x))
         y = x + ffn_out
-    return y, info["active_idx"]
+    return y, idx, lb
+
+
+def _moe_apply(cfg, p_ffn, x):
+    """An MoE layer's FFN (the reference's ``_ffn_apply``, transformer.py:
+    417-426): (y, the router's load-balance loss as a (1,) tensor). The
+    per-expert predictor leaves are not read."""
+    shared = None
+    if cfg.shared_expert_d_ff:
+        shared = (p_ffn["shared_wg"], p_ffn["shared_wu"], p_ffn["shared_wd"])
+    y, aux = moe.moe_ffn(
+        x, p_ffn["router"], p_ffn["wg"], p_ffn["wu"], p_ffn["wd"],
+        num_experts_per_tok=cfg.num_experts_per_tok,
+        capacity_factor=cfg.moe_capacity_factor, act_name=cfg.ffn_act,
+        shared=shared)
+    return y, aux["lb_loss"].reshape(1)
 
 
 # ---------------------------------------------------------------------------
@@ -323,10 +370,13 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     decode and prefill_resume start each row at its ``cache["pos"]``.
     ``rows``: every batch row is its own request, with its own FFN active
     sets, and gives the bits it gives alone — what the reference computes
-    by vmapping a one-row forward.
+    by vmapping a one-row forward; an MoE layer's capacity is then counted
+    over the row alone, as the reference's is.
     aux["active_idx"] is ``{"pattern": [(F, k) tensor], "remainder": []}``,
     the reference's structure; with ``rows`` the entry is (B, F, k), the
-    reference's vmapped layout."""
+    reference's vmapped layout. MoE layers have no active neurons: their
+    entries are (F, 0), (B, F, 0) with ``rows``. aux["lb_loss"] sums the MoE
+    layers' load-balance losses (0.0 without MoE; (B,) with ``rows``)."""
     check_supported(cfg, m2=m2)
     if mode not in ("prefill", "prefill_resume", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
@@ -347,12 +397,13 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     pos0 = pos.to(x.device)
     slots = decode_slots(pos0, sbuf) if mode == "decode" else None
 
-    idxs = []
+    idxs, lb_acc = [], 0.0
     for l, p in enumerate(params["layers"]):
         kv = {n: cache["pattern"][0][n][l] for n in ("k", "v")}
-        x, idx = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows,
-                            slots=slots)
+        x, idx, lb = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows,
+                                slots=slots)
         idxs.append(idx)
+        lb_acc = lb_acc + lb
 
     def head(t):
         t = apply_norm(cfg, t, params["final_norm"])
@@ -360,6 +411,7 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     logits = each_row(head, x) if rows else head(x)
     advance = 1 if mode == "decode" else S
     cache["pos"] = cache["pos"] + advance
-    aux = {"active_idx": {"pattern": [torch.stack(idxs, dim=1 if rows else 0)],
+    aux = {"lb_loss": lb_acc,
+           "active_idx": {"pattern": [torch.stack(idxs, dim=1 if rows else 0)],
                           "remainder": []}}
     return logits, cache, aux

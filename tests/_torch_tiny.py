@@ -1,7 +1,8 @@
 """Shared pieces of the port's CPU parity tests of the server path: a tiny
 config's weights in both packages (the reference's init, a drawn predictor
-``A``, loaded into torch; qwen2.5-14b unless another arch is named), and
-one run of the reference's server CLI on those weights."""
+``A`` or, for an MoE config, a drawn router unless the reference's zero one
+is asked for, loaded into torch; qwen2.5-14b unless another arch is named),
+and one run of the reference's server CLI on those weights."""
 import contextlib
 import io
 import json
@@ -33,14 +34,21 @@ def shared_argv(arch: str) -> list:
     return ["--arch", arch] + SHARED[2:]
 
 
-def tiny_model(arch: str = "qwen2.5-14b"):
-    """(reference cfg, reference params, port cfg, port params on the CPU)."""
+def tiny_model(arch: str = "qwen2.5-14b", *, zero_router: bool = False):
+    """(reference cfg, reference params, port cfg, port params on the CPU).
+    ``zero_router``: keep an MoE config's router at the reference's zero
+    init, where every token ties and takes experts 0..k-1."""
     jcfg = jax_config(arch, tiny=True)
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
                         m2=True)
-    pred = jp["layers"]["pattern"][0]["ffn"]["pred"]   # a trained predictor
-    pred["A"] = jnp.asarray(np.random.default_rng(21).standard_normal(
-        pred["A"].shape).astype(np.float32) / 4.0)
+    ffn = jp["layers"]["pattern"][0]["ffn"]
+    if "pred" in ffn:                                   # a trained predictor
+        ffn["pred"]["A"] = jnp.asarray(np.random.default_rng(21)
+                                       .standard_normal(ffn["pred"]["A"].shape)
+                                       .astype(np.float32) / 4.0)
+    elif not zero_router:                               # a trained router
+        ffn["router"] = jnp.asarray(np.random.default_rng(22).standard_normal(
+            ffn["router"].shape).astype(np.float32))
     cfg = get_config(arch, tiny=True)
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                                           "cpu")

@@ -595,3 +595,170 @@ def test_dense_arch_tiny_on_cuda_equals_cpu(dev, arch, widen):
         alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
                                 mode="decode")
         assert torch.equal(logits[r:r + 1], alone)
+
+
+def _softcap_inputs(dev, shape_q, shape_kv, seed, mag=3.5):
+    """q, k, v drawn at ``mag`` (scores of about +-60 at D = 128, where a
+    cap of 30 saturates)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(*shape_q, device=dev, generator=g) * mag
+    k = torch.randn(*shape_kv, device=dev, generator=g) * mag
+    v = torch.randn(*shape_kv, device=dev, generator=g)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D", [
+    (4, 145, 8, 6, 128),                  # grok-1-314b's serve decode step
+    (4, 128, 8, 6, 128),                  # grok's server decode bucket
+    (2, 4096, 8, 6, 128), (3, 37, 2, 4, 32)])
+def test_flash_decode_softcap_matches_plain(dev, B, S, Hkv, G, D):
+    """The softcap form at saturating scores: the plain version within
+    1e-5 x max(1, max|plain|); a row with no valid slot; NaN/Inf in masked
+    slots change no bit; a row alone equals the row in the group; the cap
+    does change the result."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    q, k, v = _softcap_inputs(dev, (B, Hkv, G, D), (B, S, Hkv, D), S + G)
+    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    slots[B - 1, 5:9] = -1
+    lengths = torch.tensor([S - 1 - 7 * b for b in range(B)], device=dev,
+                           dtype=torch.int32)
+    before = (fd.launches, fd.launches_softcap)
+    got = fd.flash_decode(q, k, v, slots, lengths, softcap=30.0)
+    assert (fd.launches, fd.launches_softcap) == (before[0] + 1,
+                                                 before[1] + 1)
+    _close(got, ref.flash_decode_ref(q, k, v, slots, lengths, softcap=30.0))
+    assert float((got - fd.flash_decode(q, k, v, slots, lengths))
+                 .abs().max()) > 1e-3
+    none = slots.clone()
+    none[0] = -1
+    _close(fd.flash_decode(q, k, v, none, lengths, softcap=30.0),
+           ref.flash_decode_ref(q, k, v, none, lengths, softcap=30.0))
+    masked = ~((slots >= 0) & (slots <= lengths[:, None]))
+    kn, vn = k.clone(), v.clone()
+    kn[masked], vn[masked] = float("nan"), float("inf")
+    assert torch.equal(fd.flash_decode(q, kn, vn, slots, lengths,
+                                       softcap=30.0), got)
+    b = B - 1
+    alone = fd.flash_decode(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                            v[b:b + 1].contiguous(),
+                            slots[b:b + 1].contiguous(),
+                            lengths[b:b + 1].contiguous(), softcap=30.0)
+    assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (4, 128, 48, 8, 128),                 # grok-1-314b's serve prefill
+    (2, 77, 12, 2, 64), (1, 45, 8, 2, 32)])
+def test_flash_attention_softcap_matches_plain(dev, B, S, Hq, Hkv, D):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v = _softcap_inputs(dev, (B, S, Hq, D), (B, S, Hkv, D), S + Hq)
+    before = fa.launches_softcap
+    got = fa.flash_attention(q, k, v, softcap=30.0)
+    assert fa.launches_softcap == before + 1
+    _close(got, ref.flash_attention_ref(q, k, v, softcap=30.0))
+    assert float((got - fa.flash_attention(q, k, v)).abs().max()) > 1e-3
+    alone = fa.flash_attention(q[B - 1:].contiguous(), k[B - 1:].contiguous(),
+                               v[B - 1:].contiguous(), softcap=30.0)
+    assert torch.equal(alone[0], got[B - 1])
+
+
+@pytest.mark.parametrize("split", [0, 32, 64])
+@pytest.mark.parametrize("pos0,Sbuf,Hq,Hkv,D", [
+    ((0, 48, 96, 112), 256, 48, 8, 128),  # grok-1-314b's server chunk
+    ((3, 21), 45, 8, 2, 64)])
+def test_chunk_attention_softcap_matches_plain(dev, monkeypatch, pos0, Sbuf,
+                                               Hq, Hkv, D, split):
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ca, "SPLIT_SLOTS", split)
+    B, S = len(pos0), 16
+    q, k, v = _softcap_inputs(dev, (B, S, Hq, D), (B, Sbuf, Hkv, D), Sbuf + Hq)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    before = ca.launches_softcap
+    got = ca.chunk_attention(q, k, v, p0, softcap=30.0)
+    assert ca.launches_softcap == before + 1
+    _close(got, ref.chunk_attention_ref(q, k, v, p0, softcap=30.0))
+    for b, p in enumerate(pos0):           # non-finite bytes above the front
+        k[b, p + S:] = float("nan")
+        v[b, p + S:] = float("inf")
+    assert torch.equal(ca.chunk_attention(q, k, v, p0, softcap=30.0), got)
+    alone = ca.chunk_attention(q[B - 1:].contiguous(), k[B - 1:].contiguous(),
+                               v[B - 1:].contiguous(), p0[B - 1:].contiguous(),
+                               softcap=30.0)
+    assert torch.equal(alone[0], got[B - 1])
+
+
+@pytest.mark.parametrize("capacity_factor", [0.0, 1.25])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_arch_tiny_on_cuda_equals_cpu(dev, arch, capacity_factor):
+    """Each MoE config at tiny size with a drawn router, at the tiny
+    config's capacity factor (no drop) and at the full configs' 1.25
+    (drops): the card's routing of a prefill equals the CPU's (experts,
+    positions, keep) and drops what the CPU drops; greedy tokens on the
+    card equal the CPU's, last logits within 1e-4, no qmatmul launch, the
+    softcap forms launched where the config caps (grok); rows mode keeps a
+    row's bits alone."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine_model import RealModelRunner, _stack_rows
+    from repro_torch.kernels import flash_attention, flash_decode, qmatmul
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch, tiny=True)
+    if capacity_factor:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity_factor)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        r = layer["ffn"]["router"]
+        layer["ffn"]["router"] = torch.randn(r.shape, generator=g)
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(dev)
+    gparams = to(params)
+    ffn = params["layers"][0]["ffn"]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32))
+    kw = dict(E=cfg.num_experts, k=cfg.num_experts_per_tok,
+              capacity_factor=cfg.moe_capacity_factor)
+    on_card = moe.route(x.to(dev), ffn["router"].to(dev), **kw)
+    on_cpu = moe.route(x, ffn["router"], **kw)
+    for a, b in zip(on_card[2:5], on_cpu[2:5]):
+        assert torch.equal(a.cpu(), b)
+    assert (not bool(on_cpu[4].all())) is bool(capacity_factor)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+    before = (qmatmul.launches, flash_decode.launches_softcap,
+              flash_attention.launches_softcap, flash_decode.launches)
+    gpu = RealModelRunner(cfg, gparams, max_seq=20, device=dev)
+    tok_gpu, _ = gpu.generate(prompts, 6)
+    after = (qmatmul.launches, flash_decode.launches_softcap,
+             flash_attention.launches_softcap, flash_decode.launches)
+    capped = bool(cfg.logit_softcap)
+    assert after[0] == before[0] and after[3] > before[3]
+    assert (after[1] > before[1]) is capped
+    assert (after[2] > before[2]) is capped
+    cpu = RealModelRunner(cfg, params, max_seq=20, device="cpu")
+    tok_cpu, _ = cpu.generate(prompts, 6)
+    np.testing.assert_array_equal(tok_gpu, tok_cpu)
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits,
+                               rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(4)
+    caches = []
+    for p in (16, 32, 48):
+        c = T.init_cache(cfg, 1, 64, device=dev)
+        T.forward(cfg, gparams, torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, p))).to(dev), cache=c, mode="prefill")
+        caches.append(c)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(dev)
+    logits, _, _ = T.forward(cfg, gparams, tokens, cache=_stack_rows(caches),
+                             mode="decode", rows=True)
+    for r, c in enumerate(caches):
+        alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
+                                mode="decode")
+        assert torch.equal(logits[r:r + 1], alone)

@@ -115,9 +115,11 @@ def test_plan_is_the_same_for_any_batch_and_any_lengths(monkeypatch, S, want):
         slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
         lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
         fd.flash_decode(q, kv, kv, slots, lengths)
-    # (B, S, Hkv, G, D, range, stages, head groups, scale) of each launch
+    # (B, S, Hkv, G, D, range, stages, head groups, scale, softcap) of each
+    # launch
     assert [c[10:] for c in calls] == [
-        (B, S, 8, 5, 128, *want, 1, 1 / math.sqrt(128)) for B in (1, 4, 3)]
+        (B, S, 8, 5, 128, *want, 1, 1 / math.sqrt(128), 0.0)
+        for B in (1, 4, 3)]
     # partials are sized for the batch, from the same range
     n = fd.ranges(S, want[0])
     if n > 1:
@@ -202,7 +204,7 @@ def test_head_group_plan_takes_one_rows_shape(monkeypatch, G, D):
         lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
         fd.flash_decode(q, kv, kv, slots, lengths)
     assert [c[10:] for c in calls] == [
-        (B, S, Hkv, G, D, *plan, 1 / math.sqrt(D)) for B in (1, 4, 3)]
+        (B, S, Hkv, G, D, *plan, 1 / math.sqrt(D), 0.0) for B in (1, 4, 3)]
     # a row's head groups fit one wave of the card's SMs
     assert fd.ranges(S, plan.range_slots) * Hkv * plan.groups <= 132
 

@@ -132,9 +132,11 @@ def test_init_params_follows_reference_rules_and_shapes():
     assert torch.equal(s, layer["ffn"]["banks"]["wg_i8_s"])
 
 
-@pytest.mark.parametrize("change", [dict(family="moe", num_experts=4),
+@pytest.mark.parametrize("change", [dict(m2_enabled=False),
                                     dict(window_size=8),
-                                    dict(logit_softcap=30.0),
+                                    dict(family="moe", num_experts=4,
+                                         num_experts_per_tok=2,
+                                         window_size=4),
                                     dict(family="hybrid",
                                          block_pattern=("rglru", "attn")),
                                     dict(family="ssm"),
