@@ -50,8 +50,8 @@ Phases, each printing one JSON line:
                 0-3, 24-token prompts, 8 steps, top-5) at full width for
                 int8 and int4, numbers of random weights with no gate;
  10. dense_archs — qwen2.5-32b, command-r-35b, mistral-large-123b and
-                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4 and
-                2 layers, internvl2-1b at all 24): tiny through launch/serve and launch/server
+                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4, 2
+                and 12 layers): tiny through launch/serve and launch/server
                 on cuda against cpu (as phases 3 and 5); at full width
                 full's serve traffic and server_full's server traffic (prefix
                 cache cold, warm, off, and batched decode off: tokens
@@ -71,7 +71,19 @@ Phases, each printing one JSON line:
                 again on the CPU (experts, positions and keep equal) with
                 each row's choices per expert. llama4 at full
                 width (73 GB of fp32 tables and experts) is not run.
- 12. softcap_library — the softcap rows' library call, compiled
+ 12. hybrid_arch — recurrentgemma-2b (RG-LRU blocks beside attention
+                over a sliding window's ring cache, head dim 256): tiny
+                through both entry points on cuda against cpu; at full
+                width and all 26 layers, every predictor A drawn, full's
+                serve traffic, a ring run (2 prompts of 2176 = 2048 + 128
+                tokens, 16 new: the prefill's window masks the last 128
+                queries, decode wraps the ring) whose every decode step's
+                logits are held to one whole-prompt prefill's at the same
+                position (RING_TOL), and server_full's traffic (prefix
+                cache cold, warm, off, batched decode off: tokens equal;
+                the server prefills whole prompts, stacked in rows); the
+                RG-LRU recurrence's device ms at both prefill shapes.
+ 13. softcap_library — the softcap rows' library call, compiled
                 flex_attention with the row's cap and mask, held against
                 the plain version within 1e-3 x max(1, max|plain|) and
                 timed, in a process of its own after the rest: compiling
@@ -87,7 +99,12 @@ layer's FFN at d = 12288; and (``kernels_moe``) the three attention
 kernels' logit-softcap forms at grok-1-314b's shapes (G = 6, cap 30), at
 scores of about +-60 where the cap saturates, beside the uncapped form
 (their library call compiled flex_attention with the same cap and mask;
-SDPA, which has no cap, only as a yardstick). qmatmul has two kernels (A for small
+SDPA, which has no cap, only as a yardstick); and (``kernels_hybrid``)
+recurrentgemma-2b's head dim 256 at G = 10: flash_decode at the serve step
+and over the window's wrapped 2048-slot ring, the whole prompt at the
+serve prefill and at 2176 tokens within the 2048 window (library: SDPA
+with the window as a boolean mask), and one layer's GELU FFN at d = 2560,
+f = 7680 through kernels A and B. qmatmul has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
 one layer's FFN at M = 1, 4, 8, 16 through both gives the crossover; the
@@ -566,28 +583,34 @@ def decode_plan(range_slots: int = 0, stages: int = 0, heads: int = 0):
         fd.RANGE_SLOTS, fd.STAGES, fd.HEADS_PER_BLOCK = saved
 
 
-def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False):
+def decode_inputs(randn, dev, S, hkv, G, D, lengths, holes=False,
+                  ring=False):
     """q, k, v of a decode step over S slots for rows at ``lengths``, and
     the slot positions the decode step's mask gives them (slot i at
-    position i up to the row's length, -1 above; with ``holes`` also four
-    empty slots in row 1)."""
+    position i up to the row's length, -1 above; with ``ring`` a sliding
+    window's ring, slot i at length - ((length - i) mod S); with ``holes``
+    also four empty slots in row 1)."""
     import torch
     B = len(lengths)
     q = randn(B, hkv, G, D)
     kc, vc = randn(B, S, hkv, D), randn(B, S, hkv, D)
     slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    ln = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    if ring:
+        slots = (ln[:, None] - torch.remainder(ln[:, None] - slots, S)).to(
+            torch.int32)
     if holes:
         slots[1, 5:9] = -1
-    ln = torch.tensor(lengths, device=dev, dtype=torch.int32)
     return q, kc, vc, torch.where(slots <= ln[:, None], slots, -1), ln
 
 
 def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
                holes=False, full_checks=False, sweep=(), stages=(), heads=(),
-               plain_reps=20, softcap: float = 0.0) -> dict:
+               plain_reps=20, softcap: float = 0.0, ring=False) -> dict:
     """flash_decode over B = len(lengths) rows of S slots (slot i at
-    position i, as the decode step's mask gives them; with ``holes`` four
-    empty slots in row 1) against its plain version; with ``full_checks``
+    position i, as the decode step's mask gives them, or a wrapped ring's
+    positions with ``ring``; with ``holes`` four empty slots in row 1)
+    against its plain version; with ``full_checks``
     also a row with no valid slot, NaN and Inf in every masked slot (bit
     for bit), and a row alone against the same row in the group. Each range
     size of ``sweep``, ring depth of ``stages`` and number of query heads a
@@ -605,7 +628,7 @@ def decode_row(check, randn, dev, label, S, hkv, G, D, lengths, *,
     B = len(lengths)
     hq = hkv * G
     q, kc, vc, slots, ln = decode_inputs(randn, dev, S, hkv, G, D, lengths,
-                                         holes)
+                                         holes, ring)
     if softcap:
         f = (LARGE_SCORE / max_score(q.reshape(B, 1, hq, D), kc)) ** 0.5
         q, kc = q * f, kc * f
@@ -697,7 +720,9 @@ def serve_ffn_rows(check, g, dev, cfg, B: int, P: int) -> tuple:
                                            unpack_int4)
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.qmatmul import qmatmul_gathered
+    from repro_torch.models.common import activation
     d, f = cfg.d_model, cfg.d_ff
+    act = activation(cfg.ffn_act)
     sizes = tier_sizes(f, cfg)
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
     randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
@@ -777,7 +802,7 @@ def serve_ffn_rows(check, g, dev, cfg, B: int, P: int) -> tuple:
         x2 = x.reshape(B * S, d)
 
         def lib():
-            h = F.silu(x2 @ lib_w["wg"]) * (x2 @ lib_w["wu"])
+            h = act(x2 @ lib_w["wg"]) * (x2 @ lib_w["wu"])
             return h @ lib_w["wd"]
         M = B * S
         nbytes = (3 * d * (k16 * 4 + k8 + k4 / 2)       # the active weights
@@ -1399,13 +1424,20 @@ PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                 "serve_moe_softcap": ("flash_decode_softcap",
                                       "flash_attention_softcap"),
                 "server_moe_softcap": ("flash_decode_softcap",
-                                       "chunk_attention_softcap")}
+                                       "chunk_attention_softcap"),
+                # no KV payloads (a window's ring, recurrent state): the
+                # server prefills whole prompts
+                "server_whole": ("qmatmul_gemv", "qmatmul_mma",
+                                 "flash_decode", "flash_attention")}
 _QMM = ("qmatmul_gemv", "qmatmul_mma")
 _CAPPED = ("flash_decode", "flash_attention", "chunk_attention")
 
 
 def path_of(cfg, kind: str) -> str:
     """The PATH_KERNELS key of a config's "serve" or "server" path."""
+    from repro_torch.core.kv_payload import supports_payloads
+    if kind == "server" and not supports_payloads(cfg):
+        return "server_whole"
     if not cfg.num_experts:
         return kind
     return f"{kind}_moe" + ("_softcap" if cfg.logit_softcap else "")
@@ -1786,7 +1818,7 @@ class StepClock:
     """Wall time of every engine decode_step and prefill_step (synchronised
     before and after), each inside a profiler range of its own name, and
     of the model forwards inside them (DecodeBatch.step, the runner's
-    block-chunk prefill), so that a step splits into the forward and the
+    block-chunk or whole-prompt prefill), so that a step splits into the forward and the
     engine's own host work (scheduling of rows, active-set unions, the
     modeled clock)."""
 
@@ -1802,7 +1834,9 @@ class StepClock:
                       (M2CacheEngine, "prefill_step"),
                       (DecodeBatch, "step"),
                       (RealModelRunner, "_prefill_block"),
-                      (RealModelRunner, "_prefill_block_rows")]
+                      (RealModelRunner, "_prefill_block_rows"),
+                      (RealModelRunner, "_prefill"),
+                      (RealModelRunner, "_prefill_rows")]
         self._orig = [(c, n, getattr(c, n)) for c, n in self._orig]
 
         def timed_step(name, fn, store):
@@ -1828,7 +1862,8 @@ class StepClock:
                 store.append(time.perf_counter() - t0)
                 return out
             return wrapper
-        (dec, pre, step, block, rows) = (f for _, _, f in self._orig)
+        (dec, pre, step, block, rows, whole,
+         whole_rows) = (f for _, _, f in self._orig)
         M2CacheEngine.decode_step = timed_step("chip_smoke::decode_step", dec,
                                                self.decode)
         M2CacheEngine.prefill_step = timed_step("chip_smoke::prefill_step",
@@ -1838,6 +1873,10 @@ class StepClock:
             block, self.forward["prefill"])
         RealModelRunner._prefill_block_rows = timed_forward(
             rows, self.forward["prefill"])
+        # a model without KV payloads (hybrid) prefills whole prompts
+        RealModelRunner._prefill = timed_forward(whole, self.forward["prefill"])
+        RealModelRunner._prefill_rows = timed_forward(
+            whole_rows, self.forward["prefill"])
         return self
 
     def __exit__(self, *exc):
@@ -2261,9 +2300,9 @@ def phase_divergence(cfg, params) -> dict:
 
 #: dense_archs: each dense-attention config the port serves besides
 #: qwen2.5-14b, at full width with its depth cut to this many layers
-#: (internvl2-1b runs all 24)
+#: (internvl2-1b 24 -> 12, so that hybrid_arch's 26 layers fit the time)
 DENSE_ARCHS = {"qwen2.5-32b": 4, "command-r-35b": 4,
-               "mistral-large-123b": 2, "internvl2-1b": 24}
+               "mistral-large-123b": 2, "internvl2-1b": 12}
 
 
 def phase_dense_archs(B: int, P: int, gen_len: int) -> dict:
@@ -2587,6 +2626,295 @@ def phase_moe_archs(B: int, P: int, gen_len: int) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, continued, and phase 12: the hybrid family (recurrentgemma-2b)
+
+
+#: hybrid_arch: the hybrid config, the depth it runs at full width (all 26
+#: layers: 8 repeats of (rglru, rglru, attn) and a remainder of 2), and the
+#: ring run's traffic: 2 prompts of the window + 128 tokens, so that the
+#: prefill's window masks the last 128 queries and decode wraps the ring
+HYBRID_ARCH = ("recurrentgemma-2b", 26)
+RING_RUN = dict(B=2, P=2048 + 128, gen_len=16)
+#: ring consistency: a decode step's logits against one whole-prompt
+#: prefill's at the same position, within RING_TOL x max(1, max|prefill|),
+#: the tolerance cuda against cpu logits are held to: the two paths run
+#: other kernels (flash_decode against flash_attention, qmatmul kernel A
+#: against B, one RG-LRU step against the scan), each fp32 to ~1e-6,
+#: through 26 layers. The plain versions at d = 256 (26 layers) stayed at
+#: 0.013 of it, and a decode step writing the slot after its own went 23x
+#: over it
+RING_TOL = 1e-4
+
+
+def phase_kernels_hybrid(dev, B: int, P: int, gen_len: int) -> dict:
+    """The kernels at recurrentgemma-2b's shapes (head dim 256, G = 10 over
+    one KV head: two head groups of 5): flash_decode at the serve step (a
+    row of holes, a row with no valid slot, NaN/Inf in masked slots, a row
+    alone against the row in the group, ranges 32 and 64) and over the
+    window's 2048-slot ring, wrapped (lengths 2176 and 2191); the whole
+    prompt at the serve prefill (scores to about +-60 against float64,
+    paired and unpaired query tiles) and at 2176 tokens within the 2048
+    window (a row alone against the row in the group); one layer's FFN at
+    d = 2560, f = 7680 with GELU at the serve shapes through kernels A and
+    B. Each against its plain version, timed beside it, the library call
+    (for the window: SDPA with the window as a boolean mask) and the
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import _plan as whole_plan
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=dev).manual_seed(2560)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    cfg = get_config(HYBRID_ARCH[0])
+    hq, hkv, D, W = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.window_size)
+    G = hq // hkv
+    out, checks = {}, []
+    check = checker(checks)
+    S, lengths = DECODE_ROWS["flash_decode"]
+    out["flash_decode_d256"] = decode_row(
+        check, randn, dev, "flash_decode_d256", S, hkv, G, D, lengths,
+        holes=True, full_checks=True, sweep=(32, 64))
+    rb, rp, rg = RING_RUN["B"], RING_RUN["P"], RING_RUN["gen_len"]
+    out["flash_decode_ring_d256"] = decode_row(
+        check, randn, dev, "flash_decode_ring_d256", W, hkv, G, D,
+        [rp, rp + rg - 1][:rb], full_checks=True, sweep=(32, 64, 256),
+        ring=True, plain_reps=5)
+    out["flash_attention_d256"] = whole_prompt_row(check, randn, dev, B, P,
+                                                   hq, hkv, D)
+
+    # the whole prompt of the ring run, within the window
+    q, kp, vp = randn(rb, rp, hq, D), randn(rb, rp, hkv, D), randn(rb, rp,
+                                                                  hkv, D)
+    got = flash_attention(q, kp, vp, window=W)
+    err = check(f"flash_attention D={D} S={rp} window={W}", got,
+                ref.flash_attention_ref(q, kp, vp, window=W), 1e-5)
+    alone = flash_attention(q[1:2].contiguous(), kp[1:2].contiguous(),
+                            vp[1:2].contiguous(), window=W)
+    require(torch.equal(alone[0], got[1]), "flash_attention window: a row "
+            "alone differs from the same row in a group")
+    del alone
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = kp.transpose(1, 2).contiguous(), vp.transpose(1, 2).contiguous()
+    i = torch.arange(rp, device=dev)
+    mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - W)
+    pairs = int(mask.sum())
+    out["flash_attention_window_d256"] = {
+        "max_abs_err": err, "B": rb, "S": rp, "Hq": hq, "Hkv": hkv, "D": D,
+        "window": W, "key_query_pairs": pairs,
+        "plan": whole_plan(rp, hq, hkv, D, build.sm_count(dev))._asdict(),
+        "library": "SDPA, the window as a boolean mask, enable_gqa",
+        **attention_row(lambda: flash_attention(q, kp, vp, window=W),
+                        lambda: ref.flash_attention_ref(q, kp, vp, window=W),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                        (2 * q.numel() + 2 * kp.numel()) * 4,
+                        4 * rb * hq * D * pairs, plain_reps=5)}
+    del q, kp, vp, qt, kt, vt, got, mask
+    rows = serve_ffn_rows(check, g, dev, cfg, B, P)[0]
+    for name, row in rows.items():
+        out[f"{name}_d{cfg.d_model}"] = dict(row, d=cfg.d_model, f=cfg.d_ff,
+                                             act=cfg.ffn_act)
+    for row in out.values():
+        row["config"] = cfg.name
+    torch.cuda.empty_cache()
+    log({"phase": "kernels_hybrid", "checks": checks, "kernels": out})
+    return out
+
+
+@contextlib.contextmanager
+def predictor_zeroed(params):
+    """Every layer's predictor A at the reference's init, zero: every score
+    ties and every active set is 0..k-1, whatever the tokens, so that a
+    decode step and a prefill run one FFN function."""
+    saved = [layer["ffn"]["pred"]["A"] for layer in params["layers"]]
+    for layer, a in zip(params["layers"], saved):
+        layer["ffn"]["pred"]["A"] = a.new_zeros(a.shape)
+    try:
+        yield
+    finally:
+        for layer, a in zip(params["layers"], saved):
+            layer["ffn"]["pred"]["A"] = a
+
+
+def ring_consistency(cfg, params, B: int, P: int, gen_len: int) -> dict:
+    """The ring run's decode against whole prompts: B prompts of P tokens
+    (P past the window, so the buffer is a ring of ``window`` slots that
+    every decode step wraps further), prefilled, then gen_len greedy decode
+    steps; each step's logits against those of one whole-prompt prefill
+    over the prompt and the tokens generated so far, at the same position,
+    within RING_TOL x max(1, max|prefill|). The predictor runs at the
+    reference's zero init here (every active set 0..k-1): with a drawn one
+    a prefill's batch-shared active set sums over every position and a
+    decode step's over one, and the two would differ by design."""
+    import torch
+    from repro_torch.core.engine_model import RealModelRunner
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
+    dev = params["embed"].device
+    runner = RealModelRunner(cfg, params, max_seq=P + gen_len + 1, device=dev)
+    prompts = torch.as_tensor(make_prompts(cfg, B, P, 0), device=dev)
+    errs, scales, toks = [], [], []
+    with predictor_zeroed(params):
+        last, cache, _ = runner._prefill(params, prompts)
+        sbuf = T.kv_slots(cache)
+        for _ in range(gen_len):
+            toks.append(torch.argmax(last, dim=-1))
+            last, cache, _ = runner._decode(params, cache, toks[-1][:, None])
+            want, _, _ = runner._prefill(
+                params, torch.cat([prompts, torch.stack(toks, 1)], 1))
+            errs.append(max_err(last, want))
+            scales.append(max(1.0, float(want.abs().max())))
+            del want
+    worst = max(e / (RING_TOL * s) for e, s in zip(errs, scales))
+    line = {"B": B, "prompt_len": P, "gen_len": gen_len, "ring_slots": sbuf,
+            "window": cfg.window_size,
+            "positions": [P, P + gen_len - 1],
+            "max_abs_err_by_step": errs, "max_abs_err": max(errs),
+            "tol_rel": RING_TOL, "tol_by_step": [RING_TOL * s for s in scales],
+            "worst_err_over_tol": worst,
+            "predictor": "A zero (the reference's init): active sets 0..k-1 "
+                         "in both paths"}
+    require(sbuf == cfg.window_size < P,
+            f"ring consistency: the buffer holds {sbuf} slots, not a ring of "
+            f"the window {cfg.window_size} below the prompt {P}")
+    require(worst <= 1.0, f"ring consistency: a decode step's logits differ "
+            f"from the whole prompt's by {max(errs):.3g}: {errs}")
+    return line
+
+
+def scan_cost(cfg, shapes) -> dict:
+    """Device ms of one RG-LRU recurrence (``models/hybrid.rg_lru``: the
+    gates' exp, softplus and sqrt and the Hillis-Steele scan) at each
+    (B, S) of ``shapes``, on the card, and of the model's RG-LRU layers
+    together: the scan's part of a prefill."""
+    import torch
+    from repro_torch.models import hybrid
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n = sum(kind == "rglru" for kind in cfg.layer_kinds)
+    out = {}
+    for B, S in shapes:
+        x, r, i = (torch.rand(B, S, cfg.lru_width, generator=g,
+                              device="cuda") for _ in range(3))
+        lam = torch.full((cfg.lru_width,), 0.7, device="cuda")
+        prof = device_profile(lambda: hybrid.rg_lru(x, r, i, lam))
+        ms = prof.get("device_ms")
+        out[f"{B}x{S}"] = {"device_ms": ms,
+                           "kernels_per_call": prof.get("kernels_per_call"),
+                           "rglru_layers": n,
+                           "model_device_ms": ms * n if isinstance(
+                               ms, float) else ms}
+        del x, r, i
+    return out
+
+
+def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
+    """recurrentgemma-2b (HYBRID_ARCH): tiny through launch/serve and
+    launch/server on cuda against cpu, every predictor A drawn; then at full
+    width and depth (random weights from a seed, every A drawn) full's serve
+    traffic, the ring run through launch/serve (RING_RUN: prompts past the
+    window) with its consistency against whole prompts, and server_full's
+    server traffic (prefix cache cold, warm, off, and batched decode off:
+    tokens equal), every kernel of each path launched (all attention at
+    head dim 256); the card freed and the bank files removed afterwards.
+    Returns each full path's launch counts, keyed "<arch>/serve",
+    "<arch>/ring" and "<arch>/server"."""
+    import gc
+    import torch
+    arch, layers = HYBRID_ARCH
+    t_arch = time.perf_counter()
+    tiny = phase_tiny(arch, label=f"hybrid_arch {arch} tiny")
+    server_tiny = phase_server_tiny(arch,
+                                    label=f"hybrid_arch {arch} server_tiny")
+    t0 = time.perf_counter()
+    full, cfg, params = full_model(arch, layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    paths = {}
+    rb, rp, rg = RING_RUN["B"], RING_RUN["P"], RING_RUN["gen_len"]
+    tmp = tempfile.mkdtemp(prefix="m2cache_ssd_")
+    try:
+        paths[f"{arch}/serve"], serve = phase_full(
+            full, cfg, params, B, P, gen_len,
+            label=f"hybrid_arch {arch} serve", ssd_dir=tmp)
+        paths[f"{arch}/ring"], ring = phase_full(
+            full, cfg, params, rb, rp, rg, label=f"hybrid_arch {arch} ring",
+            ssd_dir=tmp)
+        t0 = time.perf_counter()
+        consistency = ring_consistency(cfg, params, rb, rp, rg)
+        consistency["seconds"] = time.perf_counter() - t0
+        log({"phase": f"hybrid_arch {arch} ring_consistency", **consistency})
+        scan = scan_cost(cfg, [(B, P), (rb, rp)])
+        paths[f"{arch}/server"], srv = phase_server_full(
+            full, cfg, params, label=f"hybrid_arch {arch} server",
+            ssd_dir=tmp, per_session=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_srv = srv["device_in_steps_warm"]
+
+    def serve_numbers(run, label):
+        return {"prefill_wall_ms": run["prefill_wall_s"] * 1e3,
+                "decode_step_wall_ms_median":
+                    run["decode_wall_s_median"] * 1e3,
+                "prefill_device_ms":
+                    run["profile"]["prefill"].get("device_ms"),
+                "prefill_busy_share":
+                    run["profile"]["prefill"].get("busy_share"),
+                "prefill_top_kernels_ms":
+                    run["profile"]["prefill"].get("top_kernels_ms"),
+                "decode_step_device_ms":
+                    run["profile"]["decode_step"].get("device_ms"),
+                "decode_step_busy_share":
+                    run["profile"]["decode_step"].get("busy_share"),
+                "decode_forward_kernels":
+                    run["decode_forward"]["cuda_kernels"],
+                "peak_mem_gb": run["peak_mem_gb"],
+                "launches": paths[label]}
+    log({"phase": "hybrid_arch", "config": arch,
+         "depth": f"num_layers {full.num_layers} (not cut)",
+         "pattern": list(full.block_pattern), "window": full.window_size,
+         "widths": serve["widths"], "param_gb": serve["param_gb"],
+         "init_s": init_s, "ssd_bank_files_gb": serve["ssd_bank_files_gb"],
+         "tiny_tokens_equal_cuda_cpu": tiny["tokens_equal"],
+         "server_tiny_tokens_equal_cuda_cpu": all(
+             server_tiny[k]["tokens_equal_cuda_cpu"]
+             for k in ("shared_prefix", "burst")),
+         "serve": serve_numbers(serve, f"{arch}/serve"),
+         "rg_lru_scan": scan,
+         "ring": dict(serve_numbers(ring, f"{arch}/ring"),
+                      batch=rb, prompt_len=rp, gen_len=rg,
+                      consistency_max_abs_err=consistency["max_abs_err"],
+                      consistency_worst_err_over_tol=consistency[
+                          "worst_err_over_tol"]),
+         "server": {
+             "tokens_equal_cold_warm_off": srv["tokens_equal_cold_warm_off"],
+             "tokens_equal_batched_vs_per_session":
+                 srv["tokens_equal_batched_vs_per_session"],
+             "decode_step_wall_ms_median":
+                 srv["steps_cold"]["decode_step_wall_ms_median"],
+             "decode_forward_wall_ms_median":
+                 srv["steps_cold"]["decode_forward_wall_ms_median"],
+             "prefill_chunk_wall_ms_median":
+                 srv["steps_cold"]["prefill_chunk_wall_ms_median"],
+             "decode_step_device_ms": dev_srv.get("decode_step", {}).get(
+                 "device_ms_per_step", "not measured"),
+             "decode_step_busy_share": dev_srv.get("decode_step", {}).get(
+                 "busy_share", "not measured"),
+             "prefill_step_device_ms": dev_srv.get("prefill_step", {}).get(
+                 "device_ms_per_step", "not measured"),
+             "decode_forward_kernels": srv["decode_forward"]["cuda_kernels"],
+             "peak_mem_gb": srv["peak_mem_gb"],
+             "launches": paths[f"{arch}/server"]},
+         "seconds": time.perf_counter() - t_arch})
+    return paths
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2645,6 +2973,8 @@ def main():
                       torch.device("cuda"), B, P, gen_len))
     kern.update(timed("kernels_moe", phase_kernels_moe,
                       torch.device("cuda"), B, P, gen_len))
+    kern.update(timed("kernels_hybrid", phase_kernels_hybrid,
+                      torch.device("cuda"), B, P, gen_len))
     timed("tiny", phase_tiny)
     timed("server_tiny", phase_server_tiny)
     full, full_cfg, params = timed("full_model", full_model)
@@ -2660,6 +2990,7 @@ def main():
     torch.cuda.empty_cache()
     paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
     paths.update(timed("moe_archs", phase_moe_archs, B, P, gen_len))
+    paths.update(timed("hybrid_arch", phase_hybrid_arch, B, P, gen_len))
     timed("softcap_library", phase_softcap_library)
     log({"phase": "timing", "seconds": seconds,
          "total_s": time.perf_counter() - t0})
@@ -2671,6 +3002,7 @@ def main():
     c = "src/repro_torch/csrc/"
     qwen32, cmdr, mistral, vl = DENSE_ARCHS
     grok = next(a for a, depth in MOE_ARCHS.items() if depth)
+    hybrid = HYBRID_ARCH[0]
     server_paths = ("server_full", "server_obs_full", "cluster_full")
     dense_serve = tuple(f"{a}/serve" for a in (qwen32, cmdr, vl))
     dense_server = tuple(f"{a}/server" for a in (qwen32, cmdr, vl))
@@ -2765,6 +3097,29 @@ def main():
                                     k + "flash_attention.py:26",
                                     "chunk_attention_softcap",
                                     (f"{grok}/server",)),
+        # head dim 256 (recurrentgemma-2b): the serve step and the server's
+        # decode batch share the first row, the ring run the second
+        "flash_decode_d256": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                              "flash_decode", (f"{hybrid}/serve",
+                                               f"{hybrid}/server")),
+        "flash_decode_ring_d256": (c + "flash_decode.cu",
+                                   k + "flash_decode.py:26", "flash_decode",
+                                   (f"{hybrid}/ring",)),
+        "flash_attention_d256": (c + "flash_attention.cu",
+                                 k + "flash_attention.py:26",
+                                 "flash_attention", (f"{hybrid}/serve",
+                                                     f"{hybrid}/server")),
+        "flash_attention_window_d256": (c + "flash_attention.cu",
+                                        k + "flash_attention.py:26",
+                                        "flash_attention", (f"{hybrid}/ring",)),
+        "qmatmul_gemv_d2560": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                               "qmatmul_gemv", (f"{hybrid}/serve",
+                                                f"{hybrid}/ring",
+                                                f"{hybrid}/server")),
+        "qmatmul_mma_d2560": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                              "qmatmul_mma", (f"{hybrid}/serve",
+                                              f"{hybrid}/ring",
+                                              f"{hybrid}/server")),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),

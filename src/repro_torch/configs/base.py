@@ -151,7 +151,8 @@ class ModelConfig:
 _REGISTRY: dict = {}
 
 #: architectures the port serves so far (the JAX package has more): every
-#: dense-attention config of the reference, and its two MoE configs
+#: dense-attention config of the reference, its two MoE configs and its
+#: hybrid one
 _MODULE_FOR = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen2.5-32b": "qwen2_5_32b",
@@ -160,6 +161,7 @@ _MODULE_FOR = {
     "internvl2-1b": "internvl2_1b",
     "grok-1-314b": "grok_1_314b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

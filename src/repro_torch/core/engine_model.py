@@ -10,7 +10,8 @@ stacked batch has its own position and its own predictor top-k. The port
 runs such rows as one batch through ``forward(..., rows=True)``: per-row
 positions in ``cache["pos"]`` and per-row FFN active sets, so a row's
 tokens do not depend on which rows run beside it. Rows are stacked on the
-cache's own batch axis, (F, B, S, kvH, Dh).
+cache's own batch axis: (F, B, ...) in a pattern entry, (B, ...) in a
+remainder one.
 
 ``DecodeBatch`` is the batched decode path: sessions in the same
 seq-length bucket share one stacked KV cache and one forward per step.
@@ -68,34 +69,38 @@ def flatten_active_idx_batched(cfg, aux_idx) -> List[np.ndarray]:
 # --- row scatter/gather over a cache dict whose rows sit on the batch axis
 
 
-def _kv(cache):
-    return cache["pattern"][0]
+def _map_cache(fn, *caches):
+    """A cache dict (no "pos") of ``fn(batch axis, leaf of each cache)`` for
+    every K/V and recurrent-state leaf: pattern entries stacked (F, B, ...),
+    batch axis 1; remainder entries (B, ...), batch axis 0."""
+    return {part: [{n: fn(axis, *(c[part][i][n] for c in caches))
+                    for n in caches[0][part][i]}
+                   for i in range(len(caches[0][part]))]
+            for part, axis in (("pattern", 1), ("remainder", 0))}
 
 
 def _scatter_row(stack, row, i: int):
     """Write a one-row cache into row ``i`` of a stacked cache, in place."""
-    for n in ("k", "v"):
-        _kv(stack)[n][:, i] = _kv(row)[n][:, 0].to(_kv(stack)[n].dtype)
+    _map_cache(lambda ax, s, r: s.narrow(ax, i, 1).copy_(r), stack, row)
     stack["pos"][i] = int(row["pos"])
     return stack
 
 
 def _gather_row(stack, i: int):
     """A copy of row ``i`` of a stacked cache as a one-row cache."""
-    return {"pattern": [{n: _kv(stack)[n][:, i:i + 1].clone()
-                         for n in ("k", "v")}],
-            "remainder": [], "pos": int(stack["pos"][i])}
+    out = _map_cache(lambda ax, s: s.narrow(ax, i, 1).clone(), stack)
+    out["pos"] = int(stack["pos"][i])
+    return out
 
 
 def _stack_rows(rows):
     """Stack one-row caches into one cache with per-row positions (the
     transient grouping the block-chunked prefill uses per dispatch;
     decode's persistent stacking lives in :class:`DecodeBatch`)."""
-    return {"pattern": [{n: torch.cat([_kv(r)[n] for r in rows], dim=1)
-                         for n in ("k", "v")}],
-            "remainder": [],
-            "pos": torch.tensor([int(r["pos"]) for r in rows],
-                                dtype=torch.int64)}
+    out = _map_cache(lambda ax, *leaves: torch.cat(leaves, dim=ax), *rows)
+    out["pos"] = torch.tensor([int(r["pos"]) for r in rows],
+                              dtype=torch.int64)
+    return out
 
 
 def _sync(device: torch.device):
@@ -255,8 +260,8 @@ class DecodeBatch:
                            device=r.device)
         if self.stack is not None:
             c = self.capacity
-            for n in ("k", "v"):
-                _kv(grown)[n][:, :c] = _kv(self.stack)[n]
+            _map_cache(lambda ax, g, s: g.narrow(ax, 0, c).copy_(s), grown,
+                       self.stack)
             grown["pos"][:c] = self.stack["pos"]
             last[:c] = self.last
         self.stack, self.last = grown, last
@@ -320,24 +325,25 @@ class DecodeBatch:
             return nxt.cpu().numpy(), aux
         sel = torch.tensor(occ, dtype=torch.int64)
         sel_dev = sel.to(self.last.device)
-        sub = {"pattern": [{n: _kv(self.stack)[n].index_select(1, sel_dev)
-                            for n in ("k", "v")}],
-               "remainder": [], "pos": self.stack["pos"][sel]}
+        sub = _map_cache(lambda ax, s: s.index_select(ax, sel_dev),
+                         self.stack)
+        sub["pos"] = self.stack["pos"][sel]
         last, sub, nxt, aux = self.runner._decode_batched(
             params, sub, self.last.index_select(0, sel_dev))
-        for n in ("k", "v"):
-            _kv(self.stack)[n].index_copy_(1, sel_dev, _kv(sub)[n])
+        _map_cache(lambda ax, s, r: s.index_copy_(ax, sel_dev, r),
+                   self.stack, sub)
         self.stack["pos"][sel] = sub["pos"]
         self.last.index_copy_(0, sel_dev, last)
         tokens = np.zeros(self.capacity, np.int64)
         tokens[occ] = nxt.cpu().numpy()
-        full = {"pattern": [], "remainder": []}
-        for a in aux["pattern"]:
+
+        def widen(a):
             z = torch.zeros((self.capacity,) + tuple(a.shape[1:]),
                             dtype=a.dtype, device=a.device)
             z[sel_dev] = a
-            full["pattern"].append(z)
-        return tokens, full
+            return z
+        return tokens, {part: [widen(a) for a in aux[part]]
+                        for part in ("pattern", "remainder")}
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -351,13 +357,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def extract_layer_banks(cfg, params) -> Iterator[dict]:
     """Per-layer quantized neuron banks (numpy) for the SSD tier, in layer
-    order and in the reference's layout (the files equal the reference's
-    byte for byte); transposed on the params' device before the host copy.
-    An MoE layer streams its raw expert weights ``wg``, ``wu``, ``wd`` (an
-    expert is a coarse neuron group) and no shared expert. Yields one layer
-    at a time, so the host holds one layer's banks (5.8 GB at
-    mistral-large-123b's widths, 19.3 GB of grok-1-314b's experts), not the
-    model's."""
+    order (the reference's: repeat-major over the pattern, then the
+    remainder, which is the order of ``params["layers"]``) and in the
+    reference's layout (the files equal the reference's byte for byte);
+    transposed on the params' device before the host copy. An MoE layer
+    streams its raw expert weights ``wg``, ``wu``, ``wd`` (an expert is a
+    coarse neuron group) and no shared expert. Yields one layer at a time,
+    so the host holds one layer's banks (5.8 GB at mistral-large-123b's
+    widths, 19.3 GB of grok-1-314b's experts), not the model's."""
     for layer in params["layers"]:
         ffn = layer["ffn"]
         if "banks" in ffn:

@@ -91,6 +91,11 @@
 //    ~5e-4 relative error times c = 30 would move a score by ~0.015) and
 //    an IEEE division to each kept score: +14 % of device time at grok's
 //    whole prompt, +4 % in the chunk form (PERF.md).
+//  * Head dim 256 (recurrentgemma-2b, whole-prompt form only): the same
+//    code, with Q rows of 264 floats and K/V tiles of 33.5 KB a stage, so a
+//    block takes at most 5 warps (16 x 5 query rows) within the 227 KB of
+//    shared memory (kernels/flash_attention.py::max_warps); a thread's
+//    output accumulator is 128 floats.
 // The plan (heads per block, query sub-tiles, key split) depends on one
 // row's shape (S, Skv, Hq, Hkv, D) and the card's SM count, never on B or
 // pos0, so a row gives the same bits alone and in a group.
@@ -605,6 +610,10 @@ int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
                         : launch_d<64, false>(p, B, warps, st);
     case 128: return cap ? launch_d<128, true>(p, B, warps, st)
                          : launch_d<128, false>(p, B, warps, st);
+    case 256:  // the whole-prompt form only
+      if (p.split || p.pos0) return (int)cudaErrorInvalidValue;
+      return cap ? launch_d<256, true>(p, B, warps, st)
+                 : launch_d<256, false>(p, B, warps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -81,6 +81,11 @@
 //    range) weight exp(m_r - M) once (a warp a head; the denominator in
 //    ascending order through shuffles). A single range normalises and
 //    stores directly.
+//  * Head dim 256 (recurrentgemma-2b) takes the same layout: a warp's
+//    eighth of D is 32 floats, 4 slot groups of 8 slots split a tile in
+//    P V, and a 32-slot K+V tile of rows padded to 260 floats is 66.6 KB,
+//    so the ring holds at most 3 tiles (Smem::kStagesFit) within the 227 KB
+//    of shared memory a block may have, and an SM holds one block.
 //  * Measured and dropped (scripts/decode_variants.py, PERF.md): 4 warps,
 //    each a quarter of D and two heads, with strided slots in P V (one
 //    tile took 2.0 us of math in a block); P V done by each head's own
@@ -99,7 +104,8 @@ constexpr int kWarps = 8;            // a warp per query head of a block
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = kWarps;
 constexpr int kMinStages = 1;        // one stage only for a one-tile range
-constexpr int kMaxStages = 6;
+constexpr int kMaxStages = 6;        // at D <= 128 (Smem::kStagesFit)
+constexpr int kSmemMax = 232448;     // dynamic shared memory of a block
 constexpr int kMaxTiles = 64;        // tiles of one range: 2048 slots
 constexpr int kMaxRanges = 128;      // ranges of one (row, KV head)
 constexpr int kR = 8;                // ranges a combine step keeps in flight
@@ -144,9 +150,17 @@ struct Smem {
   static constexpr int bytes(int stages) {
     return (kRing + (stages * kStageF > kRedF ? stages * kStageF : kRedF)) * 4;
   }
+  // the deepest ring that fits the shared memory (3 tiles at D = 256)
+  static constexpr int kStagesFit =
+      (kSmemMax / 4 - kRing) / kStageF < kMaxStages
+          ? (kSmemMax / 4 - kRing) / kStageF : kMaxStages;
+  // blocks an SM is asked to hold (their registers capped to fit)
+  static constexpr int kMinBlocks = bytes(2) * 2 <= kSmemMax ? 2 : 1;
   static_assert(kRing % 4 == 0, "the ring must be 16-byte aligned");
   static_assert(kRedF >= 2 * kMaxRanges * kMaxG + 2 * kMaxG,
                 "the ring must hold the combine's weights");
+  static_assert(kStagesFit >= 2 && bytes(kStagesFit) <= kSmemMax,
+                "two ring stages must fit the shared memory");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -203,10 +217,16 @@ __device__ __forceinline__ void add4(float4& a, const float4& x) {
   a.w += x.w;
 }
 
-// n consecutive floats of shared memory (n = 1, 2 or 4; aligned to n)
+// n consecutive floats of shared memory (n = 1, 2, 4 or 8; aligned to
+// min(n, 4))
 template <int N>
 __device__ __forceinline__ void load_n(const float* src, float (&dst)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    const float4 y = *reinterpret_cast<const float4*>(src + 4);
+    dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
+    dst[4] = y.x; dst[5] = y.y; dst[6] = y.z; dst[7] = y.w;
+  } else if constexpr (N == 4) {
     const float4 x = *reinterpret_cast<const float4*>(src);
     dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
   } else if constexpr (N == 2) {
@@ -243,7 +263,7 @@ __device__ void mean_of_v(const Params& p, int b, int h, long long bh,
 }
 
 template <int D, int G, bool kCap>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 flash_decode_kernel(const Params p) {
   using L = Smem<D>;
   constexpr int C = D / 4;             // float4 columns of a row
@@ -251,7 +271,9 @@ flash_decode_kernel(const Params p) {
   constexpr int SPG = kTile / NR;      // consecutive slots of a group
   constexpr int KQ = C / kWarps;       // float4s of a warp's slice of D
   constexpr int kCopies = 2 * kTile * C / kThreads;   // cp.async a thread, a tile
-  static_assert(SPG >= 1 && KQ >= 1 && kCopies >= 2, "D must be 32, 64 or 128");
+  static_assert(SPG >= 1 && SPG <= 8 && KQ >= 1 && kCopies >= 2 &&
+                    kTile % NR == 0,
+                "D must be 32, 64, 128 or 256");
   extern __shared__ __align__(16) float smem[];
   __shared__ int last_s;
   float* qs = smem + L::kQ;
@@ -292,9 +314,9 @@ flash_decode_kernel(const Params p) {
     }
   }
   // the G query rows of this KV head, scaled
-  if (tid < G * C) {
-    float4 x = __ldg(reinterpret_cast<const float4*>(p.q + bh * G * D) + tid);
-    reinterpret_cast<float4*>(qs)[tid] =
+  for (int e = tid; e < G * C; e += kThreads) {
+    float4 x = __ldg(reinterpret_cast<const float4*>(p.q + bh * G * D) + e);
+    reinterpret_cast<float4*>(qs)[e] =
         make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
   }
   __syncthreads();
@@ -548,6 +570,7 @@ flash_decode_kernel(const Params p) {
 template <int D, int G, bool kCap>
 int launch(const Params& p, int B, cudaStream_t st) {
   using L = Smem<D>;
+  if (p.stages > L::kStagesFit) return (int)cudaErrorInvalidValue;
   static unsigned long long ready = 0;   // the shared-memory opt-in, once
   int dev = 0;                           // per device
   cudaGetDevice(&dev);
@@ -556,7 +579,7 @@ int launch(const Params& p, int B, cudaStream_t st) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_decode_kernel<D, G, kCap>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::bytes(kMaxStages));
+        L::bytes(L::kStagesFit));
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
@@ -593,9 +616,9 @@ int launch_cap(const Params& p, int B, cudaStream_t st) {
 // q (B, Hkv, G, D), k and v (B, S, Hkv, D) fp32, 16-byte aligned;
 // slot_pos (B, S) and lengths (B,) int32; out (B, Hkv, G, D). Ranges of
 // `range` slots (a multiple of 32, at most 2048; the last one takes the
-// rest of S); a ring of `stages` tiles (1 to 6; 1 only where a range is one
-// tile); a KV head's G query heads in `groups` blocks of G / groups <= 8
-// heads. With more than one range, parts holds parts_floats floats (at
+// rest of S); a ring of `stages` tiles (1 to 6, to 3 at D = 256; 1 only
+// where a range is one tile); a KV head's G query heads in `groups` blocks
+// of G / groups <= 8 heads. With more than one range, parts holds parts_floats floats (at
 // least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least
 // B*Hkv*groups, all 0; they are 0 again when the launch ends); softcap > 0
 // caps the valid scaled scores (0: no cap). Returns a cudaError_t (0 on
@@ -642,6 +665,7 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
     case 32: return launch_cap<32>(p, B, st);
     case 64: return launch_cap<64>(p, B, st);
     case 128: return launch_cap<128>(p, B, st);
+    case 256: return launch_cap<256>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

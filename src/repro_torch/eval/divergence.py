@@ -123,9 +123,9 @@ def _roundtrip_kv(cache, precision: str):
 
 def _fork(cache):
     """A copy of the cache whose tensors share no storage with it."""
-    return {"pattern": [{n: t.clone() for n, t in layer.items()}
-                        for layer in cache["pattern"]],
-            "remainder": list(cache["remainder"]), "pos": cache["pos"]}
+    return {part: [{n: t.clone() for n, t in entry.items()}
+                   for entry in cache[part]]
+            for part in ("pattern", "remainder")} | {"pos": cache["pos"]}
 
 
 @torch.no_grad()

@@ -17,7 +17,8 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import Plan, check_inputs
+from repro_torch.kernels.flash_attention import (CHUNK_HEAD_DIMS, Plan,
+                                                 check_inputs)
 from repro_torch.kernels.flash_attention import _plan as _tiles
 
 #: launches of the kernel since the count was last set to 0 (a split's
@@ -106,7 +107,9 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(pos0.dtype == torch.int32 and tuple(pos0.shape) == (B,)
              and pos0.is_contiguous(),
              f"pos0 must be a contiguous int32 ({B},) vector")
-    check_inputs(q, k, v, _require)
+    # head dim 256 (recurrentgemma-2b) never runs a chunk: its windowed,
+    # recurrent layers prefill whole prompts
+    check_inputs(q, k, v, _require, CHUNK_HEAD_DIMS)
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     _require(pos0.device == q.device, f"pos0 must be on {q.device}")

@@ -26,6 +26,11 @@ launches_softcap = 0
 MAX_WARPS = 8
 #: keys per K/V tile of the kernel (a key split is a multiple of it)
 BKV = 32
+#: head dims of the whole-prompt form, and of the chunk form
+HEAD_DIMS = (32, 64, 128, 256)
+CHUNK_HEAD_DIMS = (32, 64, 128)
+#: dynamic shared memory a block may use (the kernel's kMaxSmem)
+SMEM_BYTES = 232448 - 1024
 
 _fn = None
 
@@ -37,21 +42,32 @@ class Plan(NamedTuple):
     pair: bool = False    # a block takes two query tiles (long and short)
 
 
+def max_warps(D: int) -> int:
+    """Warps a block may take at head dim D: ``MAX_WARPS``, or as many as
+    the shared memory holds (a warp's 16 Q rows of D + 8 floats beside two
+    stages of a 32-key K tile of D + 8 and V tile of D + 4): 5 at D =
+    256."""
+    ring = 2 * BKV * ((D + 8) + (D + 4))
+    return min(MAX_WARPS, (SMEM_BYTES // 4 - ring) // (16 * (D + 8)))
+
+
 def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
     """The whole-prompt form's block from one row's shape and the card's SM
     count, never from B: the G = Hq / Hkv query heads of a KV head in as
-    few blocks of at most ``MAX_WARPS`` warps as hold them, spread evenly,
-    and as many 16-row sub-tiles of each head as fill ``MAX_WARPS`` warps
+    few blocks of at most :func:`max_warps` warps as hold them, spread
+    evenly, and as many 16-row sub-tiles of each head as fill those warps
     without passing S; the key axis is never split. When one row's blocks
     fit one wave (a short prompt), a block takes two query tiles, the k-th
     longest and the k-th shortest: a batch of such rows then fits a wave
     too, with even causal work per block (measured faster at S = 128,
-    B = 4, and slower at S = 2048, where a row fills the card 8 times)."""
-    del D                                 # every head dim takes one plan
+    B = 4, and slower at S = 2048, where a row fills the card 8 times).
+    D changes the plan only through :func:`max_warps` (G = 10 takes two
+    blocks of 5 heads at every D)."""
+    warps = max_warps(D)
     G = Hq // Hkv
-    groups = math.ceil(G / MAX_WARPS)
+    groups = math.ceil(G / warps)
     hb = math.ceil(G / groups)
-    qsub = max(1, min(MAX_WARPS // hb, math.ceil(S / 16)))
+    qsub = max(1, min(warps // hb, math.ceil(S / 16)))
     q_tiles = math.ceil(S / (16 * qsub))
     return Plan(hb, qsub, 0, q_tiles > 1 and q_tiles * Hkv * groups <= sms)
 
@@ -73,10 +89,11 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"flash_attention: {msg}")
 
 
-def check_inputs(q, k, v, require):
+def check_inputs(q, k, v, require, head_dims=HEAD_DIMS):
     """Shape, dtype and layout checks shared by both forms (before the
-    device check, so that they hold on any device); then CUDA and 16-byte
-    alignment (the kernel copies 16 bytes at a time)."""
+    device check, so that they hold on any device), the head dim one of
+    ``head_dims``; then CUDA and 16-byte alignment (the kernel copies 16
+    bytes at a time)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         require(t.dtype == torch.float32 and t.dim() == 4
                 and t.is_contiguous(), f"{name} must be contiguous 4-D float32")
@@ -85,7 +102,7 @@ def check_inputs(q, k, v, require):
     require(tuple(k.shape) == (B, Skv, Hkv, D) and v.shape == k.shape,
             f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
     require(Hkv >= 1 and Hq % Hkv == 0, f"Hq={Hq} not a multiple of Hkv={Hkv}")
-    require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
+    require(D in head_dims, f"head dim {D} not in {head_dims}")
     require(q.shape[1] <= Skv, f"{q.shape[1]} queries over a buffer of {Skv}")
     require(q.is_cuda, "q must be a CUDA tensor")
     for name, t in (("k", k), ("v", v)):

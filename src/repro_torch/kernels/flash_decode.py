@@ -33,7 +33,8 @@ MAX_G = 2 * MAX_HEADS
 #: (measured: at 4 K and 32 K slots a block per SM streaming long ranges
 #: beats two with half as many tiles, and both beat a wave and a bit)
 BLOCKS_PER_SM = 1
-#: cp.async ring depth, in tiles (1 to 6; no deeper than the longest range)
+#: cp.async ring depth, in tiles (1 to 6; no deeper than the longest range,
+#: nor than the shared memory holds at the head dim: :func:`max_stages`)
 STAGES = 3
 #: slots per range when > 0 (a multiple of TILE), whatever the rule says
 RANGE_SLOTS = 0
@@ -42,6 +43,10 @@ HEADS_PER_BLOCK = 0
 #: a range's tiles and a row's ranges, at most (the kernel's limits)
 MAX_RANGE_TILES = 64
 MAX_RANGES = 128
+#: head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128, 256)
+#: dynamic shared memory a block may have on the card, in bytes
+SMEM_BYTES = 232448
 
 _fn = None
 #: per device: the ranges' partials and counters (the counters all 0
@@ -70,6 +75,17 @@ def head_groups(G: int) -> int:
     return groups
 
 
+def max_stages(D: int) -> int:
+    """The deepest ring a block's shared memory holds at head dim D (the
+    kernel's ``Smem<D>::kStagesFit``): its fixed part (G query rows, the
+    partial scores, p, the softmax state and the tile masks) and two
+    32-slot tiles of rows padded to D + 4 floats a stage; 6 at most, 3 at
+    D = 256."""
+    fixed = MAX_HEADS * D + MAX_HEADS * MAX_HEADS * TILE + MAX_HEADS * TILE \
+        + 3 * MAX_HEADS + MAX_RANGE_TILES
+    return min(6, (SMEM_BYTES // 4 - fixed) // (2 * TILE * (D + 4)))
+
+
 def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
     """A block's range, ring and head groups from one row's shape and the
     card's SM count, never from B, the lengths or the slot positions: G's
@@ -77,9 +93,9 @@ def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
     tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one row (every KV
     head and head group) on every SM and no more, within the kernel's
     limits (``RANGE_SLOTS`` > 0 sets the range instead); a ring of
-    ``STAGES`` tiles, or of a range's tiles where that is shorter (and of 2
-    at least for more than one tile). D does not change the plan, nor does
-    G up to MAX_HEADS."""
+    ``STAGES`` tiles, or of a range's tiles or :func:`max_stages` of D where
+    that is shorter (and of 2 at least for more than one tile). D changes
+    the plan only by that cap, and G up to MAX_HEADS not at all."""
     groups = head_groups(G)
     tiles = math.ceil(S / TILE)
     if RANGE_SLOTS:
@@ -88,7 +104,8 @@ def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
         per = math.ceil(tiles / max(1, BLOCKS_PER_SM * sms // (Hkv * groups)))
     per = min(max(per, math.ceil(tiles / MAX_RANGES)), tiles, MAX_RANGE_TILES)
     # a ring of one stage holds a one-tile range only
-    return Plan(per * TILE, max(min(STAGES, per), min(2, per)), groups)
+    return Plan(per * TILE, max(min(STAGES, per, max_stages(D)), min(2, per)),
+                groups)
 
 
 def ranges(S: int, range_slots: int) -> int:
@@ -125,7 +142,7 @@ def check_inputs(q, k, v, slot_positions, lengths):
     S = k.shape[1]
     _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
              f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    _require(D in (32, 64, 128), f"head dim {D} not in (32, 64, 128)")
+    _require(D in HEAD_DIMS, f"head dim {D} not in {HEAD_DIMS}")
     head_groups(G)
     _require(slot_positions.dtype == torch.int32
              and tuple(slot_positions.shape) == (B, S)

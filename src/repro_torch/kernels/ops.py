@@ -124,7 +124,8 @@ def decode_attention(q, k, v, slots, lengths, *, softcap: float = 0.0):
     position. q: (B, 1, Hq, D) at positions ``lengths`` (B,) int32; k, v:
     (B, S, Hkv, D); slots: (B, S) int32, each slot's position, -1 where it
     takes no part (``models/transformer.decode_slots``, built once per
-    forward). ``softcap`` > 0: the logit softcap on the scaled scores,
+    forward; a sliding window's ring holds only positions inside it, so
+    the window needs no mask of its own). ``softcap`` > 0: the logit softcap on the scaled scores,
     before the mask (here and in the two prefill forms). Returns
     (B, 1, Hq, D)."""
     if _on_cpu(q):
@@ -136,14 +137,17 @@ def decode_attention(q, k, v, slots, lengths, *, softcap: float = 0.0):
     return out.reshape(B, 1, Hq, D)
 
 
-def prefill_attention(q, k, v, positions, *, softcap: float = 0.0):
-    """Causal self-attention over a prompt that starts at position 0.
+def prefill_attention(q, k, v, positions, *, window: int = 0,
+                      softcap: float = 0.0):
+    """Causal self-attention over a prompt that starts at position 0,
+    within a sliding ``window`` where one is given (a key sees the query
+    when it lies fewer than ``window`` positions before it).
     q: (B, S, Hq, D); k, v: (B, S, Hkv, D); positions: (B, S)."""
     if _on_cpu(q):
-        return chunked_attention(q, k, v, positions, positions,
+        return chunked_attention(q, k, v, positions, positions, window=window,
                                  softcap=softcap)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           softcap=softcap)
+                           window=window, softcap=softcap)
 
 
 def chunk_attention(q, k, v, positions, *, softcap: float = 0.0):

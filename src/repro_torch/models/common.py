@@ -131,6 +131,32 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# Causal depthwise conv (the RG-LRU input branch)
+
+
+def causal_conv1d(x, w, b=None, state=None):
+    """x: (B, S, C); w: (W, C) depthwise; state: (B, W-1, C) past inputs.
+
+    Returns (y, new_state) where new_state holds the last W-1 inputs. The
+    taps are summed in a fixed order, one elementwise product each (not
+    ``F.conv1d``, whose algorithm, and so its summation order, would
+    follow the whole batch's shape), so a row's bits do not depend on the
+    rows beside it."""
+    B, S, C = x.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=x.dtype, device=x.device)
+    xin = torch.cat([state.to(x.dtype), x], dim=1)      # (B, S+W-1, C)
+    y = xin[:, 0:S] * w[0]
+    for j in range(1, W):
+        y = y + xin[:, j:j + S] * w[j]
+    if b is not None:
+        y = y + b
+    new_state = xin[:, S:] if W > 1 else state
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
 # GLU feed-forward (the paper's neuron substrate)
 
 

@@ -1,25 +1,33 @@
 """Model assembly, attention families (``dense``, ``vlm``'s decoder and
-``moe``) with the M2Cache FFN or the MoE FFN (``repro/models/
-transformer.py``'s serving path).
+``moe``) and the ``hybrid`` family (RecurrentGemma's RG-LRU blocks beside
+sliding-window attention) with the M2Cache FFN or the MoE FFN
+(``repro/models/transformer.py``'s serving path).
 
 Parameters are plain dictionaries of tensors with the reference's leaf
 names; where the reference stacks the layers of one pattern position on a
 leading axis for ``lax.scan``, the port keeps one dictionary per layer in
-``params["layers"]`` and runs them in a Python loop. The KV cache keeps the
-reference's layout, ``{"pattern": [{"k", "v": (F, B, S, kvH, Dh)}],
-"remainder": [], "pos"}``, and is updated in place. ``pos`` is an int when
-every row stands at one position (a fresh cache, launch/serve's batch) and
-a CPU int64 tensor (B,) when the rows are separate requests at their own
-positions (the server's stacked rows, where the reference vmaps a one-row
-graph over a per-row ``pos``).
+``params["layers"]``, in layer order (layer l = repeat * len(pattern) +
+position, then the remainder), and runs them in a Python loop. The cache
+keeps the reference's layout, ``{"pattern": [one entry per pattern
+position, its leaves stacked over the F repeats], "remainder": [one entry
+per remainder layer], "pos"}``, an attention entry ``{"k", "v": (F, B,
+sbuf, kvH, Dh)}`` (``sbuf = min(window, max_seq)`` with a sliding window:
+a ring), an RG-LRU entry ``{"h": (F, B, W), "conv": (F, B, cw-1, W)}``
+(remainder entries without the F axis), and is updated in place. ``pos``
+is an int when every row stands at one position (a fresh cache,
+launch/serve's batch) and a CPU int64 tensor (B,) when the rows are
+separate requests at their own positions (the server's stacked rows, where
+the reference vmaps a one-row graph over a per-row ``pos``).
 
 Ported so far: attention layers, serial or parallel (command-r's
 attention and FFN side by side on one norm), with the attention logit
-softcap (grok-1); the vlm family's prepended ``prefix`` embeddings; the
+softcap (grok-1) and a sliding window; RG-LRU layers (``models/
+hybrid.py``); the vlm family's prepended ``prefix`` embeddings; the
 M2Cache FFN, and for MoE layers the capacity-dispatched experts
 (``models/moe.py``: no banks, no active neurons, the reference's
-``_ffn_apply``); ``mode`` "prefill", "prefill_resume" and "decode",
-``m2=True``. Other families, windows and the int8 KV cache raise
+``_ffn_apply``); ``mode`` "prefill", "prefill_resume" (attention-only
+models without a window, as the reference) and "decode", ``m2=True``.
+Other families, layer kinds and the int8 KV cache raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -33,7 +41,7 @@ from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
-from repro_torch.models import moe
+from repro_torch.models import hybrid, moe
 from repro_torch.models.common import apply_norm, each_row, rope
 
 # ---------------------------------------------------------------------------
@@ -54,10 +62,12 @@ def pattern_split(cfg) -> Tuple[tuple, int, int]:
 
 def check_supported(cfg, *, m2: bool = True):
     """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if cfg.window_size:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+    other = set(pattern_of(cfg)) - {"attn", "rglru"}
+    if other:
+        raise NotImplementedError(f"layer kinds {sorted(other)} are not "
+                                  "ported yet")
     if not (m2 and cfg.m2_enabled):
         raise NotImplementedError("only the M2Cache FFN (m2=True) is ported")
 
@@ -113,10 +123,27 @@ def _ffn_specs(cfg, dtype) -> Dict:
     }
 
 
-def _layer_specs(cfg, dtype) -> Dict:
-    """One attention layer (transformer.py:110-124): a parallel block has
-    no ``norm2``."""
+def _layer_specs(cfg, kind: str, dtype) -> Dict:
+    """One layer of ``kind`` (transformer.py:110-141): an attention layer
+    (a parallel block has no ``norm2``) or an RG-LRU one."""
     d = cfg.d_model
+    if kind == "rglru":
+        w, f32 = cfg.lru_width, torch.float32
+        return {
+            "norm1": ((d,), f32, "vector"),
+            "w_y": ((d, w), dtype, "col"),
+            "w_x": ((d, w), dtype, "col"),
+            "conv_w": ((cfg.ssm_conv_width, w), f32, "vector"),
+            "conv_b": ((w,), f32, "vector"),
+            "w_a": ((w, w), dtype, "col"),
+            "b_a": ((w,), f32, "vector"),
+            "w_i": ((w, w), dtype, "col"),
+            "b_i": ((w,), f32, "vector"),
+            "lam": ((w,), f32, "vector"),
+            "w_out": ((w, d), dtype, "row"),
+            "norm2": ((d,), f32, "vector"),
+            "ffn": _ffn_specs(cfg, dtype),
+        }
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out = {
         "norm1": ((d,), torch.float32, "vector"),
@@ -136,7 +163,7 @@ def model_param_specs(cfg, *, dtype=torch.float32) -> Dict:
     d, V = cfg.d_model, cfg.vocab_size
     specs = {
         "final_norm": ((d,), torch.float32, "vector"),
-        "layers": [_layer_specs(cfg, dtype) for _ in range(cfg.num_layers)],
+        "layers": [_layer_specs(cfg, kind, dtype) for kind in cfg.layer_kinds],
         "embed": ((V, d), dtype, "vocab"),
     }
     if not cfg.tie_embeddings:
@@ -175,10 +202,12 @@ def _materialise(tree, gen, device):
 def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
                 generator: torch.Generator = None):
     """Materialise parameters from a ``torch.Generator`` (seeded with ``seed``
-    on ``device`` unless one is given), then build every layer's quantized
-    banks from its fp weights (transformer.py:298-321), gate and up stored
-    neuron-major (``core.quantize.to_neuron_major``); MoE layers have no
-    banks. The numbers differ from ``jax.random``'s; parity tests carry the
+    on ``device`` unless one is given), set the RG-LRU layers' special
+    leaves (transformer.py:280-286: ``lam`` 0.7, ``conv_w`` 1 / width),
+    then build every layer's quantized banks from its fp weights
+    (transformer.py:298-321), gate and up stored neuron-major
+    (``core.quantize.to_neuron_major``); MoE layers have no banks. The
+    numbers differ from ``jax.random``'s; parity tests carry the
     reference's params over with ``repro_torch.bridge`` instead."""
     device = resolve_device(device)
     gen = generator
@@ -186,7 +215,10 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
     params = _materialise(model_param_specs(cfg, dtype=dtype), gen, device)
-    for layer in params["layers"]:
+    for kind, layer in zip(cfg.layer_kinds, params["layers"]):
+        if kind == "rglru":
+            layer["lam"].fill_(0.7)
+            layer["conv_w"].fill_(1.0 / layer["conv_w"].shape[-2])
         if "banks" not in layer["ffn"]:
             continue
         b = layer["ffn"]["banks"]
@@ -199,14 +231,30 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
 # Caches
 
 
+def _entry(cfg, kind: str, lead: tuple, batch: int, max_seq: int, dtype,
+           device) -> Dict:
+    """One pattern position's (``lead`` = (F,)) or remainder layer's (())
+    cache entry (transformer.py:339-356)."""
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
+    if kind == "attn":
+        w = cfg.window_size
+        sbuf = min(w, max_seq) if w else max_seq
+        kv = (batch, sbuf, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": zeros(*kv), "v": zeros(*kv)}
+    w = cfg.lru_width
+    return {"h": zeros(batch, w),
+            "conv": zeros(batch, cfg.ssm_conv_width - 1, w)}
+
+
 def _cache(cfg, batch: int, max_seq: int, dtype, device):
     check_supported(cfg)
     pat, F, rem = pattern_split(cfg)
-    shape = (F, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {
-        "pattern": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}],
-        "remainder": [],
+        "pattern": [_entry(cfg, k, (F,), batch, max_seq, dtype, device)
+                    for k in pat],
+        "remainder": [_entry(cfg, k, (), batch, max_seq, dtype, device)
+                      for k in pat[:rem]],
         "pos": 0,
     }
 
@@ -214,8 +262,10 @@ def _cache(cfg, batch: int, max_seq: int, dtype, device):
 def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.float32,
                device=None):
     """Zero decode cache in the reference's layout (transformer.py:330-380):
-    K and V of all layers of the one pattern position stacked as
-    (F, B, S, kvH, Dh)."""
+    one entry per pattern position, its leaves stacked over the F repeats,
+    then one per remainder layer; an attention layer's K/V buffer holds
+    ``min(window, max_seq)`` slots with a sliding window (a ring),
+    ``max_seq`` without (the reference's int8 K/V is not ported)."""
     return _cache(cfg, batch, max_seq, dtype, resolve_device(device))
 
 
@@ -223,6 +273,25 @@ def cache_specs(cfg, batch: int, max_seq: int, *, dtype=torch.float32):
     """The cache's leaves as shape-and-dtype tensors on the ``meta`` device
     (``T.cache_specs``' counterpart: nothing is allocated)."""
     return _cache(cfg, batch, max_seq, dtype, torch.device("meta"))
+
+
+def layer_cache(cfg, cache, l: int) -> Dict:
+    """Layer ``l``'s cache entry as views of the cache's leaves (writes go
+    into the cache): pattern position l % len(pattern), repeat l //
+    len(pattern), or a remainder entry."""
+    pat, F, rem = pattern_split(cfg)
+    n = len(pat)
+    if l < F * n:
+        return {k: t[l // n] for k, t in cache["pattern"][l % n].items()}
+    return cache["remainder"][l - F * n]
+
+
+def kv_slots(cache):
+    """Slots of the attention layers' K/V buffer (None without attention)."""
+    for entry in cache["pattern"] + cache["remainder"]:
+        if "k" in entry:
+            return entry["k"].shape[-3]
+    return None
 
 
 def row_positions(cache, batch: int) -> torch.Tensor:
@@ -237,12 +306,25 @@ def row_positions(cache, batch: int) -> torch.Tensor:
 # Layer forward
 
 
-def decode_slots(pos0, sbuf: int):
+def _ring_slot_positions(pos, sbuf: int):
+    """Absolute position held by each ring slot after writing token ``pos``
+    (B,): (B, sbuf); negative where the slot was never written."""
+    s = torch.arange(sbuf, device=pos.device)[None]
+    return pos[:, None] - torch.remainder(pos[:, None] - s, sbuf)
+
+
+def decode_slots(pos0, sbuf: int, ring: bool = False):
     """The decode step's attention mask, built once per forward and shared
-    by every layer: (slot positions (B, sbuf) int32, each slot's index where
-    it lies at or before its row's position and -1 above it; lengths (B,)
-    int32, the rows' positions)."""
+    by every layer: (slot positions (B, sbuf) int32, -1 where a slot takes
+    no part; lengths (B,) int32, the rows' positions). Without ``ring``
+    slot i holds position i and takes part at or below the row's position;
+    in a ``ring`` (a sliding window's buffer) it holds
+    :func:`_ring_slot_positions` and takes part once written (every
+    position a ring holds lies inside the window)."""
     lengths = pos0.to(torch.int32)
+    if ring:
+        held = _ring_slot_positions(pos0.to(torch.int64), sbuf)
+        return torch.where(held >= 0, held, -1).to(torch.int32), lengths
     slots = torch.arange(sbuf, dtype=torch.int32, device=pos0.device)[None]
     return torch.where(slots <= lengths[:, None], slots, -1), lengths
 
@@ -257,7 +339,10 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     active sets, and the products and norms run one row at a time.
     ``slots``: :func:`decode_slots` of pos0 (decode only). A parallel block
     (transformer.py:625-627) feeds the FFN the normed ``h`` that fed QKV
-    and adds both outputs to x. The attention takes ``cfg.logit_softcap``.
+    and adds both outputs to x. The attention takes ``cfg.logit_softcap``
+    and ``cfg.window_size``: with a window the cache is a ring, a prompt
+    writes its last ``sbuf`` tokens to their slots and a decode step slot
+    ``pos mod sbuf`` (transformer.py:502, 603-609).
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
     load-balance loss: 0.0 for an M2Cache FFN, a (B,) tensor with
     ``rows``)."""
@@ -284,19 +369,28 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    cap = cfg.logit_softcap
+    cap, window = cfg.logit_softcap, cfg.window_size
+    sbuf = kv["k"].shape[1]
     if mode == "prefill":                   # from position 0
-        attn_out = ops.prefill_attention(q, k, v, positions, softcap=cap)
-        kv["k"][:, :S] = k.to(kv["k"].dtype)
-        kv["v"][:, :S] = v.to(kv["v"].dtype)
+        attn_out = ops.prefill_attention(q, k, v, positions, window=window,
+                                         softcap=cap)
+        if window and S >= sbuf:            # the ring keeps the last sbuf
+            ring = torch.remainder(torch.arange(S - sbuf, S,
+                                                device=x.device), sbuf)
+            kv["k"][:, ring] = k[:, S - sbuf:].to(kv["k"].dtype)
+            kv["v"][:, ring] = v[:, S - sbuf:].to(kv["v"].dtype)
+        else:
+            kv["k"][:, :S] = k.to(kv["k"].dtype)
+            kv["v"][:, :S] = v.to(kv["v"].dtype)
     else:
         # decode or prefill_resume: the reference writes by a one-hot select
         # or a dynamic_update_slice into a new buffer; the port overwrites
         # the rows' slots of the cache in place
         ck, cv = kv["k"], kv["v"]
         b_idx = torch.arange(B, device=x.device)[:, None]
-        ck[b_idx, positions] = k.to(ck.dtype)
-        cv[b_idx, positions] = v.to(cv.dtype)
+        at = torch.remainder(positions, sbuf) if window else positions
+        ck[b_idx, at] = k.to(ck.dtype)
+        cv[b_idx, at] = v.to(cv.dtype)
         if mode == "decode":
             attn_out = ops.decode_attention(q, ck, cv, *slots, softcap=cap)
         else:
@@ -341,12 +435,33 @@ def _moe_apply(cfg, p_ffn, x):
     return y, aux["lb_loss"].reshape(1)
 
 
+def rglru_layer(cfg, p, x, state, *, rows: bool = False):
+    """An RG-LRU layer (transformer.py:636-643): x: (B, S, d); state: this
+    layer's {'h', 'conv'} cache views, updated in place (None: no cache).
+    ``rows`` as in :func:`attn_layer`. Returns (y, active ids, 0.0)."""
+    def dense(fn, t):
+        return each_row(fn, t) if rows else fn(t)
+    h = dense(lambda t: apply_norm(cfg, t, p["norm1"]), x)
+    mix, new_state = hybrid.rglru_block(cfg, p, h, state, rows=rows)
+    if state is not None:
+        state["h"].copy_(new_state["h"])
+        state["conv"].copy_(new_state["conv"])
+    x = x + mix
+    h2 = dense(lambda t: apply_norm(cfg, t, p["norm2"]), x)
+    y, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], h2,
+                              rows=rows)
+    return x + y, info["active_idx"], 0.0
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 
 
 def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+    x = params["embed"][tokens.long()]
+    if cfg.family == "hybrid":                  # gemma-style scale
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def unembed(cfg, params, x):
@@ -367,41 +482,57 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     embeddings (vlm patches), prepended outside decode: they fill the
     cache's first N slots of the run and get no logits (transformer.py:
     711-714, 775-776). mode: prefill | prefill_resume | decode;
-    decode and prefill_resume start each row at its ``cache["pos"]``.
+    decode and prefill_resume start each row at its ``cache["pos"]``
+    (prefill_resume raises on a sliding window or a recurrent layer, as
+    the reference asserts, transformer.py:559-561). Layers run in layer
+    order, each by its kind (transformer.py:715-790). A sliding window's
+    ring lets a prompt or a decode step run past its ``sbuf`` slots.
     ``rows``: every batch row is its own request, with its own FFN active
     sets, and gives the bits it gives alone — what the reference computes
     by vmapping a one-row forward; an MoE layer's capacity is then counted
     over the row alone, as the reference's is.
-    aux["active_idx"] is ``{"pattern": [(F, k) tensor], "remainder": []}``,
-    the reference's structure; with ``rows`` the entry is (B, F, k), the
+    aux["active_idx"] is ``{"pattern": [(F, k) tensor per pattern
+    position], "remainder": [(k,) tensor per remainder layer]}``, the
+    reference's structure; with ``rows`` (B, F, k) and (B, k), the
     reference's vmapped layout. MoE layers have no active neurons: their
     entries are (F, 0), (B, F, 0) with ``rows``. aux["lb_loss"] sums the MoE
     layers' load-balance losses (0.0 without MoE; (B,) with ``rows``)."""
     check_supported(cfg, m2=m2)
     if mode not in ("prefill", "prefill_resume", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    pat, F, rem = pattern_split(cfg)
+    if mode == "prefill_resume" and (cfg.window_size or "rglru" in pat):
+        raise NotImplementedError(
+            "prefill_resume does not support sliding-window attention or "
+            "recurrent layers")
     x = embed_tokens(cfg, params, tokens)
     n_prefix = 0
     if prefix is not None and mode != "decode":
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
         n_prefix = prefix.shape[1]
     B, S = x.shape[:2]
-    sbuf = cache["pattern"][0]["k"].shape[2]
+    sbuf = kv_slots(cache)
     pos = row_positions(cache, B)
     if mode == "prefill":
         pos = torch.zeros_like(pos)
-    if int(pos.min()) < 0 or int(pos.max()) + S > sbuf:
+    if int(pos.min()) < 0 or (sbuf is not None and not cfg.window_size
+                              and int(pos.max()) + S > sbuf):
         raise ValueError(f"{mode} of {S} token(s) at positions "
                          f"{pos.tolist()} outside the cache buffer of "
                          f"{sbuf} slots")
     pos0 = pos.to(x.device)
-    slots = decode_slots(pos0, sbuf) if mode == "decode" else None
+    slots = None
+    if mode == "decode" and sbuf is not None:
+        slots = decode_slots(pos0, sbuf, bool(cfg.window_size))
 
     idxs, lb_acc = [], 0.0
-    for l, p in enumerate(params["layers"]):
-        kv = {n: cache["pattern"][0][n][l] for n in ("k", "v")}
-        x, idx, lb = attn_layer(cfg, p, x, kv, pos0, mode=mode, rows=rows,
-                                slots=slots)
+    for l, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+        c = layer_cache(cfg, cache, l)
+        if kind == "attn":
+            x, idx, lb = attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
+                                    slots=slots)
+        else:
+            x, idx, lb = rglru_layer(cfg, p, x, c, rows=rows)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 
@@ -411,7 +542,15 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     logits = each_row(head, x) if rows else head(x)
     advance = 1 if mode == "decode" else S
     cache["pos"] = cache["pos"] + advance
+    n = len(pat)
+
+    def stacked(i):
+        """Pattern position i's active ids over the F repeats."""
+        if F == 0:
+            return torch.zeros((B, 0, 0) if rows else (0, 0),
+                               dtype=torch.int32, device=x.device)
+        return torch.stack(idxs[i:F * n:n], dim=1 if rows else 0)
     aux = {"lb_loss": lb_acc,
-           "active_idx": {"pattern": [torch.stack(idxs, dim=1 if rows else 0)],
-                          "remainder": []}}
+           "active_idx": {"pattern": [stacked(i) for i in range(n)],
+                          "remainder": idxs[F * n:]}}
     return logits, cache, aux

@@ -39,17 +39,31 @@ def tiny_model(arch: str = "qwen2.5-14b", *, zero_router: bool = False):
     ``zero_router``: keep an MoE config's router at the reference's zero
     init, where every token ties and takes experts 0..k-1."""
     jcfg = jax_config(arch, tiny=True)
+    return model_from(jcfg, get_config(arch, tiny=True),
+                      zero_router=zero_router)
+
+
+def model_from(jcfg, cfg, *, zero_router: bool = False):
+    """:func:`tiny_model` for any pair of equal configs (the reference's
+    ``jcfg``, the port's ``cfg``): the reference's init, then every pattern
+    position's and remainder layer's predictor ``A`` drawn (pattern 0 from
+    rng 21, as it always was; position i from 21 + i, remainder j from
+    31 + j), or an MoE layer's router."""
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
                         m2=True)
-    ffn = jp["layers"]["pattern"][0]["ffn"]
-    if "pred" in ffn:                                   # a trained predictor
-        ffn["pred"]["A"] = jnp.asarray(np.random.default_rng(21)
-                                       .standard_normal(ffn["pred"]["A"].shape)
-                                       .astype(np.float32) / 4.0)
-    elif not zero_router:                               # a trained router
-        ffn["router"] = jnp.asarray(np.random.default_rng(22).standard_normal(
-            ffn["router"].shape).astype(np.float32))
-    cfg = get_config(arch, tiny=True)
+    layers = jp["layers"]
+    for seed, layer in ([(21 + i, p) for i, p in enumerate(layers["pattern"])]
+                        + [(31 + j, p) for j, p in
+                           enumerate(layers["remainder"])]):
+        ffn = layer["ffn"]
+        if "pred" in ffn:                               # a trained predictor
+            ffn["pred"]["A"] = jnp.asarray(
+                np.random.default_rng(seed).standard_normal(
+                    ffn["pred"]["A"].shape).astype(np.float32) / 4.0)
+        elif not zero_router:                           # a trained router
+            ffn["router"] = jnp.asarray(
+                np.random.default_rng(seed + 1).standard_normal(
+                    ffn["router"].shape).astype(np.float32))
     return jcfg, jp, cfg, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
                                           "cpu")
 

@@ -130,16 +130,17 @@ def _whole(**kw):
 @pytest.mark.parametrize("form", ["whole", "chunk"])
 @pytest.mark.parametrize("case,match", [
     ("cpu", "CUDA"),
-    ("head_dim", r"head dim 48 not in \(32, 64, 128\)"),
+    ("head_dim", r"head dim 48 not in \(32, 64, 128(, 256)?\)"),
     ("heads", "not a multiple"),
     ("kv_shape", "do not match"),
     ("non_contiguous", "contiguous"),
     ("dtype", "float32"),
 ])
 def test_wrappers_raise_and_never_fall_back(form, case, match):
-    """On CPU tensors, wrong shapes, head dims outside (32, 64, 128), a
-    non-contiguous or non-fp32 input the wrappers raise: no plain-version
-    fallback (that lives in kernels/ops.py, for CPU tensors only)."""
+    """On CPU tensors, wrong shapes, head dims outside (32, 64, 128) (and
+    256 for the whole prompt), a non-contiguous or non-fp32 input the
+    wrappers raise: no plain-version fallback (that lives in
+    kernels/ops.py, for CPU tensors only)."""
     fn = _whole if form == "whole" else _chunk
     skv = 16 if form == "whole" else 40
     kw = {"cpu": {},
@@ -164,3 +165,24 @@ def test_chunk_wrapper_checks_pos0_and_length():
         _whole(window=-1)
     with pytest.raises(ValueError, match="16 queries over a buffer of 8"):
         _chunk(k=torch.zeros(2, 8, 2, 32), v=torch.zeros(2, 8, 2, 32))
+
+
+def test_head_dim_256_plans_two_blocks_of_five_heads():
+    """recurrentgemma-2b (G = 10 over one KV head of 256): the shared
+    memory holds 5 warps of Q rows beside the K/V ring at D = 256, so G =
+    10 plans as two blocks of 5 heads, one 16-row sub-tile each, as it does
+    at D = 128; the chunk form does not take D = 256 and says so."""
+    assert [fa.max_warps(D) for D in (32, 64, 128, 256)] == [8, 8, 8, 5]
+    for D in (128, 256):
+        for S in (128, 2176):
+            plan = fa._plan(S, 10, 1, D, 132)
+            assert (plan.heads_per_block, plan.qsub, plan.split) == (5, 1, 0)
+    assert fa._plan(128, 10, 1, 256, 132).pair
+    assert not fa._plan(2176, 10, 1, 256, 132).pair
+    with pytest.raises(ValueError, match=r"head dim 256 not in \(32, 64, "
+                                         r"128\)"):
+        _chunk(q=torch.zeros(2, 16, 10, 256), k=torch.zeros(2, 40, 1, 256),
+               v=torch.zeros(2, 40, 1, 256))
+    with pytest.raises(ValueError, match="CUDA"):
+        _whole(q=torch.zeros(2, 16, 10, 256), k=torch.zeros(2, 16, 1, 256),
+               v=torch.zeros(2, 16, 1, 256))

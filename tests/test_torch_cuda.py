@@ -762,3 +762,131 @@ def test_moe_arch_tiny_on_cuda_equals_cpu(dev, arch, capacity_factor):
         alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
                                 mode="decode")
         assert torch.equal(logits[r:r + 1], alone)
+
+
+# --- head dim 256: recurrentgemma-2b (G = 10 over one KV head) ----------
+
+@pytest.mark.parametrize("B,S,lengths,ring", [
+    (4, 145, [128, 133, 138, 143], False),
+    (2, 2048, [2176, 2191], True)])
+def test_flash_decode_head_dim_256_matches_plain(dev, B, S, lengths, ring):
+    """G = 10 over one KV head of 256 (two head groups of 5), at the serve
+    step's cache and over the sliding window's 2048-slot ring, wrapped
+    (slot i holds length - ((length - i) mod S)), with holes and slots
+    above the length in it, so that the valid slots are not a prefix of the
+    buffer: against the plain version; NaN and Inf in the masked slots
+    change no bit, and a row alone equals the row in the group."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, slots = _decode_inputs(dev, B, S, 1, 10, 256, seed=S + 256)
+    ln = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    if ring:
+        slots = (ln[:, None] - torch.remainder(ln[:, None] - slots, S)).to(
+            torch.int32)
+        slots[0, 100:140] = -1              # never written
+        slots[1, 7:9] = ln[1] + 5           # above the row's position
+    else:
+        slots = torch.where(slots <= ln[:, None], slots, -1)
+        slots[1, 5:9] = -1
+    valid = (slots >= 0) & (slots <= ln[:, None])
+    first_masked = int((~valid[0]).nonzero()[0])
+    assert bool(valid[0, first_masked:].any()) is ring
+    got = flash_decode(q, k, v, slots, ln)
+    torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, slots, ln),
+                               rtol=1e-5, atol=1e-5)
+    kn, vn = k.clone(), v.clone()
+    kn[~valid], vn[~valid] = float("nan"), float("inf")
+    assert torch.equal(flash_decode(q, kn, vn, slots, ln), got)
+    b = B - 1
+    alone = flash_decode(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                         v[b:b + 1].contiguous(), slots[b:b + 1].contiguous(),
+                         ln[b:b + 1].contiguous())
+    assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("B,S,window", [(4, 128, 0), (2, 300, 64),
+                                        (1, 2176, 2048)])
+def test_flash_attention_head_dim_256_matches_plain(dev, B, S, window):
+    """The whole-prompt form at D = 256, G = 10 over one KV head, causal and
+    within a window smaller than S (whole key tiles below the window at
+    2176 tokens over a window of 2048): against the plain version, and a
+    row alone equals the row in the group."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    g = torch.Generator(device=dev).manual_seed(S + 256)
+    q = torch.randn(B, S, 10, 256, device=dev, generator=g)
+    k = torch.randn(B, S, 1, 256, device=dev, generator=g)
+    v = torch.randn(B, S, 1, 256, device=dev, generator=g)
+    got = flash_attention(q, k, v, window=window)
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v,
+                                                            window=window),
+                               rtol=1e-5, atol=1e-5)
+    if B > 1:
+        alone = flash_attention(q[1:2].contiguous(), k[1:2].contiguous(),
+                                v[1:2].contiguous(), window=window)
+        assert torch.equal(alone[0], got[1])
+
+
+def test_chunk_attention_raises_on_head_dim_256(dev):
+    from repro_torch.kernels.chunk_attention import chunk_attention
+    q = torch.zeros(2, 16, 10, 256, device=dev)
+    kv = torch.zeros(2, 64, 1, 256, device=dev)
+    with pytest.raises(ValueError, match="head dim 256 not in"):
+        chunk_attention(q, kv, kv, torch.zeros(2, dtype=torch.int32,
+                                               device=dev))
+
+
+@pytest.mark.parametrize("P", [12, 80])
+def test_hybrid_tiny_on_cuda_equals_cpu(dev, P):
+    """recurrentgemma-2b tiny (window 64): prompts of 12 and of 80 tokens
+    (the ring keeps the last 64) and 6 greedy tokens: tokens and active
+    sets on the card equal the CPU's, last logits within 1e-4; rows mode
+    keeps a row's bits alone, one row past the ring's end."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine_model import RealModelRunner, _stack_rows
+    from repro_torch.kernels import flash_attention, flash_decode, qmatmul
+    from repro_torch.models import transformer as T
+    cfg = get_config("recurrentgemma-2b", tiny=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        layer["ffn"]["pred"]["A"] = torch.randn(
+            layer["ffn"]["pred"]["A"].shape, generator=g) / 16
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(dev)
+    gparams = to(params)
+    prompts = np.random.default_rng(P).integers(0, cfg.vocab_size, (2, P))
+    before = (qmatmul.launches, flash_decode.launches,
+              flash_attention.launches)
+    gpu = RealModelRunner(cfg, gparams, max_seq=P + 8, device=dev)
+    tok_gpu, idx_gpu = gpu.generate(prompts, 6)
+    after = (qmatmul.launches, flash_decode.launches,
+             flash_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+    cpu = RealModelRunner(cfg, params, max_seq=P + 8, device="cpu")
+    tok_cpu, idx_cpu = cpu.generate(prompts, 6)
+    np.testing.assert_array_equal(tok_gpu, tok_cpu)
+    for a, b in zip(idx_gpu, idx_cpu):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits,
+                               rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(4)
+    caches = []
+    for p in (16, 40, 70):
+        c = T.init_cache(cfg, 1, 96, device=dev)
+        T.forward(cfg, gparams, torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, p))).to(dev), cache=c, mode="prefill")
+        caches.append(c)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(dev)
+    logits, _, _ = T.forward(cfg, gparams, tokens, cache=_stack_rows(caches),
+                             mode="decode", rows=True)
+    for r, c in enumerate(caches):
+        alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
+                                mode="decode")
+        assert torch.equal(logits[r:r + 1], alone)

@@ -145,7 +145,7 @@ def _decode(**kw):
     ("non_contiguous", "contiguous"),
     ("kv_shape", "do not match"),
     ("q_dim", "4-D"),
-    ("head_dim", r"head dim 48 not in \(32, 64, 128\)"),
+    ("head_dim", r"head dim 48 not in \(32, 64, 128, 256\)"),
     ("heads", "G=9"),
     ("slots_dtype", "slot_positions"),
     ("slots_shape", "slot_positions"),
@@ -371,3 +371,25 @@ def test_decode_forward_builds_the_mask_once_and_equals_reference(
                 np.int32)
             assert int(torch.argmax(tl[r, -1])) == int(nxt[r][0])
     assert tcache["pos"].tolist() == [10, 15]
+
+
+def test_head_dim_256_caps_the_ring():
+    """At D = 256 a 32-slot K+V tile is 66.6 KB: the ring holds 3 tiles in
+    a block's shared memory (6 below), and G = 10 takes two head groups of
+    5; the rest of the plan is D = 128's."""
+    assert [fd.max_stages(D) for D in (32, 64, 128, 256)] == [6, 6, 6, 3]
+    for S in (145, 2048, 4096):
+        p128, p256 = (fd._plan(S, 1, 10, D, 132) for D in (128, 256))
+        assert p256.groups == p128.groups == 2
+        assert p256.range_slots == p128.range_slots
+        assert p256.stages == min(p128.stages, 3)
+    saved = fd.STAGES
+    try:
+        fd.STAGES = 6
+        assert fd._plan(32768, 1, 10, 256, 132).stages == 3
+        assert fd._plan(32768, 1, 10, 128, 132).stages == 6
+    finally:
+        fd.STAGES = saved
+    with pytest.raises(ValueError, match="CUDA"):
+        _decode(q=torch.zeros(2, 1, 10, 256), k=torch.zeros(2, 40, 1, 256),
+                v=torch.zeros(2, 40, 1, 256))

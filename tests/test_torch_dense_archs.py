@@ -83,7 +83,7 @@ def test_kv_payload_gate_and_served_list_agree_with_reference(arch):
 
 def test_unported_arch_error_lists_what_is_served():
     with pytest.raises(NotImplementedError) as err:
-        get_config("recurrentgemma-2b")
+        get_config("mamba2-370m")
     for arch in ["qwen2.5-14b"] + ARCHS:
         assert repr(arch) in str(err.value)
 

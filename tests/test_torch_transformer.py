@@ -133,12 +133,14 @@ def test_init_params_follows_reference_rules_and_shapes():
 
 
 @pytest.mark.parametrize("change", [dict(m2_enabled=False),
-                                    dict(window_size=8),
+                                    dict(family="hybrid",
+                                         block_pattern=("rglru", "attn"),
+                                         m2_enabled=False),
                                     dict(family="moe", num_experts=4,
                                          num_experts_per_tok=2,
-                                         window_size=4),
+                                         m2_enabled=False),
                                     dict(family="hybrid",
-                                         block_pattern=("rglru", "attn")),
+                                         block_pattern=("ssm", "attn")),
                                     dict(family="ssm"),
                                     dict(family="audio")])
 def test_unported_configs_raise(change):
