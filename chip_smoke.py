@@ -3,6 +3,8 @@
 NVIDIA GPU.
 
   python3 chip_smoke.py            # all phases, one card
+  python3 chip_smoke.py --only kernels_audio,ssm_arch,audio_arch
+                                   # the device phase and the named ones
 
 Phases, each printing one JSON line:
   1. device   — the card's name and power limit, torch/CUDA versions, and
@@ -83,7 +85,28 @@ Phases, each printing one JSON line:
                 cache cold, warm, off, batched decode off: tokens equal;
                 the server prefills whole prompts, stacked in rows); the
                 RG-LRU recurrence's device ms at both prefill shapes.
- 13. softcap_library — the softcap rows' library call, compiled
+ 13. ssm_arch — mamba2-370m (attention-free Mamba-2 blocks, the SSD
+                scan, no FFN, no kernel on its paths): tiny through both
+                entry points on cuda against cpu; at full width and all 48
+                layers, every SSD layer's A and dt drawn, full's serve
+                traffic, a long run (2 prompts of 2048 tokens: 8 SSD
+                chunks; 16 new) whose decode logits at steps 1, 8 and 16
+                are held to a whole-prompt prefill's (RING_TOL), the SSD's
+                device ms at both prefill shapes and its share of the
+                prefill, server_full's traffic (cold, warm, off, batched
+                decode off: tokens equal).
+ 14. audio_arch — musicgen-large (K = 4 codebooks, 64 conditioning
+                frames, LayerNorm, GELU, G = 1) through forward, as the
+                reference's tests drive it (neither package serves it):
+                tiny on cuda against cpu; at full width and all 48 layers
+                (every predictor A drawn) a prefill of 4 x 128 codebook
+                steps after the frames and 16 greedy decode steps, each
+                call's kernels held to its form of the path (the prefill
+                flash_attention and qmatmul B, a decode step flash_decode
+                and qmatmul A), twice; device time and busy share of the
+                prefill and a decode step; decode logits at steps 1 and 16
+                held to a whole-prompt prefill's (RING_TOL).
+ 15. softcap_library — the softcap rows' library call, compiled
                 flex_attention with the row's cap and mask, held against
                 the plain version within 1e-3 x max(1, max|plain|) and
                 timed, in a process of its own after the rest: compiling
@@ -104,7 +127,11 @@ recurrentgemma-2b's head dim 256 at G = 10: flash_decode at the serve step
 and over the window's wrapped 2048-slot ring, the whole prompt at the
 serve prefill and at 2176 tokens within the 2048 window (library: SDPA
 with the window as a boolean mask), and one layer's GELU FFN at d = 2560,
-f = 7680 through kernels A and B. qmatmul has two kernels (A for small
+f = 7680 through kernels A and B; and (``kernels_audio``)
+musicgen-large's G = 1 (32 KV heads of 64): flash_decode at its decode
+step, the whole prompt of 64 frames and 128 codebook steps, and one
+layer's GELU FFN at d = 2048, f = 8192 through kernels A and B. qmatmul
+has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
 one layer's FFN at M = 1, 4, 8, 16 through both gives the crossover; the
@@ -167,7 +194,14 @@ DECODE_ROWS = {"flash_decode": (145, [128, 133, 138, 143]),
                "flash_decode_32k": (32768, [32767])}
 
 
+_T0 = time.perf_counter()
+
+
 def log(obj):
+    """One JSON line; a phase's line also says when it was printed (t_s:
+    seconds since the script started)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj, default=float), flush=True)
 
 
@@ -1428,7 +1462,16 @@ PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                 # no KV payloads (a window's ring, recurrent state): the
                 # server prefills whole prompts
                 "server_whole": ("qmatmul_gemv", "qmatmul_mma",
-                                 "flash_decode", "flash_attention")}
+                                 "flash_decode", "flash_attention"),
+                # attention-free, no FFN (mamba2): the SSD is plain PyTorch,
+                # as the reference's is plain jnp; no kernel may launch
+                "ssm": (),
+                # the audio family through forward: prefill, then decode,
+                # and each call of it
+                "forward": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
+                            "flash_attention"),
+                "forward_prefill": ("qmatmul_mma", "flash_attention"),
+                "forward_decode": ("qmatmul_gemv", "flash_decode")}
 _QMM = ("qmatmul_gemv", "qmatmul_mma")
 _CAPPED = ("flash_decode", "flash_attention", "chunk_attention")
 
@@ -1436,6 +1479,8 @@ _CAPPED = ("flash_decode", "flash_attention", "chunk_attention")
 def path_of(cfg, kind: str) -> str:
     """The PATH_KERNELS key of a config's "serve" or "server" path."""
     from repro_torch.core.kv_payload import supports_payloads
+    if cfg.family == "ssm":
+        return "ssm"
     if kind == "server" and not supports_payloads(cfg):
         return "server_whole"
     if not cfg.num_experts:
@@ -1499,9 +1544,21 @@ def draw_pred_a(params, gen, device):
     (so every active set would be 0..k-1). Draw it so the gathers are real.
     An MoE layer's router, zero at the reference's init too (every token
     would tie and take experts 0..k-1), is drawn the same way, so that
-    routing bugs cannot hide behind the tie order."""
+    routing bugs cannot hide behind the tie order. An SSD layer (no FFN)
+    gets Mamba-2's own init of its decay instead of the reference's
+    constants (A = -1 and dt = softplus(0.5) in every head): A uniform in
+    [1, 16], dt log-uniform in [0.001, 0.1] through dt_bias =
+    softplus^-1(dt), so that the heads decay at their own rates."""
     import torch
     for layer in params["layers"]:
+        if "ffn" not in layer:
+            nh = layer["A_log"].shape[0]
+            a = 1.0 + 15.0 * torch.rand(nh, generator=gen, device=device)
+            dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(
+                nh, generator=gen, device=device))
+            layer["A_log"] = torch.log(a)
+            layer["dt_bias"] = dt + torch.log(-torch.expm1(-dt))
+            continue
         ffn = layer["ffn"]
         name, tree = ("A", ffn["pred"]) if "pred" in ffn else ("router", ffn)
         w = tree[name]
@@ -1621,9 +1678,12 @@ def phase_full(full, cfg, params, B: int, P: int, gen_len: int,
         "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
                    "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                    "d_ff": cfg.d_ff, "vocab": cfg.vocab_size},
-        ("router" if cfg.num_experts else "pred_A"):
+        **({"ssd_A_dt": "A_log and dt_bias drawn (Mamba-2's init: A in "
+            "[1, 16], dt in [0.001, 0.1]); the reference's init sets every "
+            "head to A = -1"} if cfg.family == "ssm" else
+           {("router" if cfg.num_experts else "pred_A"):
             "drawn N(0, 1/d) on the device generator for this run "
-            "(the reference's init zeroes it)",
+            "(the reference's init zeroes it)"}),
         "batch": B, "prompt_len": P, "gen_len": gen_len,
         "param_gb": param_gb, "ssd_bank_files_gb": ssd_gb,
         "serve_wall_s": serve_s, "prefill_wall_s": wall["prefill"],
@@ -1661,7 +1721,8 @@ def decode_forward_cost(cfg, params, lengths, sbuf: int, rows: bool,
     B = len(lengths)
     dev = params["embed"].device
     cache = T.init_cache(cfg, B, sbuf, device=dev)
-    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    tok = torch.zeros((B, cfg.num_codebooks, 1) if cfg.family == "audio"
+                      else (B, 1), dtype=torch.long, device=dev)
 
     def step():
         cache["pos"] = (torch.tensor(lengths, dtype=torch.int64) if rows
@@ -1899,21 +1960,37 @@ class StepClock:
                 "prefill_forward_wall_s_total": sum(self.forward["prefill"])}
 
 
+def profiler_events(prof):
+    """(start us, end us, name, on the device) of every event a profiler
+    session recorded: from its raw results where the installed torch gives
+    them, since parsing them into FunctionEvents (``prof.events()``) costs
+    ~70 us an event and a server run records a million; else from
+    ``prof.events()``."""
+    from torch.autograd import DeviceType
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is not None and hasattr(raw, "events"):
+        for e in raw.events():
+            s0 = e.start_ns() / 1e3
+            yield (s0, s0 + e.duration_ns() / 1e3, e.name(),
+                   e.device_type() == DeviceType.CUDA)
+        return
+    for e in prof.events():
+        yield (e.time_range.start, e.time_range.end, e.name,
+               e.device_type == DeviceType.CUDA)
+
+
 def step_device_time(prof) -> dict:
     """Per kind of engine step (the ``chip_smoke::`` ranges StepClock
     opens): steps, summed wall ms, summed device ms of the CUDA kernels
     that ran inside the steps' ranges, the busy share, and the kernels that
     took the most. Says "not measured" where the profiler saw no kernel."""
     import bisect
-    from torch.autograd import DeviceType
-    evs = prof.events()
+    evs = list(profiler_events(prof))
     # a range shows twice: on the host and as an annotation on the device
-    ours = [e.name.startswith("chip_smoke::") for e in evs]
-    spans = [(e.time_range.start, e.time_range.end, e.name.split("::")[1])
-             for e, o in zip(evs, ours) if o and e.device_type == DeviceType.CPU]
-    kern = sorted((e.time_range.start, e.time_range.end, e.name[:60])
-                  for e, o in zip(evs, ours)
-                  if not o and e.device_type == DeviceType.CUDA)
+    spans = [(s0, s1, name.split("::")[1]) for s0, s1, name, on_dev in evs
+             if name.startswith("chip_smoke::") and not on_dev]
+    kern = sorted((s0, s1, name[:60]) for s0, s1, name, on_dev in evs
+                  if on_dev and not name.startswith("chip_smoke::"))
     starts = [k[0] for k in kern]
     out = {}
     for s0, s1, kind in spans:
@@ -2636,14 +2713,14 @@ def phase_moe_archs(B: int, P: int, gen_len: int) -> dict:
 #: prefill's window masks the last 128 queries and decode wraps the ring
 HYBRID_ARCH = ("recurrentgemma-2b", 26)
 RING_RUN = dict(B=2, P=2048 + 128, gen_len=16)
-#: ring consistency: a decode step's logits against one whole-prompt
+#: decode consistency: a decode step's logits against one whole-prompt
 #: prefill's at the same position, within RING_TOL x max(1, max|prefill|),
 #: the tolerance cuda against cpu logits are held to: the two paths run
 #: other kernels (flash_decode against flash_attention, qmatmul kernel A
-#: against B, one RG-LRU step against the scan), each fp32 to ~1e-6,
-#: through 26 layers. The plain versions at d = 256 (26 layers) stayed at
-#: 0.013 of it, and a decode step writing the slot after its own went 23x
-#: over it
+#: against B, one recurrent step against the scan), each fp32 to ~1e-6,
+#: through all layers. For the ring run the plain versions at d = 256 (26
+#: layers) stayed at 0.013 of it, and a decode step writing the slot after
+#: its own went 23x over it
 RING_TOL = 1e-4
 
 
@@ -2740,49 +2817,56 @@ def predictor_zeroed(params):
             layer["ffn"]["pred"]["A"] = a
 
 
-def ring_consistency(cfg, params, B: int, P: int, gen_len: int) -> dict:
-    """The ring run's decode against whole prompts: B prompts of P tokens
-    (P past the window, so the buffer is a ring of ``window`` slots that
-    every decode step wraps further), prefilled, then gen_len greedy decode
-    steps; each step's logits against those of one whole-prompt prefill
-    over the prompt and the tokens generated so far, at the same position,
-    within RING_TOL x max(1, max|prefill|). The predictor runs at the
-    reference's zero init here (every active set 0..k-1): with a drawn one
-    a prefill's batch-shared active set sums over every position and a
-    decode step's over one, and the two would differ by design."""
+def decode_consistency(cfg, params, tokens, gen_len: int, steps,
+                       prefix=None) -> dict:
+    """A prefill of ``tokens`` ((B, S), or (B, K, S) codebooks, after
+    ``prefix`` frames where given), then gen_len greedy decode steps through
+    ``forward``; at each step of ``steps`` the step's logits against those
+    of one whole-prompt prefill over the prompt and the tokens generated so
+    far, at the same position, within RING_TOL x max(1, max|prefill|): the
+    recurrent or cached decode against the prefill's chunked scan or whole
+    prompt. A model with an M2Cache FFN runs with the predictor at the
+    reference's zero init (every active set 0..k-1 in both paths)."""
     import torch
-    from repro_torch.core.engine_model import RealModelRunner
-    from repro_torch.launch.serve import make_prompts
     from repro_torch.models import transformer as T
     dev = params["embed"].device
-    runner = RealModelRunner(cfg, params, max_seq=P + gen_len + 1, device=dev)
-    prompts = torch.as_tensor(make_prompts(cfg, B, P, 0), device=dev)
-    errs, scales, toks = [], [], []
-    with predictor_zeroed(params):
-        last, cache, _ = runner._prefill(params, prompts)
-        sbuf = T.kv_slots(cache)
-        for _ in range(gen_len):
-            toks.append(torch.argmax(last, dim=-1))
-            last, cache, _ = runner._decode(params, cache, toks[-1][:, None])
-            want, _, _ = runner._prefill(
-                params, torch.cat([prompts, torch.stack(toks, 1)], 1))
-            errs.append(max_err(last, want))
-            scales.append(max(1.0, float(want.abs().max())))
-            del want
-    worst = max(e / (RING_TOL * s) for e, s in zip(errs, scales))
-    line = {"B": B, "prompt_len": P, "gen_len": gen_len, "ring_slots": sbuf,
-            "window": cfg.window_size,
-            "positions": [P, P + gen_len - 1],
-            "max_abs_err_by_step": errs, "max_abs_err": max(errs),
-            "tol_rel": RING_TOL, "tol_by_step": [RING_TOL * s for s in scales],
+    B = tokens.shape[0]
+    buf = (0 if prefix is None else prefix.shape[1]) + tokens.shape[-1] \
+        + gen_len + 1
+    has_pred = any("ffn" in layer for layer in params["layers"])
+    errs, scales = {}, {}
+    with (predictor_zeroed(params) if has_pred else contextlib.nullcontext()):
+        cache = T.init_cache(cfg, B, buf, device=dev)
+        logits, cache, _ = T.forward(cfg, params, tokens, prefix=prefix,
+                                     cache=cache, mode="prefill")
+        last, seq = logits[..., -1, :], tokens
+        for step in range(1, gen_len + 1):
+            nxt = torch.argmax(last, dim=-1)[..., None]
+            seq = torch.cat([seq, nxt], dim=-1)
+            logits, cache, _ = T.forward(cfg, params, nxt, cache=cache,
+                                         mode="decode")
+            last = logits[..., 0, :]
+            if step in steps:
+                c = T.init_cache(cfg, B, buf, device=dev)
+                whole, _, _ = T.forward(cfg, params, seq, prefix=prefix,
+                                        cache=c, mode="prefill")
+                want = whole[..., -1, :]
+                errs[step] = max_err(last, want)
+                scales[step] = max(1.0, float(want.abs().max()))
+                del c, whole, want
+        del cache
+    worst = max(errs[s] / (RING_TOL * scales[s]) for s in errs)
+    line = {"B": B, "prompt_len": tokens.shape[-1],
+            "prefix_len": 0 if prefix is None else prefix.shape[1],
+            "gen_len": gen_len, "steps_checked": list(errs),
+            "max_abs_err_by_step": errs,
+            "tol_by_step": {s: RING_TOL * scales[s] for s in errs},
+            "max_abs_err": max(errs.values()), "tol_rel": RING_TOL,
             "worst_err_over_tol": worst,
-            "predictor": "A zero (the reference's init): active sets 0..k-1 "
-                         "in both paths"}
-    require(sbuf == cfg.window_size < P,
-            f"ring consistency: the buffer holds {sbuf} slots, not a ring of "
-            f"the window {cfg.window_size} below the prompt {P}")
-    require(worst <= 1.0, f"ring consistency: a decode step's logits differ "
-            f"from the whole prompt's by {max(errs):.3g}: {errs}")
+            "predictor": "A zero (the reference's init)" if has_pred
+            else "none (no FFN)"}
+    require(worst <= 1.0, f"decode consistency: a decode step's logits "
+            f"differ from the whole prompt's: {errs}")
     return line
 
 
@@ -2824,6 +2908,8 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
     "<arch>/ring" and "<arch>/server"."""
     import gc
     import torch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import transformer as T
     arch, layers = HYBRID_ARCH
     t_arch = time.perf_counter()
     tiny = phase_tiny(arch, label=f"hybrid_arch {arch} tiny")
@@ -2844,7 +2930,14 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
             full, cfg, params, rb, rp, rg, label=f"hybrid_arch {arch} ring",
             ssd_dir=tmp)
         t0 = time.perf_counter()
-        consistency = ring_consistency(cfg, params, rb, rp, rg)
+        sbuf = T.kv_slots(T.cache_specs(cfg, rb, rp + rg + 1))
+        require(sbuf == cfg.window_size < rp,
+                f"ring consistency: the buffer holds {sbuf} slots, not a "
+                f"ring of the window {cfg.window_size} below the prompt {rp}")
+        prompts = torch.as_tensor(make_prompts(cfg, rb, rp, 0), device="cuda")
+        consistency = dict(decode_consistency(cfg, params, prompts, rg,
+                                              range(1, rg + 1)),
+                           ring_slots=sbuf, window=cfg.window_size)
         consistency["seconds"] = time.perf_counter() - t0
         log({"phase": f"hybrid_arch {arch} ring_consistency", **consistency})
         scan = scan_cost(cfg, [(B, P), (rb, rp)])
@@ -2856,26 +2949,6 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    dev_srv = srv["device_in_steps_warm"]
-
-    def serve_numbers(run, label):
-        return {"prefill_wall_ms": run["prefill_wall_s"] * 1e3,
-                "decode_step_wall_ms_median":
-                    run["decode_wall_s_median"] * 1e3,
-                "prefill_device_ms":
-                    run["profile"]["prefill"].get("device_ms"),
-                "prefill_busy_share":
-                    run["profile"]["prefill"].get("busy_share"),
-                "prefill_top_kernels_ms":
-                    run["profile"]["prefill"].get("top_kernels_ms"),
-                "decode_step_device_ms":
-                    run["profile"]["decode_step"].get("device_ms"),
-                "decode_step_busy_share":
-                    run["profile"]["decode_step"].get("busy_share"),
-                "decode_forward_kernels":
-                    run["decode_forward"]["cuda_kernels"],
-                "peak_mem_gb": run["peak_mem_gb"],
-                "launches": paths[label]}
     log({"phase": "hybrid_arch", "config": arch,
          "depth": f"num_layers {full.num_layers} (not cut)",
          "pattern": list(full.block_pattern), "window": full.window_size,
@@ -2885,34 +2958,409 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
          "server_tiny_tokens_equal_cuda_cpu": all(
              server_tiny[k]["tokens_equal_cuda_cpu"]
              for k in ("shared_prefix", "burst")),
-         "serve": serve_numbers(serve, f"{arch}/serve"),
+         "serve": serve_numbers(serve, paths[f"{arch}/serve"]),
          "rg_lru_scan": scan,
-         "ring": dict(serve_numbers(ring, f"{arch}/ring"),
+         "ring": dict(serve_numbers(ring, paths[f"{arch}/ring"]),
                       batch=rb, prompt_len=rp, gen_len=rg,
                       consistency_max_abs_err=consistency["max_abs_err"],
                       consistency_worst_err_over_tol=consistency[
                           "worst_err_over_tol"]),
-         "server": {
-             "tokens_equal_cold_warm_off": srv["tokens_equal_cold_warm_off"],
-             "tokens_equal_batched_vs_per_session":
-                 srv["tokens_equal_batched_vs_per_session"],
-             "decode_step_wall_ms_median":
-                 srv["steps_cold"]["decode_step_wall_ms_median"],
-             "decode_forward_wall_ms_median":
-                 srv["steps_cold"]["decode_forward_wall_ms_median"],
-             "prefill_chunk_wall_ms_median":
-                 srv["steps_cold"]["prefill_chunk_wall_ms_median"],
-             "decode_step_device_ms": dev_srv.get("decode_step", {}).get(
-                 "device_ms_per_step", "not measured"),
-             "decode_step_busy_share": dev_srv.get("decode_step", {}).get(
-                 "busy_share", "not measured"),
-             "prefill_step_device_ms": dev_srv.get("prefill_step", {}).get(
-                 "device_ms_per_step", "not measured"),
-             "decode_forward_kernels": srv["decode_forward"]["cuda_kernels"],
-             "peak_mem_gb": srv["peak_mem_gb"],
-             "launches": paths[f"{arch}/server"]},
+         "server": server_numbers(srv, paths[f"{arch}/server"]),
          "seconds": time.perf_counter() - t_arch})
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 2, continued, and phases 13 and 14: the SSM and audio families
+
+
+#: ssm_arch: mamba2-370m at full width and its full depth
+SSM_ARCH = ("mamba2-370m", 48)
+#: the long run: 2 prompts of 2048 tokens (8 SSD chunks of 256: the state
+#: crosses 7 chunk boundaries), 16 new tokens; its decode logits at
+#: SSM_CHECK_STEPS held to a whole-prompt prefill's within RING_TOL
+SSM_LONG = dict(B=2, P=2048, gen_len=16)
+SSM_CHECK_STEPS = (1, 8, 16)
+#: audio_arch: musicgen-large at full width and its full depth, through
+#: forward: B rows of P codebook steps after the config's 64 conditioning
+#: frames, gen_len greedy decode steps; decode logits at AUDIO_CHECK_STEPS
+#: held to a whole-prompt prefill's within RING_TOL
+AUDIO_ARCH = ("musicgen-large", 48)
+AUDIO_RUN = dict(B=4, P=128, gen_len=16)
+AUDIO_CHECK_STEPS = (1, 16)
+
+
+def phase_kernels_audio(dev) -> dict:
+    """The kernels at musicgen-large's shapes, which no other path gives:
+    G = 1 (32 KV heads of 64, multi-head attention) in flash_decode at the
+    decode step (4 rows over the 64 + 128 + 16 + 1-slot cache: a row of
+    holes, a row with no valid slot, NaN/Inf in masked slots, a row alone
+    against the row in the group, ranges 32 and 64) and in the whole
+    prompt (q (4, 192, 32, 64): 64 conditioning frames and 128 codebook
+    steps; scores to about +-60 against float64, paired and unpaired query
+    tiles); one layer's FFN at d = 2048, f = 8192 with GELU (tiers
+    614/614/1230) at the decode step (M = 4) and the prefill (M = 768)
+    through kernels A and B. Each against its plain version, timed beside
+    it, the library call (SDPA; matmul over pre-gathered weights) and the
+    bounds."""
+    import torch
+    from repro_torch.configs.base import get_config
+    g = torch.Generator(device=dev).manual_seed(2048)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    cfg = get_config(AUDIO_ARCH[0])
+    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = hq // hkv
+    B, P, gen = AUDIO_RUN["B"], AUDIO_RUN["P"], AUDIO_RUN["gen_len"]
+    N = cfg.num_prefix_embeddings
+    S = N + P + gen + 1
+    out, checks = {}, []
+    check = checker(checks)
+    out["flash_decode_g1"] = decode_row(
+        check, randn, dev, "flash_decode_g1", S, hkv, G, D,
+        [N + P + i for i in (0, 5, 10, gen - 1)][:B], holes=True,
+        full_checks=True, sweep=(32, 64))
+    out["flash_attention_g1"] = whole_prompt_row(check, randn, dev, B, N + P,
+                                                 hq, hkv, D)
+    rows = serve_ffn_rows(check, g, dev, cfg, B, N + P)[0]
+    for name, row in rows.items():
+        out[f"{name}_d{cfg.d_model}"] = dict(row, d=cfg.d_model, f=cfg.d_ff,
+                                             act=cfg.ffn_act)
+    for row in out.values():
+        row["config"] = cfg.name
+    torch.cuda.empty_cache()
+    log({"phase": "kernels_audio", "checks": checks, "kernels": out})
+    return out
+
+
+def ssd_cost(cfg, params, shapes, prefill_device_ms) -> dict:
+    """Device ms and kernels of one layer's SSD (``models/ssm.ssd_mix``:
+    the split, dt's softplus, the causal conv, SiLU, the chunked scan with
+    its padding, the D skip) at each (B, S) of ``shapes``, on the card, and
+    of the model's layers together: its share of the prefill whose device
+    ms ``prefill_device_ms`` gives at the same shape."""
+    import torch
+    from repro_torch.models import ssm
+    g = torch.Generator(device="cuda").manual_seed(7)
+    layer = params["layers"][0]
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    out = {}
+    for (B, S), pre_ms in zip(shapes, prefill_device_ms):
+        zx = torch.randn(B, S, 2 * di + 2 * n + nh, generator=g,
+                         device="cuda")
+        prof = device_profile(lambda: ssm.ssd_mix(cfg, layer, zx, None,
+                                                  mode="prefill"))
+        ms = prof.get("device_ms")
+        model_ms = ms * cfg.num_layers if isinstance(ms, float) else ms
+        out[f"{B}x{S}"] = {
+            "device_ms": ms, "kernels_per_call": prof.get("kernels_per_call"),
+            "top_kernels_ms": prof.get("top_kernels_ms"),
+            "chunks": math.ceil(S / cfg.ssm_chunk), "layers": cfg.num_layers,
+            "model_device_ms": model_ms, "prefill_device_ms": pre_ms,
+            "share_of_prefill": model_ms / pre_ms if isinstance(
+                model_ms, float) and isinstance(pre_ms, float) else
+            "not measured"}
+        del zx
+    return out
+
+
+def serve_numbers(run, launches) -> dict:
+    """A phase_full line's step numbers."""
+    return {"prefill_wall_ms": run["prefill_wall_s"] * 1e3,
+            "decode_step_wall_ms_median": run["decode_wall_s_median"] * 1e3,
+            "prefill_device_ms": run["profile"]["prefill"].get("device_ms"),
+            "prefill_busy_share":
+                run["profile"]["prefill"].get("busy_share"),
+            "prefill_top_kernels_ms":
+                run["profile"]["prefill"].get("top_kernels_ms"),
+            "decode_step_device_ms":
+                run["profile"]["decode_step"].get("device_ms"),
+            "decode_step_busy_share":
+                run["profile"]["decode_step"].get("busy_share"),
+            "decode_forward_kernels": run["decode_forward"]["cuda_kernels"],
+            "peak_mem_gb": run["peak_mem_gb"], "launches": launches}
+
+
+def server_numbers(srv, launches) -> dict:
+    """A phase_server_full line's step numbers."""
+    dev_srv = srv["device_in_steps_warm"]
+    return {
+        "tokens_equal_cold_warm_off": srv["tokens_equal_cold_warm_off"],
+        "tokens_equal_batched_vs_per_session":
+            srv["tokens_equal_batched_vs_per_session"],
+        "decode_step_wall_ms_median":
+            srv["steps_cold"]["decode_step_wall_ms_median"],
+        "decode_forward_wall_ms_median":
+            srv["steps_cold"]["decode_forward_wall_ms_median"],
+        "prefill_chunk_wall_ms_median":
+            srv["steps_cold"]["prefill_chunk_wall_ms_median"],
+        "decode_step_device_ms": dev_srv.get("decode_step", {}).get(
+            "device_ms_per_step", "not measured"),
+        "decode_step_busy_share": dev_srv.get("decode_step", {}).get(
+            "busy_share", "not measured"),
+        "prefill_step_device_ms": dev_srv.get("prefill_step", {}).get(
+            "device_ms_per_step", "not measured"),
+        "decode_forward_kernels": srv["decode_forward"]["cuda_kernels"],
+        "peak_mem_gb": srv["peak_mem_gb"], "launches": launches}
+
+
+def phase_ssm_arch(B: int, P: int, gen_len: int) -> dict:
+    """mamba2-370m (SSM_ARCH): tiny through launch/serve and launch/server
+    on cuda against cpu; then at full width and all 48 layers (random
+    weights from a seed, every SSD layer's A and dt drawn) full's serve
+    traffic, the long run through launch/serve (SSM_LONG: 8 SSD chunks a
+    prompt) with its decode held to whole-prompt prefills, the SSD's device
+    cost at both prefill shapes, and server_full's server traffic (prefix
+    cache cold, warm, off, batched decode off: tokens equal; whole-prompt
+    prefill, stacked in rows); no kernel launched on any path (the SSD is
+    plain PyTorch, as the reference's is plain jnp). Returns each full
+    path's launch counts, keyed "<arch>/serve", "<arch>/long" and
+    "<arch>/server"."""
+    import gc
+    import torch
+    from repro_torch.launch.serve import make_prompts
+    arch, layers = SSM_ARCH
+    t_arch = time.perf_counter()
+    tiny = phase_tiny(arch, label=f"ssm_arch {arch} tiny")
+    server_tiny = phase_server_tiny(arch, label=f"ssm_arch {arch} server_tiny")
+    t0 = time.perf_counter()
+    full, cfg, params = full_model(arch, layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    paths = {}
+    lb, lp, lg = SSM_LONG["B"], SSM_LONG["P"], SSM_LONG["gen_len"]
+    tmp = tempfile.mkdtemp(prefix="m2cache_ssd_")
+    try:
+        paths[f"{arch}/serve"], serve = phase_full(
+            full, cfg, params, B, P, gen_len, label=f"ssm_arch {arch} serve",
+            ssd_dir=tmp)
+        paths[f"{arch}/long"], long_run = phase_full(
+            full, cfg, params, lb, lp, lg, label=f"ssm_arch {arch} long",
+            ssd_dir=tmp)
+        t0 = time.perf_counter()
+        prompts = torch.as_tensor(make_prompts(cfg, lb, lp, 0), device="cuda")
+        consistency = decode_consistency(cfg, params, prompts, lg,
+                                         SSM_CHECK_STEPS)
+        consistency["seconds"] = time.perf_counter() - t0
+        log({"phase": f"ssm_arch {arch} long_consistency", **consistency})
+        ssd = ssd_cost(cfg, params, [(B, P), (lb, lp)],
+                       [r["profile"]["prefill"].get("device_ms")
+                        for r in (serve, long_run)])
+        paths[f"{arch}/server"], srv = phase_server_full(
+            full, cfg, params, label=f"ssm_arch {arch} server", ssd_dir=tmp,
+            per_session=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"phase": "ssm_arch", "config": arch,
+         "depth": f"num_layers {full.num_layers} (not cut)",
+         "widths": {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
+                    "heads": cfg.ssm_nheads, "head_dim": cfg.ssm_head_dim,
+                    "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
+                    "conv": cfg.ssm_conv_width, "vocab": cfg.vocab_size},
+         "param_gb": serve["param_gb"], "init_s": init_s,
+         "ssd_bank_files_gb": serve["ssd_bank_files_gb"],
+         "tiny_tokens_equal_cuda_cpu": tiny["tokens_equal"],
+         "server_tiny_tokens_equal_cuda_cpu": all(
+             server_tiny[k]["tokens_equal_cuda_cpu"]
+             for k in ("shared_prefix", "burst")),
+         "serve": serve_numbers(serve, paths[f"{arch}/serve"]),
+         "long": dict(serve_numbers(long_run, paths[f"{arch}/long"]),
+                      batch=lb, prompt_len=lp, gen_len=lg,
+                      consistency_max_abs_err=consistency["max_abs_err"],
+                      consistency_worst_err_over_tol=consistency[
+                          "worst_err_over_tol"]),
+         "ssd_cost": ssd,
+         "server": server_numbers(srv, paths[f"{arch}/server"]),
+         "seconds": time.perf_counter() - t_arch})
+    return paths
+
+
+def audio_inputs(cfg, B: int, P: int, device, seed: int = 0):
+    """B rows of P codebook steps (B, K, P) and the config's conditioning
+    frames (B, N, d), from a seeded CPU generator."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    codes = torch.randint(0, cfg.vocab_size, (B, cfg.num_codebooks, P),
+                          generator=gen)
+    frames = torch.randn(B, cfg.num_prefix_embeddings, cfg.d_model,
+                         generator=gen)
+    return codes.to(device), frames.to(device)
+
+
+def audio_generate(cfg, params, codes, frames, gen_len: int, label: str,
+                   counted: bool = False):
+    """A prefill of ``codes`` after ``frames``, then gen_len greedy decode
+    steps (one code a codebook), through ``forward``. Returns (the greedy
+    codes (B, K, gen_len), the active sets of every call, the last logits,
+    per-call wall s, the launch counts summed). With ``counted``, the
+    prefill must launch flash_attention and qmatmul kernel B only, and each
+    decode step flash_decode and qmatmul kernel A only."""
+    import torch
+    from repro_torch.models import transformer as T
+    dev = params["embed"].device
+    B = codes.shape[0]
+    buf = frames.shape[1] + codes.shape[-1] + gen_len + 1
+    cache = T.init_cache(cfg, B, buf, device=dev)
+    total, walls, ids = {}, [], []
+
+    def call(tok, mode, prefix):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, _, aux = T.forward(cfg, params, tok, prefix=prefix,
+                                   cache=cache, mode=mode)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counted:
+            require_path_kernels(f"{label} {mode}", f"forward_{mode}",
+                                 counts)
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        ids.append([a.cpu() for a in aux["active_idx"]["pattern"]])
+        return logits
+    logits = call(codes, "prefill", frames)
+    last, out = logits[..., -1, :], []
+    for _ in range(gen_len):
+        nxt = torch.argmax(last, dim=-1)[..., None]
+        out.append(nxt)
+        last = call(nxt, "decode", None)[..., 0, :]
+    del cache
+    return torch.cat(out, -1).cpu(), ids, last, walls, total
+
+
+def phase_audio_tiny(label: str) -> dict:
+    """musicgen-large tiny through forward on cuda against cpu, from the
+    same weights (every predictor A drawn): a prefill of 12 codebook steps
+    after the conditioning frames, then 6 greedy decode steps; greedy codes
+    and active sets equal, last logits within 1e-4, the path's kernels
+    launched on the card."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = tiny_config(AUDIO_ARCH[0])
+    params = T.init_params(cfg, seed=0, device="cpu")
+    draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
+    runs = {}
+    for device, p in (("cuda", _tree_to(params, "cuda")), ("cpu", params)):
+        codes, frames = audio_inputs(cfg, 2, 12, device)
+        runs[device] = audio_generate(cfg, p, codes, frames, 6, label,
+                                      counted=device == "cuda")
+    (tg, ig, lg, _, cg), (tc, ic, lc, _, _) = runs["cuda"], runs["cpu"]
+    err = max_err(lg.cpu(), lc)
+    line = {"phase": label, "config": cfg.name,
+            "tokens_equal": bool(torch.equal(tg, tc)),
+            "active_sets_equal": all(torch.equal(a, b) for x, y in zip(ig, ic)
+                                     for a, b in zip(x, y)),
+            "last_logits_max_abs_err": err, "tol_abs_rel": 1e-4,
+            "launches_cuda": cg}
+    log(line)
+    require(line["tokens_equal"], f"{label}: cuda and cpu codes differ")
+    require(line["active_sets_equal"], f"{label}: active sets differ")
+    require(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4),
+            f"{label}: last logits differ by {err:.3g}")
+    return line
+
+
+def phase_audio_arch() -> dict:
+    """musicgen-large (AUDIO_ARCH) through ``forward``, as the reference's
+    tests drive it (neither package's entry points serve it): tiny on cuda
+    against cpu; at full width and all 48 layers (random weights from a
+    seed, every predictor A drawn) a prefill of AUDIO_RUN's codebook steps
+    after 64 conditioning frames and 16 greedy decode steps, each call's
+    kernels held to its form of the path, twice (the same codes); the
+    prefill's and a decode step's device time and busy share; decode
+    logits held to whole-prompt prefills (decode_consistency). Returns the
+    path's launch counts, keyed "<arch>/forward"."""
+    import gc
+    import torch
+    from repro_torch.models import transformer as T
+    arch, layers = AUDIO_ARCH
+    t_arch = time.perf_counter()
+    tiny = phase_audio_tiny(f"audio_arch {arch} tiny")
+    t0 = time.perf_counter()
+    full, cfg, params = full_model(arch, layers)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(params)) / 1e9
+    B, P, gen = AUDIO_RUN["B"], AUDIO_RUN["P"], AUDIO_RUN["gen_len"]
+    codes, frames = audio_inputs(cfg, B, P, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    toks, ids, last, walls, counts = audio_generate(
+        cfg, params, codes, frames, gen, f"audio_arch {arch}", counted=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks2, ids2, _, _, _ = audio_generate(cfg, params, codes, frames, gen,
+                                          f"audio_arch {arch}")
+    same = bool(torch.equal(toks, toks2)) and all(
+        torch.equal(a, b) for x, y in zip(ids, ids2) for a, b in zip(x, y))
+    finite = bool(torch.isfinite(last).all())
+    buf = frames.shape[1] + P + gen + 1
+    state = {}
+
+    def prefill():
+        state["cache"] = T.init_cache(cfg, B, buf, device="cuda")
+        logits, _, _ = T.forward(cfg, params, codes, prefix=frames,
+                                 cache=state["cache"], mode="prefill")
+        state["last"] = logits[..., -1, :]
+
+    def decode():
+        if state["cache"]["pos"] >= buf - 1:
+            prefill()
+        nxt = torch.argmax(state["last"], dim=-1)[..., None]
+        logits, _, _ = T.forward(cfg, params, nxt, cache=state["cache"],
+                                 mode="decode")
+        state["last"] = logits[..., 0, :]
+    profile = {"prefill": device_profile(prefill, reps=2)}
+    prefill()
+    profile["decode_step"] = device_profile(decode, reps=5)
+    state.clear()
+    cost = decode_forward_cost(cfg, params, [frames.shape[1] + P + gen // 2]
+                               * B, buf, rows=False)
+    t0 = time.perf_counter()
+    consistency = decode_consistency(cfg, params, codes, gen,
+                                     AUDIO_CHECK_STEPS, prefix=frames)
+    consistency["seconds"] = time.perf_counter() - t0
+    log({"phase": f"audio_arch {arch} consistency", **consistency})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre, dec = profile["prefill"], profile["decode_step"]
+    line = {"phase": "audio_arch", "config": arch,
+            "depth": f"num_layers {full.num_layers} (not cut)",
+            "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
+                       "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+                       "codebooks": cfg.num_codebooks,
+                       "conditioning_frames": cfg.num_prefix_embeddings},
+            "pred_A": "drawn N(0, 1/d) on the device generator for this run "
+                      "(the reference's init zeroes it)",
+            "param_gb": param_gb, "init_s": init_s, "batch": B,
+            "codebook_steps": P, "gen_len": gen, "peak_mem_gb": peak_gb,
+            "tiny_tokens_equal_cuda_cpu": tiny["tokens_equal"],
+            "prefill_wall_ms": walls[0] * 1e3,
+            "decode_step_wall_ms_median": statistics.median(walls[1:]) * 1e3,
+            "prefill_device_ms": pre.get("device_ms"),
+            "prefill_busy_share": pre.get("busy_share"),
+            "prefill_top_kernels_ms": pre.get("top_kernels_ms"),
+            "decode_step_device_ms": dec.get("device_ms"),
+            "decode_step_busy_share": dec.get("busy_share"),
+            "decode_step_top_kernels_ms": dec.get("top_kernels_ms"),
+            "decode_forward": cost, "launches": counts,
+            "finite_logits": finite, "second_run_equal": same,
+            "consistency_max_abs_err": consistency["max_abs_err"],
+            "consistency_worst_err_over_tol":
+                consistency["worst_err_over_tol"],
+            "codes": toks.tolist(),
+            "seconds": time.perf_counter() - t_arch}
+    log(line)
+    require(finite, "audio_arch: non-finite logits")
+    require(same, "audio_arch: a second run gave other codes or sets")
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            "audio_arch: a code outside the codebook")
+    require_path_kernels("audio_arch", "forward", counts)
+    return {f"{arch}/forward": counts}
 
 
 def _leaves(tree):
@@ -2929,7 +3377,10 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def main():
+def main(only=None):
+    """Every phase, the kernel table and the result line; ``only`` (a set
+    of phase names) runs the device phase and those alone, then stops
+    after the timing line, with no table and no result line."""
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no src/repro_torch: run from a checkout of the repo")
     sys.path.insert(0, str(ROOT / "src"))
@@ -2965,6 +3416,16 @@ def main():
         out = fn(*a)
         seconds[name] = time.perf_counter() - t
         return out
+    if only:
+        dev = torch.device("cuda")
+        calls = {"kernels_audio": (phase_kernels_audio, dev),
+                 "ssm_arch": (phase_ssm_arch, B, P, gen_len),
+                 "audio_arch": (phase_audio_arch,)}
+        for name in only:
+            timed(name, *calls[name])
+        log({"phase": "timing", "seconds": seconds,
+             "total_s": time.perf_counter() - t0})
+        return
     kern = timed("kernels", phase_kernels, cfg, torch.device("cuda"), B, P,
                  gen_len)
     kern.update(timed("kernels_server", phase_kernels_server, cfg,
@@ -2975,6 +3436,8 @@ def main():
                       torch.device("cuda"), B, P, gen_len))
     kern.update(timed("kernels_hybrid", phase_kernels_hybrid,
                       torch.device("cuda"), B, P, gen_len))
+    kern.update(timed("kernels_audio", phase_kernels_audio,
+                      torch.device("cuda")))
     timed("tiny", phase_tiny)
     timed("server_tiny", phase_server_tiny)
     full, full_cfg, params = timed("full_model", full_model)
@@ -2991,6 +3454,8 @@ def main():
     paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
     paths.update(timed("moe_archs", phase_moe_archs, B, P, gen_len))
     paths.update(timed("hybrid_arch", phase_hybrid_arch, B, P, gen_len))
+    paths.update(timed("ssm_arch", phase_ssm_arch, B, P, gen_len))
+    paths.update(timed("audio_arch", phase_audio_arch))
     timed("softcap_library", phase_softcap_library)
     log({"phase": "timing", "seconds": seconds,
          "total_s": time.perf_counter() - t0})
@@ -3003,6 +3468,7 @@ def main():
     qwen32, cmdr, mistral, vl = DENSE_ARCHS
     grok = next(a for a, depth in MOE_ARCHS.items() if depth)
     hybrid = HYBRID_ARCH[0]
+    audio = AUDIO_ARCH[0]
     server_paths = ("server_full", "server_obs_full", "cluster_full")
     dense_serve = tuple(f"{a}/serve" for a in (qwen32, cmdr, vl))
     dense_server = tuple(f"{a}/server" for a in (qwen32, cmdr, vl))
@@ -3120,6 +3586,17 @@ def main():
                               "qmatmul_mma", (f"{hybrid}/serve",
                                               f"{hybrid}/ring",
                                               f"{hybrid}/server")),
+        # G = 1 (multi-head attention, D = 64) and the FFN at d = 2048
+        # (musicgen-large, through forward)
+        "flash_decode_g1": (c + "flash_decode.cu", k + "flash_decode.py:26",
+                            "flash_decode", (f"{audio}/forward",)),
+        "flash_attention_g1": (c + "flash_attention.cu",
+                               k + "flash_attention.py:26", "flash_attention",
+                               (f"{audio}/forward",)),
+        "qmatmul_gemv_d2048": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                               "qmatmul_gemv", (f"{audio}/forward",)),
+        "qmatmul_mma_d2048": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                              "qmatmul_mma", (f"{audio}/forward",)),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),
@@ -3156,5 +3633,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--softcap-library"]:
         log(softcap_library(sys.argv[2]))
+    elif sys.argv[1:2] == ["--only"]:
+        main(only=sys.argv[2].split(","))
     else:
         main()

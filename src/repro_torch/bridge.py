@@ -43,7 +43,7 @@ def params_from_jax(np_tree, cfg, device) -> dict:
     (``core.quantize.to_neuron_major``). Leaves come over as the tree has
     them: a parallel block's layer has no ``norm2``, a tied model's tree no
     ``unembed``, an MoE layer's FFN its experts, router and predictor
-    leaves and no banks."""
+    leaves and no banks, an SSD layer no ``ffn`` at all."""
     dev = torch.device(device)
     pat, F, rem = T.pattern_split(cfg)
     layers = []
@@ -55,7 +55,7 @@ def params_from_jax(np_tree, cfg, device) -> dict:
         layers.append(_map(np_tree["layers"]["remainder"][i],
                            lambda a: to_tensor(a, dev)))
     for layer in layers:
-        if "banks" in layer["ffn"]:
+        if "banks" in layer.get("ffn", {}):
             layer["ffn"]["banks"] = to_neuron_major(layer["ffn"]["banks"])
     out = {"layers": layers}
     for name in ("final_norm", "embed", "unembed"):

@@ -150,9 +150,8 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _REGISTRY: dict = {}
 
-#: architectures the port serves so far (the JAX package has more): every
-#: dense-attention config of the reference, its two MoE configs and its
-#: hybrid one
+#: every architecture of the reference: its dense-attention configs, its two
+#: MoE configs, its hybrid, SSM and audio ones
 _MODULE_FOR = {
     "qwen2.5-14b": "qwen2_5_14b",
     "qwen2.5-32b": "qwen2_5_32b",
@@ -162,18 +161,45 @@ _MODULE_FOR = {
     "grok-1-314b": "grok_1_314b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-370m": "mamba2_370m",
+    "musicgen-large": "musicgen_large",
 }
+
+#: families whose configs ``get_config`` loads but no entry point serves:
+#: musicgen's (B, K, S) codebook prompts run through ``forward`` only
+FORWARD_ONLY = ("audio",)
+
+
+def _family(name: str) -> str:
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULE_FOR[name]}").CONFIG.family
 
 
 #: the ``--arch`` values the port serves
-SERVED = tuple(_MODULE_FOR)
+SERVED = tuple(n for n in _MODULE_FOR if _family(n) not in FORWARD_ONLY)
+
+
+def check_served(cfg) -> None:
+    """Raise NotImplementedError for a config of a ``FORWARD_ONLY`` family:
+    the reference cannot serve musicgen's codebook prompts either. Its CLIs
+    draw (B, S) prompts, which its codebook embedding refuses
+    (repro/launch/serve.py:58-59, repro/models/transformer.py:672-675),
+    and its runner's decode broadcasts a (B, K) argmax to (B, K, 1)
+    (repro/core/engine_model.py:184-187)."""
+    if cfg.family in FORWARD_ONLY:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) runs through "
+            "models.transformer.forward only: the reference cannot serve it "
+            "either (its CLIs draw (B, S) prompts, which its codebook "
+            "embedding refuses, and its runner broadcasts a (B, K) argmax "
+            "to (B, K, 1))")
 
 
 def get_config(name: str, tiny: bool = False) -> ModelConfig:
     """Load an architecture config by its id (``--arch`` value)."""
     if name not in _MODULE_FOR:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet; the port serves {list(_MODULE_FOR)}")
+        raise KeyError(f"{name!r} is no config of the reference; the port "
+                       f"loads {list(_MODULE_FOR)}")
     key = (name, tiny)
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[name]}")

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import check_served
 from repro_torch.core.quantize import to_reference_layout
 from repro_torch.models import transformer as T
 
@@ -206,6 +207,7 @@ class RealModelRunner:
     def generate(self, prompts, gen_len: int
                  ) -> Tuple[np.ndarray, List[List[np.ndarray]]]:
         """Greedy decode. Returns (tokens (B, gen_len), active-idx per step)."""
+        check_served(self.cfg)
         prompts = self._tokens(prompts)
         t0 = time.perf_counter()
         last, cache, _ = self._prefill(self.params, prompts)
@@ -362,10 +364,15 @@ def extract_layer_banks(cfg, params) -> Iterator[dict]:
     reference's layout (the files equal the reference's byte for byte);
     transposed on the params' device before the host copy. An MoE layer
     streams its raw expert weights ``wg``, ``wu``, ``wd`` (an expert is a
-    coarse neuron group) and no shared expert. Yields one layer at a time,
-    so the host holds one layer's banks (5.8 GB at mistral-large-123b's
-    widths, 19.3 GB of grok-1-314b's experts), not the model's."""
-    for layer in params["layers"]:
+    coarse neuron group) and no shared expert; an SSD layer, which has no
+    FFN, its projections ``w_in`` and ``w_out`` (engine_model.py:312-316).
+    Yields one layer at a time, so the host holds one layer's banks (5.8
+    GB at mistral-large-123b's widths, 19.3 GB of grok-1-314b's experts),
+    not the model's."""
+    for kind, layer in zip(cfg.layer_kinds, params["layers"]):
+        if kind == "ssm":
+            yield {k: _to_numpy(layer[k]) for k in ("w_in", "w_out")}
+            continue
         ffn = layer["ffn"]
         if "banks" in ffn:
             yield {k: _to_numpy(v)

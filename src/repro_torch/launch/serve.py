@@ -5,10 +5,11 @@ Real tiny model on the GPU:
       --tiny --gen-len 16 --batch 2
 
 The same on the CPU (plain PyTorch versions of the kernels), for any
-served config (qwen2.5-14b, qwen2.5-32b, command-r-35b,
-mistral-large-123b, internvl2-1b, and the MoE grok-1-314b and
+served config (``configs.base.SERVED``: the dense qwen2.5-14b, qwen2.5-32b,
+command-r-35b, mistral-large-123b, internvl2-1b, the MoE grok-1-314b and
 llama4-maverick-400b-a17b, whose routers start at zero as the reference's
-do):
+do, the hybrid recurrentgemma-2b and the SSM mamba2-370m; musicgen-large
+runs through ``models.transformer.forward`` only):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-large-123b \
       --tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import SERVED, get_config
+from repro_torch.configs.base import SERVED, check_served, get_config
 from repro_torch.core.engine import (PAPER_MODELS, GenerationResult,
                                      M2CacheEngine)
 from repro_torch.models import transformer as T
@@ -79,6 +80,7 @@ def run(args: argparse.Namespace, *, cfg=None, params=None,
         res = eng.generate(gen_len=args.gen_len)
     else:
         cfg = cfg if cfg is not None else get_config(args.arch, tiny=args.tiny)
+        check_served(cfg)
         if params is None:
             params = T.init_params(cfg, seed=args.seed, device=device)
         eng = M2CacheEngine(cfg=cfg, params=params, mode=args.mode,

@@ -77,9 +77,10 @@ def build_engine(args, device_name=None, *, cfg=None, params=None,
         common["device_name"] = device_name
     if args.paper_model:
         return M2CacheEngine(paper_model=args.paper_model, **common)
-    from repro_torch.configs.base import get_config
+    from repro_torch.configs.base import check_served, get_config
     from repro_torch.models import transformer as T
     cfg = cfg if cfg is not None else get_config(args.arch, tiny=args.tiny)
+    check_served(cfg)
     if params is None:
         params = T.init_params(cfg, seed=args.seed, device=device)
     return M2CacheEngine(cfg=cfg, params=params, device=device, **common)

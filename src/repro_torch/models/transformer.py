@@ -1,7 +1,9 @@
-"""Model assembly, attention families (``dense``, ``vlm``'s decoder and
-``moe``) and the ``hybrid`` family (RecurrentGemma's RG-LRU blocks beside
-sliding-window attention) with the M2Cache FFN or the MoE FFN
-(``repro/models/transformer.py``'s serving path).
+"""Model assembly for all six families (``repro/models/transformer.py``'s
+serving path): the attention families (``dense``, ``vlm``'s decoder,
+``moe`` and ``audio``'s codebook decoder), the ``hybrid`` family
+(RecurrentGemma's RG-LRU blocks beside sliding-window attention) and the
+attention-free ``ssm`` family (Mamba-2's SSD blocks, no FFN), with the
+M2Cache FFN or the MoE FFN.
 
 Parameters are plain dictionaries of tensors with the reference's leaf
 names; where the reference stacks the layers of one pattern position on a
@@ -12,22 +14,25 @@ keeps the reference's layout, ``{"pattern": [one entry per pattern
 position, its leaves stacked over the F repeats], "remainder": [one entry
 per remainder layer], "pos"}``, an attention entry ``{"k", "v": (F, B,
 sbuf, kvH, Dh)}`` (``sbuf = min(window, max_seq)`` with a sliding window:
-a ring), an RG-LRU entry ``{"h": (F, B, W), "conv": (F, B, cw-1, W)}``
+a ring), an RG-LRU entry ``{"h": (F, B, W), "conv": (F, B, cw-1, W)}``,
+an SSD entry ``{"h": (F, B, nh, hd, n), "conv": (F, B, cw-1, di+2n)}``
 (remainder entries without the F axis), and is updated in place. ``pos``
 is an int when every row stands at one position (a fresh cache,
 launch/serve's batch) and a CPU int64 tensor (B,) when the rows are
 separate requests at their own positions (the server's stacked rows, where
 the reference vmaps a one-row graph over a per-row ``pos``).
 
-Ported so far: attention layers, serial or parallel (command-r's
-attention and FFN side by side on one norm), with the attention logit
-softcap (grok-1) and a sliding window; RG-LRU layers (``models/
-hybrid.py``); the vlm family's prepended ``prefix`` embeddings; the
-M2Cache FFN, and for MoE layers the capacity-dispatched experts
-(``models/moe.py``: no banks, no active neurons, the reference's
-``_ffn_apply``); ``mode`` "prefill", "prefill_resume" (attention-only
-models without a window, as the reference) and "decode", ``m2=True``.
-Other families, layer kinds and the int8 KV cache raise
+Ported: attention layers, serial or parallel (command-r's attention and
+FFN side by side on one norm), with the attention logit softcap (grok-1)
+and a sliding window; RG-LRU layers (``models/hybrid.py``); SSD layers
+(``models/ssm.py``, no FFN); the vlm and audio families' prepended
+``prefix`` embeddings (patches, conditioning frames) and the audio
+family's K codebooks (tokens (B, K, S), logits (B, K, S, V)); the M2Cache
+FFN, and for MoE layers the capacity-dispatched experts (``models/moe.py``:
+no banks, no active neurons, the reference's ``_ffn_apply``); ``mode``
+"prefill", "prefill_resume" (attention-only models without a window, as
+the reference) and "decode", ``m2=True`` (a model without FFNs takes
+either). Mode "train", the dense non-M2 FFN and the int8 KV cache raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -41,7 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
-from repro_torch.models import hybrid, moe
+from repro_torch.models import hybrid, moe, ssm
 from repro_torch.models.common import apply_norm, each_row, rope
 
 # ---------------------------------------------------------------------------
@@ -61,14 +66,17 @@ def pattern_split(cfg) -> Tuple[tuple, int, int]:
 
 
 def check_supported(cfg, *, m2: bool = True):
-    """Raise NotImplementedError for what the port does not serve yet."""
-    if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    other = set(pattern_of(cfg)) - {"attn", "rglru"}
+    """Raise NotImplementedError for what the port does not run yet: layer
+    kinds other than attention, RG-LRU and SSD, and an FFN other than the
+    M2Cache one or the MoE one (a model whose layers have no FFN, as
+    mamba2's, runs under either ``m2``, as the reference's runner calls it
+    with m2=True)."""
+    other = set(pattern_of(cfg)) - {"attn", "rglru", "ssm"}
     if other:
         raise NotImplementedError(f"layer kinds {sorted(other)} are not "
                                   "ported yet")
-    if not (m2 and cfg.m2_enabled):
+    has_ffn = any(kind != "ssm" for kind in pattern_of(cfg))
+    if has_ffn and not (m2 and cfg.m2_enabled):
         raise NotImplementedError("only the M2Cache FFN (m2=True) is ported")
 
 
@@ -124,9 +132,24 @@ def _ffn_specs(cfg, dtype) -> Dict:
 
 
 def _layer_specs(cfg, kind: str, dtype) -> Dict:
-    """One layer of ``kind`` (transformer.py:110-141): an attention layer
-    (a parallel block has no ``norm2``) or an RG-LRU one."""
+    """One layer of ``kind`` (transformer.py:110-156): an attention layer
+    (a parallel block has no ``norm2``), an RG-LRU one or an SSD one (no
+    ``ffn``)."""
     d = cfg.d_model
+    if kind == "ssm":
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+        cw, f32 = cfg.ssm_conv_width, torch.float32
+        return {
+            "norm1": ((d,), f32, "vector"),
+            "w_in": ((d, 2 * di + 2 * n + nh), dtype, "col"),
+            "dt_bias": ((nh,), f32, "replicated"),
+            "A_log": ((nh,), f32, "replicated"),
+            "D": ((nh,), f32, "replicated"),
+            "conv_w": ((cw, di + 2 * n), f32, "vector"),
+            "conv_b": ((di + 2 * n,), f32, "vector"),
+            "gnorm_w": ((di,), f32, "vector"),
+            "w_out": ((di, d), dtype, "row"),
+        }
     if kind == "rglru":
         w, f32 = cfg.lru_width, torch.float32
         return {
@@ -164,10 +187,15 @@ def model_param_specs(cfg, *, dtype=torch.float32) -> Dict:
     specs = {
         "final_norm": ((d,), torch.float32, "vector"),
         "layers": [_layer_specs(cfg, kind, dtype) for kind in cfg.layer_kinds],
-        "embed": ((V, d), dtype, "vocab"),
     }
-    if not cfg.tie_embeddings:
-        specs["unembed"] = ((V, d), dtype, "vocab")
+    if cfg.family == "audio":                   # transformer.py:180-182
+        K = cfg.num_codebooks
+        specs["embed"] = ((K, V, d), dtype, "codebook")
+        specs["unembed"] = ((K, d, V), dtype, "codebook_out")
+    else:
+        specs["embed"] = ((V, d), dtype, "vocab")
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ((V, d), dtype, "vocab")
     return specs
 
 
@@ -202,10 +230,10 @@ def _materialise(tree, gen, device):
 def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
                 generator: torch.Generator = None):
     """Materialise parameters from a ``torch.Generator`` (seeded with ``seed``
-    on ``device`` unless one is given), set the RG-LRU layers' special
-    leaves (transformer.py:280-286: ``lam`` 0.7, ``conv_w`` 1 / width),
-    then build every layer's quantized banks from its fp weights
-    (transformer.py:298-321), gate and up stored neuron-major
+    on ``device`` unless one is given), set the recurrent layers' special
+    leaves (transformer.py:271-286: SSD ``A_log`` 0, ``dt_bias`` 0.5, ``D``
+    1; RG-LRU ``lam`` 0.7; ``conv_w`` 1 / width), then build every layer's
+    quantized banks from its fp weights (transformer.py:298-321), gate and up stored neuron-major
     (``core.quantize.to_neuron_major``); MoE layers have no banks. The
     numbers differ from ``jax.random``'s; parity tests carry the
     reference's params over with ``repro_torch.bridge`` instead."""
@@ -216,10 +244,15 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
         gen.manual_seed(seed)
     params = _materialise(model_param_specs(cfg, dtype=dtype), gen, device)
     for kind, layer in zip(cfg.layer_kinds, params["layers"]):
+        if kind == "ssm":
+            layer["A_log"].fill_(0.0)                  # A = -1
+            layer["dt_bias"].fill_(0.5)
+            layer["D"].fill_(1.0)
         if kind == "rglru":
             layer["lam"].fill_(0.7)
+        if kind != "attn":
             layer["conv_w"].fill_(1.0 / layer["conv_w"].shape[-2])
-        if "banks" not in layer["ffn"]:
+        if "banks" not in layer.get("ffn", {}):
             continue
         b = layer["ffn"]["banks"]
         layer["ffn"]["banks"] = to_neuron_major(build_neuron_banks(
@@ -234,7 +267,7 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
 def _entry(cfg, kind: str, lead: tuple, batch: int, max_seq: int, dtype,
            device) -> Dict:
     """One pattern position's (``lead`` = (F,)) or remainder layer's (())
-    cache entry (transformer.py:339-356)."""
+    cache entry (transformer.py:339-362)."""
     def zeros(*shape):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
     if kind == "attn":
@@ -242,6 +275,10 @@ def _entry(cfg, kind: str, lead: tuple, batch: int, max_seq: int, dtype,
         sbuf = min(w, max_seq) if w else max_seq
         kv = (batch, sbuf, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(*kv), "v": zeros(*kv)}
+    if kind == "ssm":
+        di, n = cfg.d_inner, cfg.ssm_state
+        return {"h": zeros(batch, cfg.ssm_nheads, cfg.ssm_head_dim, n),
+                "conv": zeros(batch, cfg.ssm_conv_width - 1, di + 2 * n)}
     w = cfg.lru_width
     return {"h": zeros(batch, w),
             "conv": zeros(batch, cfg.ssm_conv_width - 1, w)}
@@ -453,11 +490,42 @@ def rglru_layer(cfg, p, x, state, *, rows: bool = False):
     return x + y, info["active_idx"], 0.0
 
 
+def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False):
+    """An SSD layer (transformer.py:646-649): norm1, the Mamba-2 block, the
+    residual; no FFN. x: (B, S, d); state: this layer's {'h', 'conv'}
+    cache views, updated in place (None: no cache). ``rows`` as in
+    :func:`attn_layer`. Returns (y, empty active ids: (0,), or (B, 0) with
+    ``rows``, 0.0)."""
+    def block(t, st):
+        y, new = ssm.ssm_block(cfg, p, apply_norm(cfg, t, p["norm1"]), st,
+                               mode=mode)
+        for k in st or {}:
+            st[k].copy_(new[k])
+        return y
+    if rows and x.shape[0] > 1:
+        mix = torch.cat([block(x[r:r + 1], None if state is None else
+                               {k: v[r:r + 1] for k, v in state.items()})
+                         for r in range(x.shape[0])])
+    else:
+        mix = block(x, state)
+    empty = torch.zeros((x.shape[0], 0) if rows else (0,), dtype=torch.int32,
+                        device=x.device)
+    return x + mix, empty, 0.0
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 
 
 def embed_tokens(cfg, params, tokens):
+    if cfg.family == "audio":
+        # tokens (B, K, S): the K codebooks' embeddings summed in codebook
+        # order (transformer.py:670-676)
+        tokens = tokens.long()
+        x = params["embed"][0][tokens[:, 0]]
+        for k in range(1, tokens.shape[1]):
+            x = x + params["embed"][k][tokens[:, k]]
+        return x
     x = params["embed"][tokens.long()]
     if cfg.family == "hybrid":                  # gemma-style scale
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -465,6 +533,8 @@ def embed_tokens(cfg, params, tokens):
 
 
 def unembed(cfg, params, x):
+    if cfg.family == "audio":                   # bsd,kdv->bksv
+        return x[:, None] @ params["unembed"][None]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return x @ table.T
 
@@ -478,13 +548,15 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
             m2: bool = True, rows: bool = False):
     """Returns (logits, cache, aux); ``cache`` is updated in place.
 
-    tokens: (B, S) integer ids. prefix: (B, N, d) precomputed frontend
-    embeddings (vlm patches), prepended outside decode: they fill the
-    cache's first N slots of the run and get no logits (transformer.py:
+    tokens: (B, S) integer ids, (B, K, S) for the audio family's K
+    codebooks. prefix: (B, N, d) precomputed frontend embeddings (vlm
+    patches, audio conditioning frames), prepended outside decode: they
+    fill the cache's first N slots of the run and get no logits (transformer.py:
     711-714, 775-776). mode: prefill | prefill_resume | decode;
     decode and prefill_resume start each row at its ``cache["pos"]``
     (prefill_resume raises on a sliding window or a recurrent layer, as
-    the reference asserts, transformer.py:559-561). Layers run in layer
+    the reference asserts, transformer.py:559-561). Logits are (B, S, V),
+    (B, K, S, V) for audio. Layers run in layer
     order, each by its kind (transformer.py:715-790). A sliding window's
     ring lets a prompt or a decode step run past its ``sbuf`` slots.
     ``rows``: every batch row is its own request, with its own FFN active
@@ -494,14 +566,14 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     aux["active_idx"] is ``{"pattern": [(F, k) tensor per pattern
     position], "remainder": [(k,) tensor per remainder layer]}``, the
     reference's structure; with ``rows`` (B, F, k) and (B, k), the
-    reference's vmapped layout. MoE layers have no active neurons: their
-    entries are (F, 0), (B, F, 0) with ``rows``. aux["lb_loss"] sums the MoE
+    reference's vmapped layout. MoE and SSD layers have no active neurons:
+    their entries are (F, 0), (B, F, 0) with ``rows``. aux["lb_loss"] sums the MoE
     layers' load-balance losses (0.0 without MoE; (B,) with ``rows``)."""
     check_supported(cfg, m2=m2)
     if mode not in ("prefill", "prefill_resume", "decode"):
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     pat, F, rem = pattern_split(cfg)
-    if mode == "prefill_resume" and (cfg.window_size or "rglru" in pat):
+    if mode == "prefill_resume" and (cfg.window_size or set(pat) - {"attn"}):
         raise NotImplementedError(
             "prefill_resume does not support sliding-window attention or "
             "recurrent layers")
@@ -531,8 +603,10 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
         if kind == "attn":
             x, idx, lb = attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
                                     slots=slots)
-        else:
+        elif kind == "rglru":
             x, idx, lb = rglru_layer(cfg, p, x, c, rows=rows)
+        else:
+            x, idx, lb = ssm_layer(cfg, p, x, c, mode=mode, rows=rows)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 

@@ -48,14 +48,16 @@ def model_from(jcfg, cfg, *, zero_router: bool = False):
     ``jcfg``, the port's ``cfg``): the reference's init, then every pattern
     position's and remainder layer's predictor ``A`` drawn (pattern 0 from
     rng 21, as it always was; position i from 21 + i, remainder j from
-    31 + j), or an MoE layer's router."""
+    31 + j), or an MoE layer's router (an SSD layer has neither)."""
     jp = JT.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32,
                         m2=True)
     layers = jp["layers"]
     for seed, layer in ([(21 + i, p) for i, p in enumerate(layers["pattern"])]
                         + [(31 + j, p) for j, p in
                            enumerate(layers["remainder"])]):
-        ffn = layer["ffn"]
+        ffn = layer.get("ffn", {})
+        if not ffn:                                     # an SSD layer
+            continue
         if "pred" in ffn:                               # a trained predictor
             ffn["pred"]["A"] = jnp.asarray(
                 np.random.default_rng(seed).standard_normal(

@@ -193,7 +193,9 @@ def _decode_inputs(dev, B, S, Hkv, G, D, seed=0):
     (4, 145, 2, 7, 64, False),            # internvl2-1b
     (4, 145, 8, 8, 128, False),           # command-r-35b
     (2, 4096, 8, 12, 128, False), (2, 300, 2, 7, 64, True),
-    (1, 1000, 1, 16, 64, False)])         # G = 16: two groups of 8
+    (1, 1000, 1, 16, 64, False),          # G = 16: two groups of 8
+    (4, 209, 32, 1, 64, False),           # musicgen-large: G = 1 (MHA)
+    (2, 4096, 32, 1, 64, True)])
 def test_flash_decode_matches_plain(dev, B, S, Hkv, G, D, ring):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import flash_decode
@@ -307,6 +309,8 @@ def test_flash_decode_head_groups_keep_each_heads_bits(dev, monkeypatch, S):
     (3, 50, 16, 1, 64, 0, 1.0),           # G = 16: two head groups
     (4, 128, 96, 8, 128, 0, 1.0),         # mistral-large-123b: G = 12
     (4, 128, 14, 2, 64, 0, 1.0),          # internvl2-1b: G = 7, D = 64
+    (4, 192, 32, 32, 64, 0, 1.0),         # musicgen-large: G = 1 (MHA)
+    (2, 77, 32, 32, 64, 0, 1.0),          # G = 1 at a ragged S
     (4, 128, 40, 8, 128, 0, 3.5)])        # scores reach about +-60
 def test_flash_attention_matches_plain(dev, B, S, Hq, Hkv, D, window, mag):
     from repro_torch.kernels import ref
@@ -327,7 +331,8 @@ def test_flash_attention_matches_plain(dev, B, S, Hq, Hkv, D, window, mag):
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D", [(4, 128, 40, 8, 128),
-                                          (4, 77, 10, 2, 128)])
+                                          (4, 77, 10, 2, 128),
+                                          (4, 192, 32, 32, 64)])
 def test_flash_attention_row_alone_equals_row_in_group(dev, B, S, Hq, Hkv, D):
     """The plan depends on one row's shape: a row alone gives the bits it
     gives in a group of four."""
@@ -890,3 +895,138 @@ def test_hybrid_tiny_on_cuda_equals_cpu(dev, P):
         alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
                                 mode="decode")
         assert torch.equal(logits[r:r + 1], alone)
+
+
+@pytest.mark.parametrize("kernel,M", [("gemv", 4), ("mma", 4), ("mma", 768)])
+def test_musicgen_ffn_d2048_matches_plain(dev, monkeypatch, kernel, M):
+    """One layer's M2Cache FFN at musicgen-large's widths (d = 2048, f =
+    8192, GELU; tiers 614/614/1230) through kernel A and kernel B against
+    the plain version: the decode step's 4 rows and the prefill's 4 x 192."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import mp_ffn
+    from repro_torch.kernels import ops
+    cfg = get_config("musicgen-large")
+    tiers = mp_ffn.tier_sizes(cfg.d_ff, cfg)
+    assert (tiers["fp16"], tiers["int8"], tiers["int4"]) == (614, 614, 1230)
+    _route(monkeypatch, kernel)
+    banks = _banks(dev, d=2048, f=8192, seed=M)
+    g = torch.Generator(device=dev).manual_seed(M)
+    pred = {"A": torch.randn(2048, 64, generator=g, device=dev) / 8,
+            "B": torch.randn(64, 8192, generator=g, device=dev) / 8}
+    x = torch.randn(1, M, 2048, generator=g, device=dev)
+    got, info = mp_ffn.mp_ffn_apply(cfg, banks, pred, x)
+    with monkeypatch.context() as m:
+        m.setattr(ops, "_on_cpu", lambda *t: True)
+        want, winfo = mp_ffn.mp_ffn_apply(cfg, banks, pred, x)
+    assert torch.equal(info["active_idx"], winfo["active_idx"])
+    _close(got, want)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("P", [12, 80])
+def test_ssm_tiny_on_cuda_equals_cpu(dev, P):
+    """mamba2-370m tiny (chunk 32): prompts of 12 and of 80 tokens (three
+    chunks, the last padded) and 6 greedy tokens: tokens on the card equal
+    the CPU's, last logits within 1e-4, no kernel launched (the SSD is
+    plain PyTorch, as the reference's is plain jnp); rows mode keeps a
+    row's bits alone; the SSD block on the card within 1e-5 of the CPU's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.engine_model import RealModelRunner, _stack_rows
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    cfg = get_config("mamba2-370m", tiny=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        for k in ("A_log", "dt_bias", "D", "conv_b"):
+            layer[k] = torch.randn(layer[k].shape, generator=g) / 2
+    gparams = _to(params, dev)
+    prompts = np.random.default_rng(P).integers(0, cfg.vocab_size, (2, P))
+    gpu = RealModelRunner(cfg, gparams, max_seq=P + 8, device=dev)
+    tok_gpu, _ = gpu.generate(prompts, 6)
+    cpu = RealModelRunner(cfg, params, max_seq=P + 8, device="cpu")
+    tok_cpu, _ = cpu.generate(prompts, 6)
+    np.testing.assert_array_equal(tok_gpu, tok_cpu)
+    torch.testing.assert_close(gpu.last_logits.cpu(), cpu.last_logits,
+                               rtol=1e-4, atol=1e-4)
+    x = torch.randn(2, P, cfg.d_model, generator=g)
+    for mode, xin in (("prefill", x), ("decode", x[:, :1])):
+        st = T.init_cache(cfg, 2, 8, device="cpu")["pattern"][0]
+        st = {k: torch.randn(v[0].shape, generator=g) for k, v in st.items()}
+        y, ns = ssm.ssm_block(cfg, params["layers"][0], xin, st, mode=mode)
+        yg, nsg = ssm.ssm_block(cfg, gparams["layers"][0], xin.to(dev),
+                                _to(st, dev), mode=mode)
+        _close(yg.cpu(), y)
+        _close(nsg["h"].cpu(), ns["h"])
+    rng = np.random.default_rng(4)
+    caches = []
+    for p in (16, 40, 70):
+        c = T.init_cache(cfg, 1, 8, device=dev)
+        T.forward(cfg, gparams, torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, p))).to(dev), cache=c, mode="prefill")
+        caches.append(c)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1))).to(dev)
+    logits, _, _ = T.forward(cfg, gparams, tokens, cache=_stack_rows(caches),
+                             mode="decode", rows=True)
+    for r, c in enumerate(caches):
+        alone, _, _ = T.forward(cfg, gparams, tokens[r:r + 1], cache=c,
+                                mode="decode")
+        assert torch.equal(logits[r:r + 1], alone)
+
+
+@pytest.mark.parametrize("widen", [None, dict(d_model=256, head_dim=64,
+                                              d_ff=512)])
+def test_audio_tiny_forward_on_cuda_equals_cpu(dev, widen):
+    """musicgen-large tiny (and widened to head dim 64), every predictor A
+    drawn: a prefill of 12 codebook steps after the conditioning frames,
+    then 4 greedy decode steps, through forward on the card and on the
+    CPU: greedy codes and active sets equal, logits within 1e-4; the three
+    kernels launched."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention, flash_decode, qmatmul
+    from repro_torch.models import transformer as T
+    cfg = get_config("musicgen-large", tiny=True)
+    if widen:
+        cfg = dataclasses.replace(cfg, **widen)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        layer["ffn"]["pred"]["A"] = torch.randn(
+            layer["ffn"]["pred"]["A"].shape, generator=g) / 16
+    gparams = _to(params, dev)
+    codes = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, cfg.num_codebooks, 12)))
+    frames = torch.randn(2, cfg.num_prefix_embeddings, cfg.d_model,
+                         generator=g)
+    before = (qmatmul.launches, flash_decode.launches,
+              flash_attention.launches)
+    runs = []
+    for device, p in (("cpu", params), (dev, gparams)):
+        c = T.init_cache(cfg, 2, 32, device=device)
+        logits, c, aux = T.forward(cfg, p, codes.to(device), cache=c,
+                                   mode="prefill", prefix=frames.to(device))
+        out = [(logits.cpu(), aux)]
+        for _ in range(4):
+            nxt = torch.argmax(out[-1][0][..., -1, :], -1)[..., None]
+            logits, c, aux = T.forward(cfg, p, nxt.to(device), cache=c,
+                                       mode="decode")
+            out.append((logits.cpu(), aux))
+        runs.append(out)
+    after = (qmatmul.launches, flash_decode.launches,
+             flash_attention.launches)
+    for (lc, ac), (lg, ag) in zip(*runs):
+        torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+        assert torch.equal(torch.argmax(lg[..., -1, :], -1),
+                           torch.argmax(lc[..., -1, :], -1))
+        for a, b in zip(ac["active_idx"]["pattern"],
+                        ag["active_idx"]["pattern"]):
+            assert torch.equal(a, b.cpu())
+    assert all(a > b for a, b in zip(after, before))

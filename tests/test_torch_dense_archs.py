@@ -82,9 +82,11 @@ def test_kv_payload_gate_and_served_list_agree_with_reference(arch):
 
 
 def test_unported_arch_error_lists_what_is_served():
-    with pytest.raises(NotImplementedError) as err:
-        get_config("mamba2-370m")
-    for arch in ["qwen2.5-14b"] + ARCHS:
+    """Every config of the reference is ported: a name that is none of
+    them raises KeyError (as the reference's lookup does), listing them."""
+    with pytest.raises(KeyError) as err:
+        get_config("llama-7b")
+    for arch in ["qwen2.5-14b", "mamba2-370m", "musicgen-large"] + ARCHS:
         assert repr(arch) in str(err.value)
 
 

@@ -140,10 +140,16 @@ def test_init_params_follows_reference_rules_and_shapes():
                                          num_experts_per_tok=2,
                                          m2_enabled=False),
                                     dict(family="hybrid",
-                                         block_pattern=("ssm", "attn")),
-                                    dict(family="ssm"),
-                                    dict(family="audio")])
+                                         block_pattern=("ssm", "attn"),
+                                         m2_enabled=False),
+                                    dict(family="hybrid",
+                                         block_pattern=("conv", "attn")),
+                                    dict(family="audio", num_codebooks=4,
+                                         m2_enabled=False)])
 def test_unported_configs_raise(change):
+    """The dense non-M2 FFN and unknown layer kinds are not ported (SSD
+    layers and the audio family are: tests/test_torch_ssm.py,
+    tests/test_torch_audio.py)."""
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen2.5-14b", tiny=True), **change)
     with pytest.raises(NotImplementedError):
