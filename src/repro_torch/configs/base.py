@@ -165,6 +165,21 @@ _MODULE_FOR = {
     "musicgen-large": "musicgen_large",
 }
 
+#: the reference's architecture ids in its order (repro/configs/base.py:
+#: 152-163)
+ASSIGNED_ARCHS = (
+    "qwen2.5-14b",
+    "command-r-35b",
+    "grok-1-314b",
+    "qwen2.5-32b",
+    "mistral-large-123b",
+    "internvl2-1b",
+    "recurrentgemma-2b",
+    "mamba2-370m",
+    "musicgen-large",
+    "llama4-maverick-400b-a17b",
+)
+
 #: families whose configs ``get_config`` loads but no entry point serves:
 #: musicgen's (B, K, S) codebook prompts run through ``forward`` only
 FORWARD_ONLY = ("audio",)
@@ -206,3 +221,7 @@ def get_config(name: str, tiny: bool = False) -> ModelConfig:
         _REGISTRY[(name, False)] = mod.CONFIG
         _REGISTRY[(name, True)] = mod.tiny()
     return _REGISTRY[key]
+
+
+def list_archs():
+    return list(ASSIGNED_ARCHS)

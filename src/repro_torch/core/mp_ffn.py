@@ -17,9 +17,11 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.core.predictor import predictor_scores, shared_topk_indices
 from repro_torch.kernels import ops
-from repro_torch.models.common import each_row
+from repro_torch.models.common import activation, each_row
 
 
 def tier_sizes(f: int, cfg) -> Dict[str, int]:
@@ -51,3 +53,20 @@ def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
     bytes_moved = 3 * d * (k16 * 2 + k8 * 1 + k4 * 0.5)
     info = {"active_idx": idx, "bytes_weights": bytes_moved, "sizes": sizes}
     return y, info
+
+
+def mp_ffn_reference(cfg, wg, wu, wd, pred, x):
+    """Oracle: the dense FFN masked to the same batch-shared active set at
+    full precision (reference :98-110), to bound the quantization error of
+    :func:`mp_ffn_apply`. wg, wu: (d, f); wd: (f, d) (the reference's
+    layout); x: (B, S, d)."""
+    f = wg.shape[-1]
+    idx = shared_topk_indices(predictor_scores(x, pred["A"], pred["B"]),
+                              tier_sizes(f, cfg)["k"])
+    mask = torch.zeros(f, dtype=torch.bool, device=x.device)
+    mask[idx] = True
+    act = activation(cfg.ffn_act)
+    h = act(torch.einsum("bsd,df->bsf", x, wg))
+    h = h * torch.einsum("bsd,df->bsf", x, wu)
+    h = torch.where(mask, h, 0.0).to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", h, wd)

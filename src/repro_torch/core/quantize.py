@@ -33,6 +33,11 @@ def quantize_int8(w, axis: int):
     return q.to(torch.int8), scale.squeeze(axis)
 
 
+def dequantize_int8(q, scale, axis: int):
+    """int8 values times their per-neuron scales (reference :31), fp32."""
+    return q.float() * scale.unsqueeze(axis)
+
+
 def _pack_nibbles(lo, hi):
     """(lo & 0x0F) | (hi << 4) as int8 bytes, computed without int8 overflow."""
     byte = (lo.to(torch.int16) & 0x0F) | ((hi.to(torch.int16) & 0x0F) << 4)
@@ -81,6 +86,12 @@ def unpack_int4(packed, axis: int, orig_len: Optional[int] = None):
     if orig_len is not None and orig_len != out.shape[axis]:
         out = out.narrow(axis, 0, orig_len)
     return out.to(torch.int8)
+
+
+def dequantize_int4(packed, scale, axis: int):
+    """Unpacked int4 values times their per-neuron scales (reference
+    :93), fp32; ``axis`` is the packing axis."""
+    return unpack_int4(packed, axis).float() * scale.unsqueeze(axis)
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,14 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
 
     On the card each tier runs gate and up through the col kernel, the
     activation in PyTorch, and down through the row kernel, which adds into
-    one output: 9 kernel launches per layer whatever the row count."""
+    one output: 9 kernel launches per layer whatever the row count. The
+    kernel has no backward: an input that requires grad raises there."""
     if _on_cpu(x):
         return ref.mp_ffn_gathered_ref(x, banks, idx, sizes, act_name)
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            w.requires_grad for w in banks.values())):
+        raise ValueError("the qmatmul kernels have no backward: run the "
+                         "M2Cache FFN on the card under torch.no_grad()")
     B, S, d = x.shape
     if idx.dim() == 1:                      # one set: the batch is one row
         x3, idx2 = x.reshape(1, B * S, d), idx[None]

@@ -27,27 +27,32 @@ FFN side by side on one norm), with the attention logit softcap (grok-1)
 and a sliding window; RG-LRU layers (``models/hybrid.py``); SSD layers
 (``models/ssm.py``, no FFN); the vlm and audio families' prepended
 ``prefix`` embeddings (patches, conditioning frames) and the audio
-family's K codebooks (tokens (B, K, S), logits (B, K, S, V)); the M2Cache
-FFN, and for MoE layers the capacity-dispatched experts (``models/moe.py``:
-no banks, no active neurons, the reference's ``_ffn_apply``); ``mode``
-"prefill", "prefill_resume" (attention-only models without a window, as
-the reference) and "decode", ``m2=True`` (a model without FFNs takes
-either). Mode "train", the dense non-M2 FFN and the int8 KV cache raise
-NotImplementedError.
+family's K codebooks (tokens (B, K, S), logits (B, K, S, V)); the three
+FFNs of the reference's ``_ffn_apply``: the M2Cache FFN (``m2`` and a
+layer with banks), the MoE experts (``models/moe.py``: no banks, no active
+neurons) and the dense GLU (``init_params(m2=False)``'s ``wg``/``wu``/
+``wd``); ``mode`` "train" (no cache, under autograd; ``remat`` recomputes
+each layer in the backward pass; :func:`lm_loss`), "prefill",
+"prefill_resume" (attention-only models without a window, as the
+reference) and "decode". The ``window`` override and the int8 KV cache
+raise NotImplementedError.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
 from repro_torch.models import hybrid, moe, ssm
-from repro_torch.models.common import apply_norm, each_row, rope
+from repro_torch.models.common import (apply_norm, chunked_attention, each_row,
+                                       glu_ffn, rope)
 
 # ---------------------------------------------------------------------------
 # Parameter specification
@@ -65,28 +70,24 @@ def pattern_split(cfg) -> Tuple[tuple, int, int]:
     return pat, F, rem
 
 
-def check_supported(cfg, *, m2: bool = True):
-    """Raise NotImplementedError for what the port does not run yet: layer
-    kinds other than attention, RG-LRU and SSD, and an FFN other than the
-    M2Cache one or the MoE one (a model whose layers have no FFN, as
-    mamba2's, runs under either ``m2``, as the reference's runner calls it
-    with m2=True)."""
+def check_supported(cfg):
+    """Raise NotImplementedError for layer kinds the port does not run:
+    anything but attention, RG-LRU and SSD."""
     other = set(pattern_of(cfg)) - {"attn", "rglru", "ssm"}
     if other:
         raise NotImplementedError(f"layer kinds {sorted(other)} are not "
                                   "ported yet")
-    has_ffn = any(kind != "ssm" for kind in pattern_of(cfg))
-    if has_ffn and not (m2 and cfg.m2_enabled):
-        raise NotImplementedError("only the M2Cache FFN (m2=True) is ported")
 
 
-def _ffn_specs(cfg, dtype) -> Dict:
+def _ffn_specs(cfg, dtype, m2: bool) -> Dict:
     """(shape, dtype, kind) of one layer's FFN: the MoE experts
     (transformer.py:57-76: the router, (E, d, f) gate and up, (E, f, d)
-    down, a shared expert where the config has one, and the per-expert
-    predictor leaves, which nothing reads), else the M2Cache FFN
-    (transformer.py:77-102), in the reference's layout: :func:`init_params`
-    draws the fp weights in it and then stores gate and up neuron-major."""
+    down, a shared expert where the config has one, and with ``m2`` the
+    per-expert predictor leaves, which nothing reads), else with ``m2`` the
+    M2Cache FFN (transformer.py:77-102), in the reference's layout:
+    :func:`init_params` draws the fp weights in it and then stores gate and
+    up neuron-major; else the dense GLU's (d, f) gate and up and (f, d)
+    down (transformer.py:103-107)."""
     d, f, r = cfg.d_model, cfg.d_ff, cfg.m2_predictor_rank
     i8, f32 = torch.int8, torch.float32
     if cfg.num_experts:
@@ -102,9 +103,13 @@ def _ffn_specs(cfg, dtype) -> Dict:
             out["shared_wg"] = ((d, fs), dtype, "col")
             out["shared_wu"] = ((d, fs), dtype, "col")
             out["shared_wd"] = ((fs, d), dtype, "row")
-        out["pred_A"] = ((d, r), f32, "replicated")
-        out["pred_B"] = ((r, f), f32, "replicated")
+        if m2:
+            out["pred_A"] = ((d, r), f32, "replicated")
+            out["pred_B"] = ((r, f), f32, "replicated")
         return out
+    if not m2:
+        return {"wg": ((d, f), dtype, "col"), "wu": ((d, f), dtype, "col"),
+                "wd": ((f, d), dtype, "row")}
     assert d % 2 == 0 and f % 2 == 0
     return {
         "banks": {
@@ -131,7 +136,7 @@ def _ffn_specs(cfg, dtype) -> Dict:
     }
 
 
-def _layer_specs(cfg, kind: str, dtype) -> Dict:
+def _layer_specs(cfg, kind: str, dtype, m2: bool) -> Dict:
     """One layer of ``kind`` (transformer.py:110-156): an attention layer
     (a parallel block has no ``norm2``), an RG-LRU one or an SSD one (no
     ``ffn``)."""
@@ -165,14 +170,14 @@ def _layer_specs(cfg, kind: str, dtype) -> Dict:
             "lam": ((w,), f32, "vector"),
             "w_out": ((w, d), dtype, "row"),
             "norm2": ((d,), f32, "vector"),
-            "ffn": _ffn_specs(cfg, dtype),
+            "ffn": _ffn_specs(cfg, dtype, m2),
         }
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out = {
         "norm1": ((d,), torch.float32, "vector"),
         "wqkv": ((d, (hq + 2 * hkv) * hd), dtype, "col"),
         "wo": ((hq * hd, d), dtype, "row"),
-        "ffn": _ffn_specs(cfg, dtype),
+        "ffn": _ffn_specs(cfg, dtype, m2),
     }
     if cfg.qkv_bias:
         out["bqkv"] = (((hq + 2 * hkv) * hd,), torch.float32, "vector")
@@ -181,12 +186,17 @@ def _layer_specs(cfg, kind: str, dtype) -> Dict:
     return out
 
 
-def model_param_specs(cfg, *, dtype=torch.float32) -> Dict:
+def model_param_specs(cfg, *, dtype=torch.float32, m2: bool = True) -> Dict:
+    """The params' (shape, dtype, kind) leaves, one dictionary per layer.
+    ``m2`` (the port's default; the reference's is False) gives the
+    M2Cache banks where the config enables them, else the dense FFN."""
     check_supported(cfg)
+    m2 = m2 and cfg.m2_enabled
     d, V = cfg.d_model, cfg.vocab_size
     specs = {
         "final_norm": ((d,), torch.float32, "vector"),
-        "layers": [_layer_specs(cfg, kind, dtype) for kind in cfg.layer_kinds],
+        "layers": [_layer_specs(cfg, kind, dtype, m2)
+                   for kind in cfg.layer_kinds],
     }
     if cfg.family == "audio":                   # transformer.py:180-182
         K = cfg.num_codebooks
@@ -228,13 +238,15 @@ def _materialise(tree, gen, device):
 
 @torch.no_grad()
 def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
-                generator: torch.Generator = None):
+                generator: torch.Generator = None, m2: bool = True):
     """Materialise parameters from a ``torch.Generator`` (seeded with ``seed``
     on ``device`` unless one is given), set the recurrent layers' special
     leaves (transformer.py:271-286: SSD ``A_log`` 0, ``dt_bias`` 0.5, ``D``
     1; RG-LRU ``lam`` 0.7; ``conv_w`` 1 / width), then build every layer's
-    quantized banks from its fp weights (transformer.py:298-321), gate and up stored neuron-major
-    (``core.quantize.to_neuron_major``); MoE layers have no banks. The
+    quantized banks from its fp weights (transformer.py:298-321), gate and
+    up stored neuron-major (``core.quantize.to_neuron_major``); MoE layers
+    have no banks, and with ``m2`` False (:func:`model_param_specs`) no
+    layer has: the dense FFN keeps its drawn ``wg``/``wu``/``wd``. The
     numbers differ from ``jax.random``'s; parity tests carry the
     reference's params over with ``repro_torch.bridge`` instead."""
     device = resolve_device(device)
@@ -242,7 +254,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-    params = _materialise(model_param_specs(cfg, dtype=dtype), gen, device)
+    params = _materialise(model_param_specs(cfg, dtype=dtype, m2=m2), gen,
+                          device)
     for kind, layer in zip(cfg.layer_kinds, params["layers"]):
         if kind == "ssm":
             layer["A_log"].fill_(0.0)                  # A = -1
@@ -367,13 +380,17 @@ def decode_slots(pos0, sbuf: int, ring: bool = False):
 
 
 def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
-               slots=None):
+               slots=None, m2: bool = True):
     """x: (B, S, d). kv: this layer's {'k', 'v'} cache views, updated in
-    place. pos0: (B,) int64 start positions on x's device (all 0 for
-    "prefill"). mode: "decode" (one token at pos0), "prefill" (from 0) or
-    "prefill_resume" (an S-token chunk at pos0, attending over the whole
-    buffer). ``rows``: the batch rows are separate requests: per-row FFN
+    place (None in "train"). pos0: (B,) int64 start positions on x's
+    device (all 0 for "prefill" and "train"). mode: "decode" (one token at
+    pos0), "prefill" (from 0), "prefill_resume" (an S-token chunk at pos0,
+    attending over the whole buffer) or "train" (from 0, no cache: the
+    plain ``chunked_attention`` on every device, as the reference trains,
+    transformer.py:495-498; the attention kernels have no backward).
+    ``rows``: the batch rows are separate requests: per-row FFN
     active sets, and the products and norms run one row at a time.
+    ``m2``: the FFN as :func:`_ffn_apply` picks it.
     ``slots``: :func:`decode_slots` of pos0 (decode only). A parallel block
     (transformer.py:625-627) feeds the FFN the normed ``h`` that fed QKV
     and adds both outputs to x. The attention takes ``cfg.logit_softcap``
@@ -381,7 +398,7 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     writes its last ``sbuf`` tokens to their slots and a decode step slot
     ``pos mod sbuf`` (transformer.py:502, 603-609).
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
-    load-balance loss: 0.0 for an M2Cache FFN, a (B,) tensor with
+    load-balance loss: 0.0 for another FFN, a (B,) tensor with
     ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -407,8 +424,11 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     k = rope(k, positions, cfg.rope_theta)
 
     cap, window = cfg.logit_softcap, cfg.window_size
-    sbuf = kv["k"].shape[1]
-    if mode == "prefill":                   # from position 0
+    sbuf = None if kv is None else kv["k"].shape[1]
+    if mode == "train":
+        attn_out = chunked_attention(q, k, v, positions, positions,
+                                     window=window, softcap=cap)
+    elif mode == "prefill":                 # from position 0
         attn_out = ops.prefill_attention(q, k, v, positions, window=window,
                                          softcap=cap)
         if window and S >= sbuf:            # the ring keeps the last sbuf
@@ -438,14 +458,7 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
 
     def ffn(t):
-        if cfg.num_experts:
-            y, lb = dense(lambda tr: _moe_apply(cfg, p["ffn"], tr), t)
-            empty = torch.zeros((B, 0) if rows else (0,), dtype=torch.int32,
-                                device=t.device)
-            return y, empty, lb if rows else lb[0]
-        y, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], t,
-                                  rows=rows)
-        return y, info["active_idx"], 0.0
+        return _ffn_apply(cfg, p["ffn"], t, m2=m2, rows=rows)
     if cfg.parallel_block:
         ffn_out, idx, lb = ffn(h)
         y = x + attn_out + ffn_out
@@ -455,6 +468,28 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
                                      x))
         y = x + ffn_out
     return y, idx, lb
+
+
+def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool):
+    """A layer's FFN (the reference's ``_ffn_apply``, transformer.py:
+    414-432): the MoE experts, the M2Cache FFN where ``m2`` and the layer
+    has banks, else the dense GLU; ``rows`` as in :func:`attn_layer`.
+    Returns (y, active ids (empty but for the M2Cache FFN), the MoE
+    load-balance loss or 0.0)."""
+    def dense(fn, t):
+        return each_row(fn, t) if rows else fn(t)
+    empty = torch.zeros((x.shape[0], 0) if rows else (0,), dtype=torch.int32,
+                        device=x.device)
+    if cfg.num_experts:
+        y, lb = dense(lambda t: _moe_apply(cfg, p_ffn, t), x)
+        return y, empty, lb if rows else lb[0]
+    if m2 and "banks" in p_ffn:
+        y, info = mp.mp_ffn_apply(cfg, p_ffn["banks"], p_ffn["pred"], x,
+                                  rows=rows)
+        return y, info["active_idx"], 0.0
+    y = dense(lambda t: glu_ffn(t, p_ffn["wg"], p_ffn["wu"], p_ffn["wd"],
+                                cfg.ffn_act), x)
+    return y, empty, 0.0
 
 
 def _moe_apply(cfg, p_ffn, x):
@@ -472,10 +507,11 @@ def _moe_apply(cfg, p_ffn, x):
     return y, aux["lb_loss"].reshape(1)
 
 
-def rglru_layer(cfg, p, x, state, *, rows: bool = False):
+def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True):
     """An RG-LRU layer (transformer.py:636-643): x: (B, S, d); state: this
     layer's {'h', 'conv'} cache views, updated in place (None: no cache).
-    ``rows`` as in :func:`attn_layer`. Returns (y, active ids, 0.0)."""
+    ``rows`` and ``m2`` as in :func:`attn_layer`. Returns (y, active ids,
+    0.0)."""
     def dense(fn, t):
         return each_row(fn, t) if rows else fn(t)
     h = dense(lambda t: apply_norm(cfg, t, p["norm1"]), x)
@@ -485,9 +521,8 @@ def rglru_layer(cfg, p, x, state, *, rows: bool = False):
         state["conv"].copy_(new_state["conv"])
     x = x + mix
     h2 = dense(lambda t: apply_norm(cfg, t, p["norm2"]), x)
-    y, info = mp.mp_ffn_apply(cfg, p["ffn"]["banks"], p["ffn"]["pred"], h2,
-                              rows=rows)
-    return x + y, info["active_idx"], 0.0
+    y, idx, lb = _ffn_apply(cfg, p["ffn"], h2, m2=m2, rows=rows)
+    return x + y, idx, lb
 
 
 def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False):
@@ -543,22 +578,31 @@ def unembed(cfg, params, x):
 # Full forward
 
 
-@torch.no_grad()
-def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
-            m2: bool = True, rows: bool = False):
+def forward(cfg, params, tokens, *, prefix=None, cache=None,
+            mode: str = "train", m2: bool = True, rows: bool = False,
+            remat: bool = False, window: int = 0):
     """Returns (logits, cache, aux); ``cache`` is updated in place.
 
     tokens: (B, S) integer ids, (B, K, S) for the audio family's K
     codebooks. prefix: (B, N, d) precomputed frontend embeddings (vlm
     patches, audio conditioning frames), prepended outside decode: they
-    fill the cache's first N slots of the run and get no logits (transformer.py:
-    711-714, 775-776). mode: prefill | prefill_resume | decode;
-    decode and prefill_resume start each row at its ``cache["pos"]``
-    (prefill_resume raises on a sliding window or a recurrent layer, as
-    the reference asserts, transformer.py:559-561). Logits are (B, S, V),
-    (B, K, S, V) for audio. Layers run in layer
-    order, each by its kind (transformer.py:715-790). A sliding window's
-    ring lets a prompt or a decode step run past its ``sbuf`` slots.
+    fill the cache's first N slots of the run and get no logits
+    (transformer.py: 711-714, 775-776). mode: train | prefill |
+    prefill_resume | decode. "train" takes no cache and runs under the
+    caller's autograd mode (``remat``: each layer recomputed in the
+    backward pass, ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of each pattern repeat, transformer.py:739-740);
+    the serving modes take a cache and run under ``no_grad``. decode and
+    prefill_resume start each row at its ``cache["pos"]`` (prefill_resume
+    raises on a sliding window or a recurrent layer, as the reference
+    asserts, transformer.py:559-561). Logits are (B, S, V), (B, K, S, V)
+    for audio. Layers run in layer order, each by its kind
+    (transformer.py:715-790). A sliding window's ring lets a prompt or a
+    decode step run past its ``sbuf`` slots. ``m2``: an FFN with banks
+    runs as the M2Cache FFN (the reference's default is False; the port's
+    serving params always have banks), a dense one as the GLU whatever
+    ``m2`` says. ``window`` > 0 (the reference's long-context override)
+    raises NotImplementedError.
     ``rows``: every batch row is its own request, with its own FFN active
     sets, and gives the bits it gives alone — what the reference computes
     by vmapping a one-row forward; an MoE layer's capacity is then counted
@@ -566,12 +610,25 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
     aux["active_idx"] is ``{"pattern": [(F, k) tensor per pattern
     position], "remainder": [(k,) tensor per remainder layer]}``, the
     reference's structure; with ``rows`` (B, F, k) and (B, k), the
-    reference's vmapped layout. MoE and SSD layers have no active neurons:
-    their entries are (F, 0), (B, F, 0) with ``rows``. aux["lb_loss"] sums the MoE
-    layers' load-balance losses (0.0 without MoE; (B,) with ``rows``)."""
-    check_supported(cfg, m2=m2)
-    if mode not in ("prefill", "prefill_resume", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    reference's vmapped layout. MoE, SSD and dense-FFN layers have no
+    active neurons: their entries are (F, 0), (B, F, 0) with ``rows``.
+    aux["lb_loss"] sums the MoE layers' load-balance losses (0.0 without
+    MoE; (B,) with ``rows``)."""
+    check_supported(cfg)
+    if window:
+        raise NotImplementedError("the window= override is not ported yet")
+    if mode not in ("train", "prefill", "prefill_resume", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if (mode == "train") != (cache is None):
+        raise ValueError(f"mode {mode!r} takes "
+                         + ("no cache" if mode == "train" else "a cache"))
+    grad = contextlib.nullcontext() if mode == "train" else torch.no_grad()
+    with grad:
+        return _forward(cfg, params, tokens, prefix, cache, mode,
+                        m2 and cfg.m2_enabled, rows, remat)
+
+
+def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat):
     pat, F, rem = pattern_split(cfg)
     if mode == "prefill_resume" and (cfg.window_size or set(pat) - {"attn"}):
         raise NotImplementedError(
@@ -583,30 +640,38 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
         n_prefix = prefix.shape[1]
     B, S = x.shape[:2]
-    sbuf = kv_slots(cache)
-    pos = row_positions(cache, B)
-    if mode == "prefill":
-        pos = torch.zeros_like(pos)
-    if int(pos.min()) < 0 or (sbuf is not None and not cfg.window_size
-                              and int(pos.max()) + S > sbuf):
-        raise ValueError(f"{mode} of {S} token(s) at positions "
-                         f"{pos.tolist()} outside the cache buffer of "
-                         f"{sbuf} slots")
-    pos0 = pos.to(x.device)
     slots = None
-    if mode == "decode" and sbuf is not None:
-        slots = decode_slots(pos0, sbuf, bool(cfg.window_size))
+    if cache is None:
+        pos0 = torch.zeros(B, dtype=torch.int64, device=x.device)
+    else:
+        sbuf = kv_slots(cache)
+        pos = row_positions(cache, B)
+        if mode == "prefill":
+            pos = torch.zeros_like(pos)
+        if int(pos.min()) < 0 or (sbuf is not None and not cfg.window_size
+                                  and int(pos.max()) + S > sbuf):
+            raise ValueError(f"{mode} of {S} token(s) at positions "
+                             f"{pos.tolist()} outside the cache buffer of "
+                             f"{sbuf} slots")
+        pos0 = pos.to(x.device)
+        if mode == "decode" and sbuf is not None:
+            slots = decode_slots(pos0, sbuf, bool(cfg.window_size))
+
+    def layer(l, kind, p, x):
+        c = None if cache is None else layer_cache(cfg, cache, l)
+        if kind == "attn":
+            return attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
+                              slots=slots, m2=m2)
+        if kind == "rglru":
+            return rglru_layer(cfg, p, x, c, rows=rows, m2=m2)
+        return ssm_layer(cfg, p, x, c, mode=mode, rows=rows)
 
     idxs, lb_acc = [], 0.0
     for l, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
-        c = layer_cache(cfg, cache, l)
-        if kind == "attn":
-            x, idx, lb = attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
-                                    slots=slots)
-        elif kind == "rglru":
-            x, idx, lb = rglru_layer(cfg, p, x, c, rows=rows)
+        if remat:
+            x, idx, lb = checkpoint(layer, l, kind, p, x, use_reentrant=False)
         else:
-            x, idx, lb = ssm_layer(cfg, p, x, c, mode=mode, rows=rows)
+            x, idx, lb = layer(l, kind, p, x)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 
@@ -614,8 +679,8 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
         t = apply_norm(cfg, t, params["final_norm"])
         return unembed(cfg, params, t[:, n_prefix:])
     logits = each_row(head, x) if rows else head(x)
-    advance = 1 if mode == "decode" else S
-    cache["pos"] = cache["pos"] + advance
+    if cache is not None:
+        cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)
     n = len(pat)
 
     def stacked(i):
@@ -628,3 +693,28 @@ def forward(cfg, params, tokens, *, prefix=None, cache, mode: str,
            "active_idx": {"pattern": [stacked(i) for i in range(n)],
                           "remainder": idxs[F * n:]}}
     return logits, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def lm_loss(cfg, params, batch, *, remat: bool = True, m2: bool = False,
+            window: int = 0):
+    """Next-token cross entropy plus 0.01 x the MoE load-balance loss
+    (transformer.py:796-815), from a train-mode :func:`forward`. batch:
+    {"tokens": (B, S) ids, (B, K, S) for audio (targets (B, K, S-1)),
+    optionally "prefix": (B, N, d)}, tensors on the params' device.
+    Returns (total, {"nll", "lb_loss"})."""
+    tokens = batch["tokens"]
+    logits, _, aux = forward(cfg, params, tokens, prefix=batch.get("prefix"),
+                             mode="train", remat=remat, m2=m2, window=window)
+    if cfg.family == "audio":
+        tgt, lg = tokens[..., 1:], logits[..., :-1, :]
+    else:
+        tgt, lg = tokens[:, 1:], logits[:, :-1, :]
+    logp = torch.log_softmax(lg.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    loss = nll.mean()
+    lb = aux["lb_loss"]
+    return loss + 0.01 * lb, {"nll": loss, "lb_loss": lb}

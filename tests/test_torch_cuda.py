@@ -1030,3 +1030,96 @@ def test_audio_tiny_forward_on_cuda_equals_cpu(dev, widen):
                         ag["active_idx"]["pattern"]):
             assert torch.equal(a, b.cpu())
     assert all(a > b for a, b in zip(after, before))
+
+
+def _value_and_grad(cfg, params, batch):
+    from repro_torch.tree import tree_leaves
+    from repro_torch.models import transformer as T
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = T.lm_loss(cfg, params, batch, remat=True)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+
+def test_tiny_train_step_on_cuda_equals_cpu(dev):
+    """One step of the trainer at tiny size from the same weights and batch:
+    the loss within 1e-5 relative, every gradient leaf within 1e-4 x its
+    largest magnitude (the tolerances of the CPU parity tests against the
+    reference), then the params after one AdamW step within 2 x lr (Adam
+    turns a gradient difference where v ~ 0 into up to lr), fewer than
+    1e-3 of the elements farther apart than 1e-5; no kernel launched."""
+    from repro_torch.tree import tree_leaves
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.kernels import flash_attention, flash_decode, qmatmul
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import make_train_step
+    cfg = get_config("qwen2.5-14b", tiny=True)
+    params = T.init_params(cfg, seed=0, device="cpu", m2=False)
+    gparams = _to(params, dev)
+    b = next(batches(cfg, batch_size=4, seq_len=64, seed=0))
+    before = (qmatmul.launches, flash_decode.launches,
+              flash_attention.launches)
+    runs = {}
+    for device, p in (("cpu", params), (dev, gparams)):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        loss, grads = _value_and_grad(cfg, p, batch)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+        step = make_train_step(cfg, opt, remat=True)
+        p, _, m = step(p, init_opt_state(p), batch)
+        runs[device] = (loss.cpu(), [g.cpu() for g in grads],
+                        [t.cpu() for t in tree_leaves(p)], float(m["lr"]))
+    (lc, gc, pc, lr), (lg, gg, pg, _) = runs["cpu"], runs[dev]
+    assert abs(float(lg) - float(lc)) <= 1e-5 * float(lc)
+    for a, w in zip(gg, gc):
+        assert float((a - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    diff = torch.cat([(a - w).abs().flatten() for a, w in zip(pg, pc)])
+    assert float(diff.max()) <= 2 * lr
+    assert float((diff > 1e-5).float().mean()) < 1e-3
+    assert (qmatmul.launches, flash_decode.launches,
+            flash_attention.launches) == before
+
+
+def test_tiny_search_on_cuda_equals_cpu(dev):
+    """Algorithm 1 at tiny size (examples/ratio_search_demo.py's budget and
+    steps) from the same weights, predictor A drawn: feasibility and the
+    best ratio equal, uq within 1e-4 relative; on the card each searched
+    candidate launches qmatmul 3 x its non-empty tiers x layers x (1 +
+    gen_len) times."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import mp_ffn
+    from repro_torch.core import ratio_search as R
+    from repro_torch.kernels import qmatmul
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen2.5-14b", tiny=True)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for layer in params["layers"]:
+        layer["ffn"]["pred"]["A"] = torch.randn(
+            layer["ffn"]["pred"]["A"].shape, generator=g) / 4
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)))
+    want = R.search(cfg, params, prompts, memory_budget=0.25, gen_len=6)
+    before = qmatmul.launches
+    got = R.search(cfg, _to(params, dev), prompts.to(dev), memory_budget=0.25,
+                   gen_len=6)
+    assert got.best_ratio == want.best_ratio
+    expected = 0
+    for a, b in zip(got.table, want.table):
+        assert a["feasible"] == b["feasible"]
+        if b["feasible"]:
+            assert abs(a["uq"] - b["uq"]) <= 1e-4 * abs(b["uq"])
+            cand = dataclasses.replace(cfg, m2_ratio_fp16=b["ratio"][0],
+                                       m2_ratio_int8=b["ratio"][1],
+                                       m2_ratio_int4=b["ratio"][2])
+            sizes = mp_ffn.tier_sizes(cfg.d_ff, cand)
+            tiers = sum(1 for t in ("fp16", "int8", "int4") if sizes[t])
+            expected += 3 * tiers * cfg.num_layers * (1 + 6)
+    assert qmatmul.launches - before == expected

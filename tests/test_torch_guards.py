@@ -186,6 +186,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         M2CacheEngine(cfg=cfg, params=params, dram_capacity_gb=0.5)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--arch", "qwen2.5-14b", "--tiny"])
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.train_loop import train
+    assert launch_train.build_parser().parse_args(
+        ["--arch", "qwen2.5-14b"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "qwen2.5-14b", "--tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg, steps=1, batch_size=1, seq_len=8)
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -147,10 +147,23 @@ def test_init_params_follows_reference_rules_and_shapes():
                                     dict(family="audio", num_codebooks=4,
                                          m2_enabled=False)])
 def test_unported_configs_raise(change):
-    """The dense non-M2 FFN and unknown layer kinds are not ported (SSD
-    layers and the audio family are: tests/test_torch_ssm.py,
-    tests/test_torch_audio.py)."""
+    """Unknown layer kinds raise wherever a model is built. Every other
+    config raises on what stays unported, the ``window=`` override; its
+    dense FFN (``m2_enabled`` False, ``init_params(m2=False)``) is ported
+    with train mode and runs (SSD layers and the audio family too:
+    tests/test_torch_ssm.py, tests/test_torch_audio.py)."""
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen2.5-14b", tiny=True), **change)
-    with pytest.raises(NotImplementedError):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    if "conv" in cfg.block_pattern:
+        with pytest.raises(NotImplementedError):
+            T.init_cache(cfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError):
+            T.init_params(cfg, device="cpu")
+        return
+    params = T.init_params(cfg, device="cpu", m2=False)
+    shape = (1, cfg.num_codebooks, 4) if cfg.num_codebooks else (1, 4)
+    tokens = torch.zeros(shape, dtype=torch.int64)
+    logits, _, _ = T.forward(cfg, params, tokens)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="window"):
+        T.forward(cfg, params, tokens, window=8)
