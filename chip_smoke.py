@@ -76,7 +76,8 @@ Phases, each printing one JSON line:
  12. hybrid_arch — recurrentgemma-2b (RG-LRU blocks beside attention
                 over a sliding window's ring cache, head dim 256): tiny
                 through both entry points on cuda against cpu; at full
-                width and all 26 layers, every predictor A drawn, full's
+                width and 14 of its 26 layers (HYBRID_ARCH), every
+                predictor A drawn, full's
                 serve traffic, a ring run (2 prompts of 2176 = 2048 + 128
                 tokens, 16 new: the prefill's window masks the last 128
                 queries, decode wraps the ring) whose every decode step's
@@ -87,8 +88,9 @@ Phases, each printing one JSON line:
                 RG-LRU recurrence's device ms at both prefill shapes.
  13. ssm_arch — mamba2-370m (attention-free Mamba-2 blocks, the SSD
                 scan, no FFN, no kernel on its paths): tiny through both
-                entry points on cuda against cpu; at full width and all 48
-                layers, every SSD layer's A and dt drawn, full's serve
+                entry points on cuda against cpu; at full width and 24 of
+                its 48 layers (SSM_ARCH), every SSD layer's A and dt
+                drawn, full's serve
                 traffic, a long run (2 prompts of 2048 tokens: 8 SSD
                 chunks; 16 new) whose decode logits at steps 1, 8 and 16
                 are held to a whole-prompt prefill's (RING_TOL), the SSD's
@@ -138,9 +140,25 @@ Phases, each printing one JSON line:
                 flex_attention with the row's cap and mask, held against
                 the plain version within 1e-3 x max(1, max|plain|) and
                 timed, in a process of its own after the rest: compiling
-                it cost later profiler sessions kernel events.
-Phases 4, 6-9 and 16 share one set of full-width weights; each prints its
-seconds, and a ``timing`` line gives every phase's.
+                it cost later profiler sessions kernel events;
+ 19. steps_tiny — qwen2.5-14b tiny through launch/steps.build_case's
+                serve step (STEPS_TINY: long_500k with the int8 K/V off
+                and on, once from position 524272, and decode_32k's 128
+                rows of 32768 slots with it on) on cuda against cpu: a
+                64-token prefill, 4 steps; tokens equal, int8 bytes apart
+                by at most 1 (counted), logits within 1e-4 where no byte
+                differs;
+ 20. long_context_full — long_500k at full width on phase 4's weights
+                (after phase 16): one row, a ring of 8192 slots, a prompt
+                of 8704 tokens, 16 decode steps, the int8 K/V off and on,
+                every kernel call held against its plain version (the
+                whole prompt on its first and last 512 queries against
+                float64); decode against whole-prompt prefills with the
+                int8 K/V off; the int8 ring after the prefill equal to the
+                CPU quantizer over the fp32 ring; wall, device time and
+                busy share of the prefill and a decode step.
+Phases 4, 6-9, 16 and 20 share one set of full-width weights; each prints
+its seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
 (per-row qmatmul, chunked-prefill attention), the two kernels no path
 runs yet (atu_update, mp_glu_ffn), and (``kernels_dense``) the shapes
@@ -158,7 +176,13 @@ with the window as a boolean mask), and one layer's GELU FFN at d = 2560,
 f = 7680 through kernels A and B; and (``kernels_audio``)
 musicgen-large's G = 1 (32 KV heads of 64): flash_decode at its decode
 step, the whole prompt of 64 frames and 128 codebook steps, and one
-layer's GELU FFN at d = 2048, f = 8192 through kernels A and B. qmatmul
+layer's GELU FFN at d = 2048, f = 8192 through kernels A and B; and
+(``kernels_long``) long_context_full's shapes: the whole prompt of 8704
+tokens within the 8192 window (against the plain chunked_attention, and
+float64 on its first and last 512 queries), flash_decode over the
+wrapped 8192-slot ring, one layer's FFN at M = 1 and 8704, and a decode
+step's attention over int8 K/V at 8 x 32768 slots against the bound of
+the int8 bytes (dequantize and flash_decode timed apart). qmatmul
 has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
@@ -417,12 +441,15 @@ def split_slots(slots: int):
         chunk_attention.SPLIT_SLOTS = saved
 
 
-def attention_f64(q, k, v, pos0=None, softcap: float = 0.0):
+def attention_f64(q, k, v, pos0=None, softcap: float = 0.0,
+                  window: int = 0):
     """Causal attention of queries at ``pos0[b] + i`` (0 when None) over
     slots at positions 0..Skv-1, all in float64 (``softcap`` > 0: scores
-    capped before the mask): the yardstick of the large-score checks, where
-    the plain versions' own fp32 rounding of the scores is of the order of
-    the tolerance."""
+    capped before the mask; ``window`` > 0: a key takes part when it lies
+    fewer than ``window`` positions before the query): the yardstick of the
+    large-score checks, where the plain versions' own fp32 rounding of the
+    scores is of the order of the tolerance, and of the query slices of a
+    long prompt."""
     import torch
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -433,7 +460,10 @@ def attention_f64(q, k, v, pos0=None, softcap: float = 0.0):
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     q_pos = p0[:, None] + torch.arange(S, device=q.device)[None]
-    mask = torch.arange(Skv, device=q.device)[None, None] <= q_pos[:, :, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, None]
+    mask = kv_pos <= q_pos[:, :, None]
+    if window:
+        mask &= kv_pos > q_pos[:, :, None] - window
     s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
     o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
     return o.reshape(B, S, Hq, D)
@@ -1530,8 +1560,8 @@ PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                 # attention-free, no FFN (mamba2): the SSD is plain PyTorch,
                 # as the reference's is plain jnp; no kernel may launch
                 "ssm": (),
-                # the audio family through forward: prefill, then decode,
-                # and each call of it
+                # forward itself (the audio family; long-context serving):
+                # prefill, then decode, and each call of it
                 "forward": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                             "flash_attention"),
                 "forward_prefill": ("qmatmul_mma", "flash_attention"),
@@ -2780,11 +2810,12 @@ def phase_moe_archs(B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued, and phase 12: the hybrid family (recurrentgemma-2b)
 
 
-#: hybrid_arch: the hybrid config, the depth it runs at full width (all 26
-#: layers: 8 repeats of (rglru, rglru, attn) and a remainder of 2), and the
+#: hybrid_arch: the hybrid config, the depth it runs at full width (14 of
+#: its 26 layers: 4 repeats of (rglru, rglru, attn) and a remainder of 2,
+#: so that the script ends within its time; all 26 in PRs 19-21), and the
 #: ring run's traffic: 2 prompts of the window + 128 tokens, so that the
 #: prefill's window masks the last 128 queries and decode wraps the ring
-HYBRID_ARCH = ("recurrentgemma-2b", 26)
+HYBRID_ARCH = ("recurrentgemma-2b", 14)
 RING_RUN = dict(B=2, P=2048 + 128, gen_len=16)
 #: decode consistency: a decode step's logits against one whole-prompt
 #: prefill's at the same position, within RING_TOL x max(1, max|prefill|),
@@ -2891,7 +2922,7 @@ def predictor_zeroed(params):
 
 
 def decode_consistency(cfg, params, tokens, gen_len: int, steps,
-                       prefix=None) -> dict:
+                       prefix=None, window: int = 0) -> dict:
     """A prefill of ``tokens`` ((B, S), or (B, K, S) codebooks, after
     ``prefix`` frames where given), then gen_len greedy decode steps through
     ``forward``; at each step of ``steps`` the step's logits against those
@@ -2899,7 +2930,10 @@ def decode_consistency(cfg, params, tokens, gen_len: int, steps,
     far, at the same position, within RING_TOL x max(1, max|prefill|): the
     recurrent or cached decode against the prefill's chunked scan or whole
     prompt. A model with an M2Cache FFN runs with the predictor at the
-    reference's zero init (every active set 0..k-1 in both paths)."""
+    reference's zero init (every active set 0..k-1 in both paths).
+    ``window``: the long-context override, a ring of that many slots.
+    Whether each checked step's greedy token equals the prefill's is
+    recorded (``argmax_equal_by_step``), not gated here."""
     import torch
     from repro_torch.models import transformer as T
     dev = params["embed"].device
@@ -2909,22 +2943,27 @@ def decode_consistency(cfg, params, tokens, gen_len: int, steps,
     has_pred = any("ffn" in layer for layer in params["layers"])
     errs, scales = {}, {}
     with (predictor_zeroed(params) if has_pred else contextlib.nullcontext()):
-        cache = T.init_cache(cfg, B, buf, device=dev)
+        cache = T.init_cache(cfg, B, buf, window=window, device=dev)
         logits, cache, _ = T.forward(cfg, params, tokens, prefix=prefix,
-                                     cache=cache, mode="prefill")
+                                     cache=cache, mode="prefill",
+                                     window=window)
         last, seq = logits[..., -1, :], tokens
+        same = {}
         for step in range(1, gen_len + 1):
             nxt = torch.argmax(last, dim=-1)[..., None]
             seq = torch.cat([seq, nxt], dim=-1)
             logits, cache, _ = T.forward(cfg, params, nxt, cache=cache,
-                                         mode="decode")
+                                         mode="decode", window=window)
             last = logits[..., 0, :]
             if step in steps:
-                c = T.init_cache(cfg, B, buf, device=dev)
+                c = T.init_cache(cfg, B, buf, window=window, device=dev)
                 whole, _, _ = T.forward(cfg, params, seq, prefix=prefix,
-                                        cache=c, mode="prefill")
+                                        cache=c, mode="prefill",
+                                        window=window)
                 want = whole[..., -1, :]
                 errs[step] = max_err(last, want)
+                same[step] = bool(torch.equal(torch.argmax(last, dim=-1),
+                                              torch.argmax(want, dim=-1)))
                 scales[step] = max(1.0, float(want.abs().max()))
                 del c, whole, want
         del cache
@@ -2935,7 +2974,7 @@ def decode_consistency(cfg, params, tokens, gen_len: int, steps,
             "max_abs_err_by_step": errs,
             "tol_by_step": {s: RING_TOL * scales[s] for s in errs},
             "max_abs_err": max(errs.values()), "tol_rel": RING_TOL,
-            "worst_err_over_tol": worst,
+            "worst_err_over_tol": worst, "argmax_equal_by_step": same,
             "predictor": "A zero (the reference's init)" if has_pred
             else "none (no FFN)"}
     require(worst <= 1.0, f"decode consistency: a decode step's logits "
@@ -2971,7 +3010,8 @@ def scan_cost(cfg, shapes) -> dict:
 def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
     """recurrentgemma-2b (HYBRID_ARCH): tiny through launch/serve and
     launch/server on cuda against cpu, every predictor A drawn; then at full
-    width and depth (random weights from a seed, every A drawn) full's serve
+    width and HYBRID_ARCH's depth (random weights from a seed, every A
+    drawn) full's serve
     traffic, the ring run through launch/serve (RING_RUN: prompts past the
     window) with its consistency against whole prompts, and server_full's
     server traffic (prefix cache cold, warm, off, and batched decode off:
@@ -3023,7 +3063,7 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log({"phase": "hybrid_arch", "config": arch,
-         "depth": f"num_layers {full.num_layers} (not cut)",
+         "depth": f"num_layers {full.num_layers} -> {cfg.num_layers}",
          "pattern": list(full.block_pattern), "window": full.window_size,
          "widths": serve["widths"], "param_gb": serve["param_gb"],
          "init_s": init_s, "ssd_bank_files_gb": serve["ssd_bank_files_gb"],
@@ -3047,8 +3087,9 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued, and phases 13 and 14: the SSM and audio families
 
 
-#: ssm_arch: mamba2-370m at full width and its full depth
-SSM_ARCH = ("mamba2-370m", 48)
+#: ssm_arch: mamba2-370m at full width, 24 of its 48 layers (so that the
+#: script ends within its time; all 48 in PRs 20-21)
+SSM_ARCH = ("mamba2-370m", 24)
 #: the long run: 2 prompts of 2048 tokens (8 SSD chunks of 256: the state
 #: crosses 7 chunk boundaries), 16 new tokens; its decode logits at
 #: SSM_CHECK_STEPS held to a whole-prompt prefill's within RING_TOL
@@ -3178,7 +3219,7 @@ def server_numbers(srv, launches) -> dict:
 
 def phase_ssm_arch(B: int, P: int, gen_len: int) -> dict:
     """mamba2-370m (SSM_ARCH): tiny through launch/serve and launch/server
-    on cuda against cpu; then at full width and all 48 layers (random
+    on cuda against cpu; then at full width and SSM_ARCH's depth (random
     weights from a seed, every SSD layer's A and dt drawn) full's serve
     traffic, the long run through launch/serve (SSM_LONG: 8 SSD chunks a
     prompt) with its decode held to whole-prompt prefills, the SSD's device
@@ -3227,7 +3268,7 @@ def phase_ssm_arch(B: int, P: int, gen_len: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log({"phase": "ssm_arch", "config": arch,
-         "depth": f"num_layers {full.num_layers} (not cut)",
+         "depth": f"num_layers {full.num_layers} -> {cfg.num_layers}",
          "widths": {"d_model": cfg.d_model, "d_inner": cfg.d_inner,
                     "heads": cfg.ssm_nheads, "head_dim": cfg.ssm_head_dim,
                     "state": cfg.ssm_state, "chunk": cfg.ssm_chunk,
@@ -3401,7 +3442,7 @@ def phase_audio_arch() -> dict:
     torch.cuda.empty_cache()
     pre, dec = profile["prefill"], profile["decode_step"]
     line = {"phase": "audio_arch", "config": arch,
-            "depth": f"num_layers {full.num_layers} (not cut)",
+            "depth": f"num_layers {full.num_layers} -> {cfg.num_layers}",
             "widths": {"d_model": cfg.d_model, "heads": cfg.num_heads,
                        "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
@@ -3500,7 +3541,10 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
     """Inside the block every call of ``ops.mp_ffn``, ``flash_attention``
     and ``flash_decode`` returns its kernels' result after holding it
     against the plain version on the same inputs, within tol_rel x max(1,
-    max|plain|). ``held`` gathers, by kernel and then by shape (and tier
+    max|plain|); a whole prompt longer than 2 x SLICE tokens on its first
+    and last SLICE queries against float64 (``attention_f64``: the plain
+    version would build Hq x S^2 fp32 scores, 12 GB at 8704 tokens).
+    ``held`` gathers, by kernel and then by shape (and tier
     split), the calls held, the largest error and the largest error over
     its tolerance. The plain versions launch no kernel: the counts stay
     the path's own."""
@@ -3535,9 +3579,19 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
 
     def flash_attention(q, k, v, *, window=0, softcap=0.0):
         got = saved[1](q, k, v, window=window, softcap=softcap)
-        return hold("flash_attention", f"q={tuple(q.shape)} "
-                    f"kv={tuple(k.shape)}", got, ref.flash_attention_ref(
-                        q, k, v, window=window, softcap=softcap))
+        key = f"q={tuple(q.shape)} kv={tuple(k.shape)} window={window}"
+        S = q.shape[1]
+        if S <= 2 * SLICE:
+            return hold("flash_attention", key, got, ref.flash_attention_ref(
+                q, k, v, window=window, softcap=softcap))
+        for lo in (0, S - SLICE):
+            hi = lo + SLICE
+            hold("flash_attention", f"{key} queries {lo}..{hi} vs float64",
+                 got[:, lo:hi], attention_f64(
+                     q[:, lo:hi], k[:, :hi], v[:, :hi],
+                     torch.full((q.shape[0],), lo, device=q.device),
+                     softcap=softcap, window=window))
+        return got
 
     def flash_decode(q, k, v, slots, lengths, *, softcap=0.0):
         got = saved[2](q, k, v, slots, lengths, softcap=softcap)
@@ -4017,6 +4071,526 @@ def phase_train_full() -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-20: long-context serving (the window override, the int8 K/V
+# cache, launch/steps.build_case)
+
+#: long_context_full: launch/steps' long_500k on full_model()'s weights:
+#: its one row and 524288 positions, a ring of LONG_CONTEXT_WINDOW (8192)
+#: slots; a prompt of the ring and 512 tokens more (the window masks the
+#: last 512 queries, the prompt wraps the ring), gen_len greedy decode
+#: steps, with the int8 K/V off and on; decode logits at LONG_CHECK_STEPS
+#: held to whole-prompt prefills' within RING_TOL
+LONG_RUN = dict(B=1, P=8192 + 512, gen_len=16, max_seq=524288)
+LONG_CHECK_STEPS = (1, 16)
+#: the query slices a whole prompt longer than 2 x SLICE is held on
+#: against float64 (the plain version's Hq x S^2 fp32 scores are 12 GB at
+#: 8704 tokens)
+SLICE = 512
+#: the int8 K/V measurement row: decode_32k's 32768 slots, its batch of
+#: 128 cut to 8 to fit one card
+INT8_ROW = dict(B=8, S=32768)
+#: the kernel table's rows at long_context_full's shapes, by the kernel
+#: held_to_plain names
+LONG_ROWS = {"flash_attention": "flash_attention_window_8k",
+             "flash_decode": "flash_decode_ring_8k",
+             "qmatmul_gemv": "qmatmul_gemv_b1",
+             "qmatmul_mma": "qmatmul_mma_m8704"}
+#: steps_tiny: qwen2.5-14b tiny through launch/steps.build_case's serve
+#: step: (input shape, kv_quant, the cache's pos before the decode steps:
+#: 0 leaves it where the prefill did, 524272 puts RoPE at long_500k's
+#: positions)
+STEPS_TINY = (("long_500k", False, 0), ("long_500k", True, 0),
+              ("long_500k", True, 524272), ("decode_32k", True, 0))
+STEPS_TINY_RUN = dict(P=64, steps=4)
+
+
+def phase_kernels_long(dev) -> dict:
+    """The kernels at long_context_full's shapes (qwen2.5-14b: D = 128,
+    G = 5, one row): the whole prompt of LONG_RUN["P"] tokens within the
+    8192 window against the plain ``chunked_attention`` and, on its first
+    and last SLICE queries, float64 (library: SDPA over K/V expanded to
+    the query heads beforehand, the window as a boolean mask);
+    flash_decode over the wrapped 8192-slot ring; one layer's FFN at M = 1
+    (kernels A and B) and at M = 8704 (B); and the measurement row of a
+    decode step's attention over int8 K/V at INT8_ROW's slots (dequantize
+    to fp32, then flash_decode), timed against the bound of the int8
+    bytes, with each part timed apart."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.flash_attention import _plan as whole_plan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch.steps import LONG_CONTEXT_WINDOW as W
+    from repro_torch.models.common import chunked_attention
+    from repro_torch.models.transformer import (_kv_dequantize, _kv_quantize,
+                                                decode_slots)
+    g = torch.Generator(device=dev).manual_seed(8704)
+    randn = lambda *s, scale=1.0: torch.randn(*s, generator=g, device=dev) * scale
+    cfg = get_config("qwen2.5-14b")
+    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = hq // hkv
+    P, gen = LONG_RUN["P"], LONG_RUN["gen_len"]
+    out, checks = {}, []
+    check = checker(checks)
+
+    # --- the whole prompt within the window
+    q, kp, vp = randn(1, P, hq, D), randn(1, P, hkv, D), randn(1, P, hkv, D)
+    run = lambda: flash_attention(q, kp, vp, window=W)
+    pos = torch.arange(P, device=dev)[None]
+    plain = lambda: chunked_attention(q, kp, vp, pos, pos, window=W)
+    got = run()
+    errs = [check(f"flash_attention S={P} window={W}", got, plain(), 1e-5)]
+    for lo in (0, P - SLICE):
+        hi = lo + SLICE
+        errs.append(check(
+            f"flash_attention S={P} window={W} queries {lo}..{hi} vs float64",
+            got[:, lo:hi], attention_f64(
+                q[:, lo:hi], kp[:, :hi], vp[:, :hi],
+                torch.tensor([lo], device=dev), window=W), 1e-5))
+    require(torch.equal(run(), got), "flash_attention window: two calls "
+            "differ")
+    del got
+    qt = q.transpose(1, 2).contiguous()
+    kt = kp.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = vp.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    i = torch.arange(P, device=dev)
+    mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - W)
+    pairs = int(mask.sum())
+    out["flash_attention_window_8k"] = {
+        "max_abs_err": max(errs), "B": 1, "S": P, "Hq": hq, "Hkv": hkv,
+        "D": D, "window": W, "key_query_pairs": pairs,
+        "plan": whole_plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
+        "plain": "models.common.chunked_attention (512-query chunks)",
+        "library": "SDPA, K/V expanded to the query heads beforehand, the "
+                   "window as a boolean mask",
+        **attention_row(run, plain, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), (2 * q.numel() + 2 * kp.numel()) * 4,
+            4 * hq * D * pairs, plain_reps=5)}
+    del q, kp, vp, qt, kt, vt, mask
+
+    # --- flash_decode over the wrapped ring at the last decode step
+    out["flash_decode_ring_8k"] = decode_row(
+        check, randn, dev, "flash_decode_ring_8k", W, hkv, G, D,
+        [P + gen - 1], full_checks=True, sweep=(64, 256, 1024), ring=True,
+        plain_reps=5)
+
+    # --- one layer's FFN at the decode step (M = 1) and the prompt (8704)
+    rows = serve_ffn_rows(check, g, dev, cfg, 1, P)[0]
+    out["qmatmul_gemv_b1"] = rows["qmatmul_gemv"]
+    out["qmatmul_mma_m8704"] = rows["qmatmul_mma"]
+    torch.cuda.empty_cache()
+
+    # --- a decode step's attention over int8 K/V (measurement)
+    B8, S8 = INT8_ROW["B"], INT8_ROW["S"]
+    q8 = randn(B8, hkv, G, D)
+    k32, v32 = randn(B8, S8, hkv, D), randn(B8, S8, hkv, D)
+    (kq, ks), (vq, vs) = _kv_quantize(k32), _kv_quantize(v32)
+    # the card's quantizer against the CPU's on one row, bit for bit
+    want_q, want_s = _kv_quantize(k32[:1].cpu())
+    require(torch.equal(kq[:1].cpu(), want_q)
+            and torch.equal(ks[:1].cpu(), want_s),
+            "_kv_quantize: the card's bytes or scales differ from the CPU's")
+    del k32, v32, want_q, want_s
+    slots, ln = decode_slots(torch.full((B8,), S8 - 1, device=dev), S8)
+
+    def dequantize():
+        return (_kv_dequantize(kq, ks, torch.float32),
+                _kv_dequantize(vq, vs, torch.float32))
+
+    def step():
+        return flash_decode(q8, *dequantize(), slots, ln)
+    kd, vd = dequantize()
+    decode = lambda: flash_decode(q8, kd, vd, slots, ln)
+    err = check(f"flash_decode over int8 K/V B={B8} S={S8}", step(),
+                ref.flash_decode_ref(q8, kd, vd, slots, ln), 1e-5)
+    int8_bytes = (kq.numel() + vq.numel() + 4 * (ks.numel() + vs.numel())
+                  + 4 * (2 * q8.numel() + slots.numel() + B8))
+    flops = 4 * B8 * S8 * hq * D
+    b_ms, b_by = bound(int8_bytes, flops)
+    fp32_ms, _ = bound(4 * (kq.numel() + vq.numel() + 2 * q8.numel()
+                            + slots.numel() + B8), flops)
+    qt = q8.reshape(B8, hq, 1, D)
+    kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+    out["flash_decode_int8_32k"] = {
+        "max_abs_err": err, "B": B8, "S": S8, "kv_int8_mb": int8_bytes / 1e6,
+        "kv_fp32_mb": 4 * (kd.numel() + vd.numel()) / 1e6,
+        "function": "dequantize the int8 K/V to fp32, then flash_decode "
+                    "(the port's decode step over an int8 cache)",
+        "ms": time_ms(step), "dequantize_ms": time_ms(dequantize),
+        "flash_decode_ms": time_ms(decode),
+        "plain_ms": time_ms(lambda: ref.flash_decode_ref(
+            q8, *dequantize(), slots, ln), reps=5),
+        "library_ms": None,
+        "library_note": "no one PyTorch call dequantizes and attends; SDPA "
+                        "over the dequantized K/V is a yardstick",
+        "sdpa_dequantized_ms": time_ms(sdpa),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_note": "the int8 bytes and scales read once, q and out",
+        "bound_fp32_kv_ms": fp32_ms,
+        "profile": device_profile(step),
+        "dequantize_profile": device_profile(dequantize),
+        "flash_decode_profile": device_profile(decode)}
+    del q8, kq, vq, ks, vs, kd, vd, kt, vt
+    for row in out.values():
+        row["config"] = cfg.name
+    torch.cuda.empty_cache()
+    log({"phase": "kernels_long", "checks": checks, "kernels": out})
+    return out
+
+
+def ring_cpu(cache) -> dict:
+    """A copy of the first pattern entry's leaves (every layer's ring) on
+    the CPU."""
+    return {n: t.to("cpu", copy=True) for n, t in cache["pattern"][0].items()}
+
+
+def phase_long_context_full(cfg, params) -> tuple:
+    """launch/steps' long_500k at full width on ``full_model()``'s weights
+    (LONG_RUN: one row, the window override of LONG_CONTEXT_WINDOW slots
+    over 524288 positions, a ring), through forward: a prompt of 8704
+    tokens, then 16 greedy decode steps, with the int8 K/V off and on.
+    Each run twice: first with every kernel call held against its plain
+    version (held_to_plain; the whole prompt on its first and last SLICE
+    queries against float64) and each call's kernels held to its form of
+    the path, counted; then timed, the same tokens. kv_quant off: decode
+    logits at LONG_CHECK_STEPS held to whole-prompt prefills'
+    (decode_consistency over the ring, RING_TOL) with equal greedy tokens.
+    kv_quant on: the ring's bytes and scales after the prefill equal
+    ``_kv_quantize`` run on the CPU over the off run's fp32 ring, bit for
+    bit (both runs compute the same K); its tokens' agreement with the off
+    run counted. The prefill's and a decode step's wall, device time and
+    busy share; the ring's bytes a layer; peak memory; the dequantize's
+    share of a decode step. Returns ({"long_context": the counted runs'
+    launches}, each held kernel's largest error)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import LONG_CONTEXT_WINDOW as W
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    B, P, gen, max_seq = (LONG_RUN[k] for k in ("B", "P", "gen_len",
+                                                "max_seq"))
+    prompts = torch.as_tensor(make_prompts(cfg, B, P, 0), device="cuda")
+    total, held, runs = {}, {}, {}
+    for kv_quant in (False, True):
+        label = f"long_context_full kv_quant={kv_quant}"
+
+        def generate(counted: bool):
+            """Prefill, then gen greedy decode steps: (tokens (B, gen), the
+            ring after the prefill on the CPU, the last logits, per-call
+            wall s)."""
+            cache = T.init_cache(cfg, B, max_seq, window=W, kv_quant=kv_quant,
+                                 device="cuda")
+            walls, toks = [], []
+
+            def call(tok, mode):
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                logits, _, _ = T.forward(cfg, params, tok, cache=cache,
+                                         mode=mode, window=W)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if counted:
+                    counts = read_counts()
+                    require_path_kernels(f"{label} {mode}", f"forward_{mode}",
+                                         counts)
+                    for n, c in counts.items():
+                        total[n] = total.get(n, 0) + c
+                return logits
+            last = call(prompts, "prefill")[:, -1].clone()
+            ring = ring_cpu(cache)
+            for _ in range(gen):
+                nxt = torch.argmax(last, dim=-1)[:, None]
+                toks.append(nxt)
+                last = call(nxt, "decode")[:, 0]
+            return torch.cat(toks, -1).cpu(), ring, last, walls
+        with held_to_plain(label, held):
+            toks, ring, last, _ = generate(counted=True)
+        torch.cuda.reset_peak_memory_stats()
+        toks2, _, _, walls = generate(counted=False)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = {}
+
+        def prefill():
+            state["cache"] = T.init_cache(cfg, B, max_seq, window=W,
+                                          kv_quant=kv_quant, device="cuda")
+            logits, _, _ = T.forward(cfg, params, prompts,
+                                     cache=state["cache"], mode="prefill",
+                                     window=W)
+            state["last"] = logits[:, -1].clone()
+
+        def decode():
+            nxt = torch.argmax(state["last"], dim=-1)[:, None]
+            logits, _, _ = T.forward(cfg, params, nxt, cache=state["cache"],
+                                     mode="decode", window=W)
+            state["last"] = logits[:, 0]
+        profile = {"prefill": device_profile(prefill, reps=2)}
+        prefill()
+        profile["decode_step"] = device_profile(decode, reps=5)
+        entry = state["cache"]["pattern"][0]
+        layer_mb = sum(t[0].numel() * t.element_size()
+                       for t in entry.values()) / 1e6
+        if kv_quant:
+            dq = device_profile(lambda: [T._kv_dequantize(
+                entry[n][0], entry[f"{n}_s"][0], torch.float32)
+                for n in ("k", "v")]).get("device_ms")
+            dec_ms = profile["decode_step"].get("device_ms")
+            dequantize = {"device_ms_a_layer": dq, "layers": cfg.num_layers,
+                          "share_of_decode_step": dq * cfg.num_layers
+                          / dec_ms if isinstance(dq, float) and isinstance(
+                              dec_ms, float) else "not measured"}
+        state.clear()
+        runs[kv_quant] = dict(
+            toks=toks, ring=ring, finite=bool(torch.isfinite(last).all()),
+            second_run_equal=bool(torch.equal(toks, toks2)),
+            line={"prefill_wall_ms": walls[0] * 1e3,
+                  "decode_step_wall_ms_median": statistics.median(
+                      walls[1:]) * 1e3,
+                  "prefill_device_ms": profile["prefill"].get("device_ms"),
+                  "prefill_busy_share": profile["prefill"].get("busy_share"),
+                  "prefill_top_kernels_ms": profile["prefill"].get(
+                      "top_kernels_ms"),
+                  "decode_step_device_ms": profile["decode_step"].get(
+                      "device_ms"),
+                  "decode_step_busy_share": profile["decode_step"].get(
+                      "busy_share"),
+                  "decode_step_top_kernels_ms": profile["decode_step"].get(
+                      "top_kernels_ms"),
+                  "kernels_per_call": {k: v.get("kernels_per_call")
+                                       for k, v in profile.items()},
+                  "ring_mb_a_layer": layer_mb, "peak_mem_gb": peak_gb,
+                  **({"dequantize": dequantize} if kv_quant else {}),
+                  "tokens": toks.tolist()})
+        torch.cuda.empty_cache()
+    # the int8 ring after the prefill: the quantizer on the CPU over the
+    # fp32 ring of the run without it
+    fp32, int8 = runs[False]["ring"], runs[True]["ring"]
+    quant_equal = {}
+    for n in ("k", "v"):
+        want_q, want_s = T._kv_quantize(fp32[n])
+        quant_equal[n] = (torch.equal(int8[n], want_q)
+                          and torch.equal(int8[f"{n}_s"], want_s))
+    del fp32, int8
+    t0 = time.perf_counter()
+    consistency = decode_consistency(cfg, params, prompts, gen,
+                                     LONG_CHECK_STEPS, window=W)
+    consistency["seconds"] = time.perf_counter() - t0
+    log({"phase": "long_context_full consistency", **consistency})
+    agree = int((runs[True]["toks"] == runs[False]["toks"]).sum())
+    line = {"phase": "long_context_full", "config": cfg.name,
+            "depth_cut": f"num_layers {get_config(cfg.name).num_layers} "
+                         f"-> {cfg.num_layers}",
+            "input_shape": "long_500k", **LONG_RUN, "window": W,
+            "ring_slots": W, "held_to_plain": held, "tol_rel": 1e-5,
+            "kv_quant_off": runs[False]["line"],
+            "kv_quant_on": runs[True]["line"],
+            "int8_ring_equals_cpu_quantizer": quant_equal,
+            "tokens_agreeing_int8_vs_fp32": f"{agree} of {B * gen}",
+            "consistency_max_abs_err": consistency["max_abs_err"],
+            "consistency_worst_err_over_tol":
+                consistency["worst_err_over_tol"],
+            "launches": total, "seconds": time.perf_counter() - t_phase}
+    log(line)
+    for kv_quant, r in runs.items():
+        require(r["finite"], f"long_context_full kv_quant={kv_quant}: "
+                "non-finite logits")
+        require(r["second_run_equal"], f"long_context_full kv_quant="
+                f"{kv_quant}: a second run gave other tokens")
+    require(all(quant_equal.values()), "long_context_full: the int8 ring "
+            "differs from the CPU quantizer over the fp32 ring: "
+            f"{quant_equal}")
+    require(all(consistency["argmax_equal_by_step"].values()),
+            "long_context_full: a decode step's greedy token differs from "
+            f"the whole prompt's: {consistency['argmax_equal_by_step']}")
+    require_path_kernels("long_context_full", "forward", total)
+    return {"long_context": total}, {
+        n: max(e["max_abs_err"] for e in by_key.values())
+        for n, by_key in held.items()}
+
+
+def _shapes(tree, path: str = "") -> dict:
+    """Every tensor leaf's shape and dtype, by its path in the tree."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _shapes(sub, f"{path}/{key}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _shapes(sub, f"{path}/{i}").items()}
+    return {path: (tuple(tree.shape), tree.dtype)} if hasattr(
+        tree, "shape") else {}
+
+
+def _cache_to(cache, device) -> dict:
+    """A copy of a cache on ``device``."""
+    return {"pattern": [{n: t.to(device, copy=True) for n, t in e.items()}
+                        for e in cache["pattern"]],
+            "remainder": [{n: t.to(device, copy=True) for n, t in e.items()}
+                          for e in cache["remainder"]],
+            "pos": cache["pos"]}
+
+
+def _ring_gap(got, want, at=None) -> tuple:
+    """(bytes apart, the largest distance, the scales' largest relative
+    error over the written slots) of two caches' first pattern entries,
+    compared on the card: every slot, or slot ``at`` alone (0, 0, 0.0
+    without the int8 K/V)."""
+    apart, worst, rel = 0, 0, 0.0
+    for n in ("k", "v"):
+        if f"{n}_s" not in want:
+            continue
+        a, b, sa, sb = (t.to("cuda") if at is None else t[:, :, at].to("cuda")
+                        for t in (got[n], want[n], got[f"{n}_s"],
+                                  want[f"{n}_s"]))
+        d = (a.int() - b.int()).abs()
+        apart, worst = apart + int((d > 0).sum()), max(worst, int(d.max()))
+        rel = max(rel, float(((sa - sb).abs() / sb.clamp_min(1e-30)).max()))
+    return apart, worst, rel
+
+
+def phase_steps_tiny() -> list:
+    """qwen2.5-14b tiny through launch/steps.build_case (variant m2): each
+    STEPS_TINY case's serve step on cuda against cpu from the same weights
+    (every predictor A drawn), the params' and cache's shapes those of the
+    case's meta args: a prefill of STEPS_TINY_RUN["P"] tokens a row
+    through forward with the case's window, then 4 greedy serve steps,
+    each device on its own cache. The prefill's last logits within 1e-4
+    (abs and rel); with the int8 K/V its bytes at most 1 apart (at .5
+    ties, counted) and its scales within 1e-5 relative. Without the int8
+    K/V: tokens equal, every step's logits within 1e-4. With it one byte
+    apart moves the logits by ~1e-3, which flips a greedy token whose top
+    two logits lie closer, and at decode_32k's 128 rows the flip spreads
+    through the batch's shared active set: the free run is printed, and
+    each step runs again on the card from the CPU's cache before it, with
+    the CPU's token: the bytes it writes at most 1 apart, and where they
+    are equal the same greedy tokens and logits within 1e-4 (else the gap
+    printed). Every kernel of the path launched on the card."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import build_case
+    from repro_torch.models import transformer as T
+    arch = "qwen2.5-14b"
+    cfg = tiny_config(arch)
+    params = T.init_params(cfg, seed=0, device="cpu")
+    draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
+    gpu = _tree_to(params, "cuda")
+    P, n_steps = STEPS_TINY_RUN["P"], STEPS_TINY_RUN["steps"]
+    close = lambda a, b: torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+    lines = []
+    for shape_name, kv_quant, far in STEPS_TINY:
+        t0 = time.perf_counter()
+        label = f"steps_tiny {shape_name} kv_quant={kv_quant}" + (
+            f" pos={far}" if far else "")
+        case = build_case(arch, shape_name, variant="m2", kv_quant=kv_quant,
+                          tiny=True)
+        shape = INPUT_SHAPES[shape_name]
+        B, window = shape.global_batch, case.meta["window"]
+        require(_shapes(params) == _shapes(case.args[0]),
+                f"{label}: the params are not the case's")
+        prompts = torch.as_tensor(make_prompts(cfg, B, P, 0))
+        runs = {}
+        for dev, p in (("cpu", params), ("cuda", gpu)):
+            cache = T.init_cache(cfg, B, shape.seq_len, window=window,
+                                 kv_quant=kv_quant, device=dev)
+            require(_shapes(cache) == _shapes(case.args[1]),
+                    f"{label}: the cache is not the case's")
+            reset_counts()
+            logits, cache, _ = T.forward(cfg, p, prompts.to(dev), cache=cache,
+                                         mode="prefill", window=window,
+                                         m2=case.meta["m2"])
+            if far:
+                cache["pos"] = far
+            run = dict(lasts=[logits[:, -1].cpu()], toks=[], before=[],
+                       prefill_ring=ring_cpu(cache))
+            for _ in range(n_steps):
+                run["toks"].append(torch.argmax(run["lasts"][-1], dim=-1)[
+                    :, None].to(torch.int32))
+                if dev == "cpu":
+                    run["before"].append(_cache_to(cache, "cpu"))
+                last, cache = case.fn(p, cache,
+                                      {"tokens": run["toks"][-1].to(dev)})
+                run["lasts"].append(last.cpu())
+            run["counts"] = read_counts()
+            run["toks"] = torch.cat(run["toks"], -1)
+            if dev == "cpu":
+                run["before"].append(cache)
+            runs[dev] = run
+            del cache
+        cpu, cuda = runs["cpu"], runs["cuda"]
+        prefill_gap = _ring_gap(cuda["prefill_ring"], cpu["prefill_ring"])
+        sbuf = cpu["prefill_ring"]["k"].shape[2]
+        # each step on the card from the CPU's cache before it
+        fixed = []
+        for i in range(n_steps):
+            before, after = cpu["before"][i], cpu["before"][i + 1]
+            cache = _cache_to(before, "cuda")
+            last, cache = case.fn(gpu, cache, {"tokens": cpu["toks"][
+                :, i:i + 1].to("cuda")})
+            at = before["pos"] % sbuf if window else before["pos"]
+            new = _ring_gap(cache["pattern"][0], after["pattern"][0], at)
+            want = cpu["lasts"][i + 1]
+            fixed.append({"step": i + 1, "slot": at,
+                          "new_bytes_apart": new[0],
+                          "new_bytes_worst_apart": new[1],
+                          "new_scale_max_rel_err": new[2],
+                          "max_abs_err": max_err(last.cpu(), want),
+                          "logits_close": close(last.cpu(), want),
+                          "tokens_equal": bool(torch.equal(
+                              last.argmax(-1).cpu(), want.argmax(-1)))})
+            del cache
+        del cpu["before"]
+        line = {"phase": label, "config": cfg.name, "case": case.name,
+                "meta": case.meta, "batch": B, "cache_positions":
+                shape.seq_len, "prompt_len": P, "decode_steps": n_steps,
+                "start_pos": far or P,
+                "prefill_last_logits_max_abs_err": max_err(
+                    cuda["lasts"][0], cpu["lasts"][0]),
+                "prefill_int8_bytes_apart": prefill_gap[0],
+                "prefill_int8_worst_apart": prefill_gap[1],
+                "prefill_scale_max_rel_err": prefill_gap[2],
+                "free_running": {
+                    "tokens_equal": bool(torch.equal(cuda["toks"],
+                                                     cpu["toks"])),
+                    "tokens_apart": int((cuda["toks"] != cpu["toks"]).sum()),
+                    "last_logits_max_abs_err_by_step": [
+                        max_err(a, b) for a, b in zip(cuda["lasts"],
+                                                      cpu["lasts"])]},
+                "cpu_min_top2_gap_by_step": [
+                    float(torch.topk(l, 2).values.diff().abs().min())
+                    for l in cpu["lasts"]],
+                "from_cpu_cache": fixed, "tol_abs_rel": 1e-4,
+                "launches_cuda": cuda["counts"],
+                "seconds": time.perf_counter() - t0}
+        log(line)
+        require(close(cuda["lasts"][0], cpu["lasts"][0]),
+                f"{label}: prefill logits differ")
+        if not kv_quant:
+            require(line["free_running"]["tokens_equal"]
+                    and all(close(a, b) for a, b in zip(cuda["lasts"],
+                                                        cpu["lasts"])),
+                    f"{label}: cuda and cpu differ: {line['free_running']}")
+        for gap in [prefill_gap] + [(f["new_bytes_apart"],
+                                     f["new_bytes_worst_apart"],
+                                     f["new_scale_max_rel_err"])
+                                    for f in fixed]:
+            require(gap[1] <= 1 and gap[2] <= 1e-5,
+                    f"{label}: int8 bytes {gap[1]} apart, scales {gap[2]:.3g}")
+        for f in fixed:
+            require(f["new_bytes_apart"] > 0 or (f["logits_close"]
+                                                 and f["tokens_equal"]),
+                    f"{label}: from the CPU's cache, step {f['step']}: {f}")
+        require_path_kernels(label, "forward", cuda["counts"],
+                             each_qmm_kernel=False)
+        lines.append(line)
+    return lines
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4078,7 +4652,11 @@ def main(only=None):
                  "offline_tiny": (phase_offline_tiny,),
                  "ratio_search_full": (lambda: phase_ratio_search_full(
                      *full_model()[1:]),),
-                 "train_full": (phase_train_full,)}
+                 "train_full": (phase_train_full,),
+                 "kernels_long": (phase_kernels_long, dev),
+                 "steps_tiny": (phase_steps_tiny,),
+                 "long_context_full": (lambda: phase_long_context_full(
+                     *full_model()[1:]),)}
         for name in only:
             timed(name, *calls[name])
         log({"phase": "timing", "seconds": seconds,
@@ -4096,9 +4674,12 @@ def main(only=None):
                       torch.device("cuda"), B, P, gen_len))
     kern.update(timed("kernels_audio", phase_kernels_audio,
                       torch.device("cuda")))
+    kern.update(timed("kernels_long", phase_kernels_long,
+                      torch.device("cuda")))
     timed("tiny", phase_tiny)
     timed("server_tiny", phase_server_tiny)
     timed("offline_tiny", phase_offline_tiny)
+    timed("steps_tiny", phase_steps_tiny)
     full, full_cfg, params = timed("full_model", full_model)
     paths = {"serve_full": timed("full", phase_full, full, full_cfg, params,
                                  B, P, gen_len)[0]}
@@ -4114,6 +4695,12 @@ def main(only=None):
     # own shapes, count in the errors of the d = 5120 rows it launches
     for name, err in held.items():
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
+    long_paths, held = timed("long_context_full", phase_long_context_full,
+                             full_cfg, params)
+    paths.update(long_paths)
+    for name, err in held.items():
+        row = kern[LONG_ROWS[name]]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
     del params
     torch.cuda.empty_cache()
     timed("train_full", phase_train_full)
@@ -4264,6 +4851,24 @@ def main(only=None):
                                "qmatmul_gemv", (f"{audio}/forward",)),
         "qmatmul_mma_d2048": (c + "qmatmul.cu", k + "qmatmul.py:38",
                               "qmatmul_mma", (f"{audio}/forward",)),
+        # long_500k's window override at full width (qwen2.5-14b, one
+        # row): the whole prompt of 8704 tokens within the 8192 window, the
+        # ring's decode, the FFN at M = 1 and 8704; and a decode step over
+        # int8 K/V at 8 x 32768 slots (measurement: the launches are those
+        # of the ring row)
+        "flash_attention_window_8k": (c + "flash_attention.cu",
+                                      k + "flash_attention.py:26",
+                                      "flash_attention", ("long_context",)),
+        "flash_decode_ring_8k": (c + "flash_decode.cu",
+                                 k + "flash_decode.py:26", "flash_decode",
+                                 ("long_context",)),
+        "qmatmul_gemv_b1": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                            "qmatmul_gemv", ("long_context",)),
+        "qmatmul_mma_m8704": (c + "qmatmul.cu", k + "qmatmul.py:38",
+                              "qmatmul_mma", ("long_context",)),
+        "flash_decode_int8_32k": (c + "flash_decode.cu",
+                                  k + "flash_decode.py:26", "flash_decode",
+                                  ("long_context",)),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),
@@ -4288,7 +4893,10 @@ def main(only=None):
                                         "bound_tf32_ms", "bound_tf32_by",
                                         "uncapped_device_ms",
                                         "sdpa_uncapped_ms",
-                                        "library_max_abs_err")
+                                        "library_max_abs_err",
+                                        "dequantize_ms", "flash_decode_ms",
+                                        "bound_fp32_kv_ms",
+                                        "sdpa_dequantized_ms")
                if key in kk}})
     print(nvidia_smi(), flush=True)
     log({"kernels": table})

@@ -5,6 +5,7 @@ attention kernels: the port computes with them on the CPU.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -56,14 +57,26 @@ def each_row(fn, x):
     return torch.cat(outs)
 
 
+@functools.lru_cache(maxsize=None)
+def rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
+    """``theta ** (-arange(half) / half)`` as the reference's fp32 power
+    rounds it: the fp32 exponent, the power of the fp32 theta in float64,
+    rounded once to fp32. ``torch.pow`` in fp32 misses the correctly
+    rounded power by one ulp on some frequencies (4 of 64 at theta 1e6,
+    D = 128), and the angle ``position * freq`` carries the miss to
+    ~1e-2 at position 524272. Computed on the CPU, so every device gets
+    the same bits; a constant per (theta, half, device)."""
+    exponent = -torch.arange(0, half, dtype=torch.float32) / half
+    base = torch.tensor(theta, dtype=torch.float32).double()
+    return torch.pow(base, exponent.double()).float().to(device)
+
+
 def rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: (..., S) absolute positions. Split-half
     layout with float32 angles."""
     d = x.shape[-1]
     half = d // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
-                      exponent)
+    freqs = rope_freqs(float(theta), half, x.device)
     angles = positions[..., :, None, None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]

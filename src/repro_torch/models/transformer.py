@@ -14,10 +14,11 @@ keeps the reference's layout, ``{"pattern": [one entry per pattern
 position, its leaves stacked over the F repeats], "remainder": [one entry
 per remainder layer], "pos"}``, an attention entry ``{"k", "v": (F, B,
 sbuf, kvH, Dh)}`` (``sbuf = min(window, max_seq)`` with a sliding window:
-a ring), an RG-LRU entry ``{"h": (F, B, W), "conv": (F, B, cw-1, W)}``,
-an SSD entry ``{"h": (F, B, nh, hd, n), "conv": (F, B, cw-1, di+2n)}``
-(remainder entries without the F axis), and is updated in place. ``pos``
-is an int when every row stands at one position (a fresh cache,
+a ring; with ``kv_quant`` int8 ``k``/``v`` and fp32 scales ``k_s``/``v_s``
+(F, B, sbuf, kvH)), an RG-LRU entry ``{"h": (F, B, W), "conv": (F, B,
+cw-1, W)}``, an SSD entry ``{"h": (F, B, nh, hd, n), "conv": (F, B, cw-1,
+di+2n)}`` (remainder entries without the F axis), and is updated in place.
+``pos`` is an int when every row stands at one position (a fresh cache,
 launch/serve's batch) and a CPU int64 tensor (B,) when the rows are
 separate requests at their own positions (the server's stacked rows, where
 the reference vmaps a one-row graph over a per-row ``pos``).
@@ -34,8 +35,10 @@ neurons) and the dense GLU (``init_params(m2=False)``'s ``wg``/``wu``/
 ``wd``); ``mode`` "train" (no cache, under autograd; ``remat`` recomputes
 each layer in the backward pass; :func:`lm_loss`), "prefill",
 "prefill_resume" (attention-only models without a window, as the
-reference) and "decode". The ``window`` override and the int8 KV cache
-raise NotImplementedError.
+reference) and "decode"; the long-context ``window`` override (a sliding
+window on a model without one of its own) and the int8 K/V cache
+(``kv_quant``: each token's K and V per head quantized, dequantized to fp32
+before the attention kernels), outside the server's ``rows``.
 """
 from __future__ import annotations
 
@@ -228,12 +231,26 @@ def _init_one(spec, gen, device):
     return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 
 
-def _materialise(tree, gen, device):
+def _map_specs(fn, tree):
+    """``fn`` over the (shape, dtype, kind) leaves of a spec tree."""
     if _is_spec(tree):
-        return _init_one(tree, gen, device)
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _materialise(v, gen, device) for k, v in tree.items()}
-    return [_materialise(v, gen, device) for v in tree]
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return [_map_specs(fn, v) for v in tree]
+
+
+def abstract_params(cfg, *, dtype=torch.float32, m2: bool = True):
+    """The params as tensors on the ``meta`` device, in the port's layout
+    (banks neuron-major): ``T.abstract_params``' counterpart, nothing is
+    allocated."""
+    params = _map_specs(lambda s: torch.empty(s[0], dtype=s[1],
+                                              device="meta"),
+                        model_param_specs(cfg, dtype=dtype, m2=m2))
+    for layer in params["layers"]:
+        if "banks" in layer.get("ffn", {}):
+            layer["ffn"]["banks"] = to_neuron_major(layer["ffn"]["banks"])
+    return params
 
 
 @torch.no_grad()
@@ -254,8 +271,8 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
     if gen is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-    params = _materialise(model_param_specs(cfg, dtype=dtype, m2=m2), gen,
-                          device)
+    params = _map_specs(lambda s: _init_one(s, gen, device),
+                        model_param_specs(cfg, dtype=dtype, m2=m2))
     for kind, layer in zip(cfg.layer_kinds, params["layers"]):
         if kind == "ssm":
             layer["A_log"].fill_(0.0)                  # A = -1
@@ -278,15 +295,21 @@ def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
 
 
 def _entry(cfg, kind: str, lead: tuple, batch: int, max_seq: int, dtype,
-           device) -> Dict:
+           device, window: int, kv_quant: bool) -> Dict:
     """One pattern position's (``lead`` = (F,)) or remainder layer's (())
     cache entry (transformer.py:339-362)."""
-    def zeros(*shape):
-        return torch.zeros(lead + shape, dtype=dtype, device=device)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
     if kind == "attn":
-        w = cfg.window_size
+        w = cfg.window_size or window
         sbuf = min(w, max_seq) if w else max_seq
         kv = (batch, sbuf, cfg.num_kv_heads, cfg.head_dim)
+        if kv_quant:
+            sc = kv[:-1]
+            return {"k": zeros(*kv, dt=torch.int8),
+                    "v": zeros(*kv, dt=torch.int8),
+                    "k_s": zeros(*sc, dt=torch.float32),
+                    "v_s": zeros(*sc, dt=torch.float32)}
         return {"k": zeros(*kv), "v": zeros(*kv)}
     if kind == "ssm":
         di, n = cfg.d_inner, cfg.ssm_state
@@ -297,32 +320,37 @@ def _entry(cfg, kind: str, lead: tuple, batch: int, max_seq: int, dtype,
             "conv": zeros(batch, cfg.ssm_conv_width - 1, w)}
 
 
-def _cache(cfg, batch: int, max_seq: int, dtype, device):
+def _cache(cfg, batch: int, max_seq: int, dtype, device, window: int,
+           kv_quant: bool):
     check_supported(cfg)
     pat, F, rem = pattern_split(cfg)
-    return {
-        "pattern": [_entry(cfg, k, (F,), batch, max_seq, dtype, device)
-                    for k in pat],
-        "remainder": [_entry(cfg, k, (), batch, max_seq, dtype, device)
-                      for k in pat[:rem]],
-        "pos": 0,
-    }
+
+    def entry(kind, lead):
+        return _entry(cfg, kind, lead, batch, max_seq, dtype, device, window,
+                      kv_quant)
+    return {"pattern": [entry(k, (F,)) for k in pat],
+            "remainder": [entry(k, ()) for k in pat[:rem]],
+            "pos": 0}
 
 
-def init_cache(cfg, batch: int, max_seq: int, *, dtype=torch.float32,
-               device=None):
+def init_cache(cfg, batch: int, max_seq: int, *, window: int = 0,
+               dtype=torch.float32, kv_quant: bool = False, device=None):
     """Zero decode cache in the reference's layout (transformer.py:330-380):
     one entry per pattern position, its leaves stacked over the F repeats,
     then one per remainder layer; an attention layer's K/V buffer holds
-    ``min(window, max_seq)`` slots with a sliding window (a ring),
-    ``max_seq`` without (the reference's int8 K/V is not ported)."""
-    return _cache(cfg, batch, max_seq, dtype, resolve_device(device))
+    ``min(window, max_seq)`` slots with a sliding window (the config's, or
+    else ``window``: a ring), ``max_seq`` without. ``kv_quant``: K/V int8
+    with an fp32 scale per (token, head), ``k_s``/``v_s``."""
+    return _cache(cfg, batch, max_seq, dtype, resolve_device(device), window,
+                  kv_quant)
 
 
-def cache_specs(cfg, batch: int, max_seq: int, *, dtype=torch.float32):
+def cache_specs(cfg, batch: int, max_seq: int, *, window: int = 0,
+                dtype=torch.float32, kv_quant: bool = False):
     """The cache's leaves as shape-and-dtype tensors on the ``meta`` device
     (``T.cache_specs``' counterpart: nothing is allocated)."""
-    return _cache(cfg, batch, max_seq, dtype, torch.device("meta"))
+    return _cache(cfg, batch, max_seq, dtype, torch.device("meta"), window,
+                  kv_quant)
 
 
 def layer_cache(cfg, cache, l: int) -> Dict:
@@ -379,11 +407,73 @@ def decode_slots(pos0, sbuf: int, ring: bool = False):
     return torch.where(slots <= lengths[:, None], slots, -1), lengths
 
 
+def _kv_quantize(x):
+    """(B, S, kvH, Dh) -> (int8 values, (B, S, kvH) fp32 scales)
+    (transformer.py:441-447): the scale is max|x| over Dh / 127, floored
+    at 1e-8; ``torch.round`` rounds half to even, as ``jnp.round``. The
+    127 is a tensor on x's device: CUDA divides by a Python number as a
+    product with its reciprocal, which can miss the quotient by an ulp."""
+    xf = x.float()
+    peak = xf.abs().amax(dim=-1)
+    scale = torch.clamp_min(peak / peak.new_full((), 127.0), 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequantize(q, scale, dtype):
+    """transformer.py:450-452."""
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
+                      slots, softcap: float):
+    """The attention of a serving mode, which writes this call's K/V (or,
+    with an int8 cache, their :func:`_kv_quantize` bytes and scales) into
+    the cache views ``kv`` in place; ``attn_layer`` says what each mode
+    attends over."""
+    B, S = q.shape[:2]
+    sbuf = kv["k"].shape[1]
+    if "k_s" in kv:
+        (k_st, ks_st), (v_st, vs_st) = _kv_quantize(k), _kv_quantize(v)
+        store = {"k": k_st, "v": v_st, "k_s": ks_st, "v_s": vs_st}
+    else:
+        store = {"k": k, "v": v}
+    if mode == "prefill":                   # from position 0
+        if window and S >= sbuf:            # the ring keeps the last sbuf
+            ring = torch.remainder(torch.arange(S - sbuf, S,
+                                                device=q.device), sbuf)
+            for n, t in store.items():
+                kv[n][:, ring] = t[:, S - sbuf:].to(kv[n].dtype)
+        else:
+            for n, t in store.items():
+                kv[n][:, :S] = t.to(kv[n].dtype)
+        return ops.prefill_attention(q, k, v, positions, window=window,
+                                     softcap=softcap)
+    # decode or prefill_resume: the reference writes by a one-hot select or
+    # a dynamic_update_slice into a new buffer; the port overwrites the
+    # rows' slots of the cache in place
+    b_idx = torch.arange(B, device=q.device)[:, None]
+    at = torch.remainder(positions, sbuf) if window else positions
+    for n, t in store.items():
+        kv[n][b_idx, at] = t.to(kv[n].dtype)
+    if "k_s" in kv:
+        ck = _kv_dequantize(kv["k"], kv["k_s"], q.dtype)
+        cv = _kv_dequantize(kv["v"], kv["v_s"], q.dtype)
+    else:
+        ck, cv = kv["k"], kv["v"]
+    if mode == "decode":
+        return ops.decode_attention(q, ck, cv, *slots, softcap=softcap)
+    # causal mask kv_pos <= q_pos hides the chunk's future tokens and
+    # whatever sits above the prefill front
+    return ops.chunk_attention(q, ck, cv, positions, softcap=softcap)
+
+
 def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
-               slots=None, m2: bool = True):
-    """x: (B, S, d). kv: this layer's {'k', 'v'} cache views, updated in
-    place (None in "train"). pos0: (B,) int64 start positions on x's
-    device (all 0 for "prefill" and "train"). mode: "decode" (one token at
+               slots=None, m2: bool = True, window: int = 0):
+    """x: (B, S, d). kv: this layer's {'k', 'v'} cache views (and
+    {'k_s', 'v_s'} with an int8 cache), updated in place (None in "train").
+    pos0: (B,) int64 start positions on x's device (all 0 for "prefill"
+    and "train"). mode: "decode" (one token at
     pos0), "prefill" (from 0), "prefill_resume" (an S-token chunk at pos0,
     attending over the whole buffer) or "train" (from 0, no cache: the
     plain ``chunked_attention`` on every device, as the reference trains,
@@ -394,9 +484,13 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     ``slots``: :func:`decode_slots` of pos0 (decode only). A parallel block
     (transformer.py:625-627) feeds the FFN the normed ``h`` that fed QKV
     and adds both outputs to x. The attention takes ``cfg.logit_softcap``
-    and ``cfg.window_size``: with a window the cache is a ring, a prompt
-    writes its last ``sbuf`` tokens to their slots and a decode step slot
-    ``pos mod sbuf`` (transformer.py:502, 603-609).
+    and a sliding window, ``cfg.window_size`` or else ``window``: with a
+    window the cache is a ring, a prompt writes its last ``sbuf`` tokens to
+    their slots and a decode step slot ``pos mod sbuf`` (transformer.py:502,
+    603-609). An int8 cache (transformer.py:499-620) takes each written
+    token's K and V quantized (:func:`_kv_quantize`); a prompt attends over
+    its own unquantized K/V, a decode step or a chunk over the buffer
+    dequantized to fp32.
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
     load-balance loss: 0.0 for another FFN, a (B,) tensor with
     ``rows``)."""
@@ -423,37 +517,13 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    cap, window = cfg.logit_softcap, cfg.window_size
-    sbuf = None if kv is None else kv["k"].shape[1]
+    cap, w_eff = cfg.logit_softcap, cfg.window_size or window
     if mode == "train":
         attn_out = chunked_attention(q, k, v, positions, positions,
-                                     window=window, softcap=cap)
-    elif mode == "prefill":                 # from position 0
-        attn_out = ops.prefill_attention(q, k, v, positions, window=window,
-                                         softcap=cap)
-        if window and S >= sbuf:            # the ring keeps the last sbuf
-            ring = torch.remainder(torch.arange(S - sbuf, S,
-                                                device=x.device), sbuf)
-            kv["k"][:, ring] = k[:, S - sbuf:].to(kv["k"].dtype)
-            kv["v"][:, ring] = v[:, S - sbuf:].to(kv["v"].dtype)
-        else:
-            kv["k"][:, :S] = k.to(kv["k"].dtype)
-            kv["v"][:, :S] = v.to(kv["v"].dtype)
+                                     window=w_eff, softcap=cap)
     else:
-        # decode or prefill_resume: the reference writes by a one-hot select
-        # or a dynamic_update_slice into a new buffer; the port overwrites
-        # the rows' slots of the cache in place
-        ck, cv = kv["k"], kv["v"]
-        b_idx = torch.arange(B, device=x.device)[:, None]
-        at = torch.remainder(positions, sbuf) if window else positions
-        ck[b_idx, at] = k.to(ck.dtype)
-        cv[b_idx, at] = v.to(cv.dtype)
-        if mode == "decode":
-            attn_out = ops.decode_attention(q, ck, cv, *slots, softcap=cap)
-        else:
-            # causal mask kv_pos <= q_pos hides the chunk's future tokens
-            # and whatever sits above the prefill front
-            attn_out = ops.chunk_attention(q, ck, cv, positions, softcap=cap)
+        attn_out = _cached_attention(q, k, v, kv, positions, mode=mode,
+                                     window=w_eff, slots=slots, softcap=cap)
 
     attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
 
@@ -601,12 +671,18 @@ def forward(cfg, params, tokens, *, prefix=None, cache=None,
     decode step run past its ``sbuf`` slots. ``m2``: an FFN with banks
     runs as the M2Cache FFN (the reference's default is False; the port's
     serving params always have banks), a dense one as the GLU whatever
-    ``m2`` says. ``window`` > 0 (the reference's long-context override)
-    raises NotImplementedError.
+    ``m2`` says. ``window`` > 0 (the reference's long-context override,
+    launch/steps.py's long_500k) gives a model without a window of its own
+    a sliding window of that many positions: train mode attends within it,
+    and the serving modes take a cache built with the same ``window``
+    (:func:`init_cache`), a ring. A cache built with ``kv_quant`` holds
+    int8 K/V (:func:`attn_layer`).
     ``rows``: every batch row is its own request, with its own FFN active
     sets, and gives the bits it gives alone — what the reference computes
     by vmapping a one-row forward; an MoE layer's capacity is then counted
-    over the row alone, as the reference's is.
+    over the row alone, as the reference's is. ``rows`` with ``window`` or
+    an int8 cache raises NotImplementedError: no path of the reference
+    runs them in its server.
     aux["active_idx"] is ``{"pattern": [(F, k) tensor per pattern
     position], "remainder": [(k,) tensor per remainder layer]}``, the
     reference's structure; with ``rows`` (B, F, k) and (B, k), the
@@ -615,22 +691,27 @@ def forward(cfg, params, tokens, *, prefix=None, cache=None,
     aux["lb_loss"] sums the MoE layers' load-balance losses (0.0 without
     MoE; (B,) with ``rows``)."""
     check_supported(cfg)
-    if window:
-        raise NotImplementedError("the window= override is not ported yet")
     if mode not in ("train", "prefill", "prefill_resume", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if (mode == "train") != (cache is None):
         raise ValueError(f"mode {mode!r} takes "
                          + ("no cache" if mode == "train" else "a cache"))
+    if rows and (window or (cache is not None and any(
+            "k_s" in e for e in cache["pattern"] + cache["remainder"]))):
+        raise NotImplementedError(
+            "rows (the server's stacked requests) with the window= override "
+            "or an int8 K/V cache: the reference's server runs neither")
     grad = contextlib.nullcontext() if mode == "train" else torch.no_grad()
     with grad:
         return _forward(cfg, params, tokens, prefix, cache, mode,
-                        m2 and cfg.m2_enabled, rows, remat)
+                        m2 and cfg.m2_enabled, rows, remat, window)
 
 
-def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat):
+def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
+             window):
     pat, F, rem = pattern_split(cfg)
-    if mode == "prefill_resume" and (cfg.window_size or set(pat) - {"attn"}):
+    w_eff = cfg.window_size or window
+    if mode == "prefill_resume" and (w_eff or set(pat) - {"attn"}):
         raise NotImplementedError(
             "prefill_resume does not support sliding-window attention or "
             "recurrent layers")
@@ -648,20 +729,20 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat):
         pos = row_positions(cache, B)
         if mode == "prefill":
             pos = torch.zeros_like(pos)
-        if int(pos.min()) < 0 or (sbuf is not None and not cfg.window_size
+        if int(pos.min()) < 0 or (sbuf is not None and not w_eff
                                   and int(pos.max()) + S > sbuf):
             raise ValueError(f"{mode} of {S} token(s) at positions "
                              f"{pos.tolist()} outside the cache buffer of "
                              f"{sbuf} slots")
         pos0 = pos.to(x.device)
         if mode == "decode" and sbuf is not None:
-            slots = decode_slots(pos0, sbuf, bool(cfg.window_size))
+            slots = decode_slots(pos0, sbuf, bool(w_eff))
 
     def layer(l, kind, p, x):
         c = None if cache is None else layer_cache(cfg, cache, l)
         if kind == "attn":
             return attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
-                              slots=slots, m2=m2)
+                              slots=slots, m2=m2, window=window)
         if kind == "rglru":
             return rglru_layer(cfg, p, x, c, rows=rows, m2=m2)
         return ssm_layer(cfg, p, x, c, mode=mode, rows=rows)

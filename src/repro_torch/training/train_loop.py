@@ -19,19 +19,22 @@ from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
                                             init_opt_state)
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig, *, remat: bool = True):
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, remat: bool = True,
+                    window: int = 0):
     """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``: the loss and the gradients of every float leaf,
-    then :func:`apply_updates`, which writes into ``params`` and the
-    moments. ``batch`` holds tensors on the params' device. metrics:
-    {"nll", "lb_loss", "loss", "grad_norm", "lr"}."""
+    opt_state, metrics)``: the loss (attention within a sliding ``window``
+    where one is given, as ``lm_loss`` takes it) and the gradients of every
+    float leaf, then :func:`apply_updates`, which writes into ``params``
+    and the moments. ``batch`` holds tensors on the params' device.
+    metrics: {"nll", "lb_loss", "loss", "grad_norm", "lr"}."""
 
     def train_step(params, opt_state, batch):
         trained = [t for t in tree_leaves(params) if t.is_floating_point()]
         for t in trained:
             t.requires_grad_(True)
         try:
-            loss, metrics = T.lm_loss(cfg, params, batch, remat=remat)
+            loss, metrics = T.lm_loss(cfg, params, batch, remat=remat,
+                                      window=window)
             grads = dict(zip(map(id, trained), torch.autograd.grad(
                 loss, trained, allow_unused=True)))
         finally:

@@ -148,10 +148,12 @@ def test_init_params_follows_reference_rules_and_shapes():
                                          m2_enabled=False)])
 def test_unported_configs_raise(change):
     """Unknown layer kinds raise wherever a model is built. Every other
-    config raises on what stays unported, the ``window=`` override; its
-    dense FFN (``m2_enabled`` False, ``init_params(m2=False)``) is ported
-    with train mode and runs (SSD layers and the audio family too:
-    tests/test_torch_ssm.py, tests/test_torch_audio.py)."""
+    config raises on what stays unported, the ``window=`` override in the
+    server's ``rows`` (no path of the reference runs it there), and runs
+    it elsewhere; its dense FFN (``m2_enabled`` False,
+    ``init_params(m2=False)``) is ported with train mode and runs (SSD
+    layers and the audio family too: tests/test_torch_ssm.py,
+    tests/test_torch_audio.py)."""
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen2.5-14b", tiny=True), **change)
     if "conv" in cfg.block_pattern:
@@ -166,4 +168,6 @@ def test_unported_configs_raise(change):
     logits, _, _ = T.forward(cfg, params, tokens)
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="window"):
-        T.forward(cfg, params, tokens, window=8)
+        T.forward(cfg, params, tokens, window=8, rows=True)
+    logits, _, _ = T.forward(cfg, params, tokens, window=8)
+    assert bool(torch.isfinite(logits).all())
