@@ -5,6 +5,7 @@ NVIDIA GPU.
   python3 chip_smoke.py            # all phases, one card
   python3 chip_smoke.py --only offline_tiny,ratio_search_full,train_full
                                    # the device phase and the named ones
+  python3 chip_smoke.py --only mesh_full
 
 Phases, each printing one JSON line:
   1. device   — the card's name and power limit, torch/CUDA versions, and
@@ -157,6 +158,19 @@ Phases, each printing one JSON line:
                 int8 K/V off; the int8 ring after the prefill equal to the
                 CPU quantizer over the fp32 ring; wall, device time and
                 busy share of the prefill and a decode step.
+ 21. mesh_full — the mesh tooling (after train_full, the card emptied):
+                launch/dryrun.run_one for qwen2.5-14b's full config at
+                every input shape on the host (1 x 1) and 16 x 16 meshes,
+                dense, and decode_32k m2 on 16 x 16 (fake DTensors traced
+                on the host's CPU), each record's memory, roofline terms
+                and trace seconds printed, status ok required; then one
+                real build_case step (long_500k, dense, make_host_mesh())
+                at all 48 layers and full width (59.1 GB of fp32 weights,
+                the 8192-slot ring from position 524272), 16 serve steps:
+                48 flash_decode launches a step, the first step's calls
+                held against the plain version, the record's arguments
+                equal to the real bytes, and a step's median device time
+                at least MESH_BOUND_SHARE of the record's roofline bound.
 Phases 4, 6-9, 16 and 20 share one set of full-width weights; each prints
 its seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
@@ -221,9 +235,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
-TF32_FLOPS = 495e12              # H100 SXM TF32 tensor cores, dense
 FULL_LAYERS = 4
 #: server_full's traffic: 8 chat requests over 4 shared 64-token system
 #: prompts (reuse 0.75), 16 new tokens each, all arriving at once
@@ -357,12 +368,13 @@ def device_profile(fn, reps: int = 5) -> dict:
             "profiler_sessions": attempt + 1}
 
 
-def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = None) -> tuple:
     """(ms, what bounds it): the larger of the bytes over the memory rate
     and the operations over ``peak`` (fp32 outside the tensor cores unless
-    told otherwise)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
+    told otherwise), at the card's data-sheet rates (``core.hw.H100_SXM``)."""
+    from repro_torch.core.hw import H100_SXM
+    t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
+    t_ops = flops / (peak or H100_SXM.flops_fp32) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -378,8 +390,9 @@ def tf32_bound(nbytes: float, M: int, d: int, k16: int, k8: int,
     """The FFN's bound on the tensor cores: gate, up and down at M rows,
     each multiply-add issued as many times as the split needs, at 495
     TFLOP/s dense TF32."""
+    from repro_torch.core.hw import H100_SXM
     ms, by = bound(nbytes, 2 * M * d * 3 * tf32_products(k16, k8, k4),
-                   TF32_FLOPS)
+                   H100_SXM.flops_tf32)
     return {"bound_tf32_ms": ms, "bound_tf32_by": by,
             "bound_tf32_note": "TF32 dense peak x the split's products "
                                "(fp tier 3, int tiers 2)"}
@@ -392,7 +405,8 @@ def attention_row(run, plain, lib, nbytes: float, flops: float,
     bounds: fp32 outside the tensor cores, and the 3 TF32 products the
     kernel issues per fp32 product at the TF32 peak."""
     b_ms, b_by = bound(nbytes, flops)
-    t_ms, t_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+    from repro_torch.core.hw import H100_SXM
+    t_ms, t_by = bound(nbytes, 3 * flops, H100_SXM.flops_tf32)
     return {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=plain_reps),
             "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
             "bound_tf32_ms": t_ms, "bound_tf32_by": t_by,
@@ -1566,6 +1580,9 @@ PATH_KERNELS = {"serve": ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
                             "flash_attention"),
                 "forward_prefill": ("qmatmul_mma", "flash_attention"),
                 "forward_decode": ("qmatmul_gemv", "flash_decode"),
+                # build_case's dense serve step (the dense FFN's products
+                # are PyTorch's, as the reference's dense variant is jnp)
+                "dense_decode": ("flash_decode",),
                 # Algorithm 1's search: whole-prompt prefill, then decode
                 "ratio_search": ("qmatmul_gemv", "qmatmul_mma",
                                  "flash_decode", "flash_attention"),
@@ -4591,6 +4608,167 @@ def phase_steps_tiny() -> list:
     return lines
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the mesh tooling (the dry run's records and roofline, then one
+# real long_500k serve step at full depth against its bound)
+
+#: mesh_full: the dry run's combinations of qwen2.5-14b's full config
+#: (mesh, variant, input shape), then the real step's
+MESH_ARCH = "qwen2.5-14b"
+MESH_DRYRUN = tuple((mesh, "dense", shape) for mesh in ("host", "single")
+                    for shape in ("train_4k", "prefill_32k", "decode_32k",
+                                  "long_500k")) + (("single", "m2",
+                                                    "decode_32k"),)
+#: the real step: long_500k's one row, its 8192-slot ring started at the
+#: position steps_tiny starts from, MESH_STEPS serve steps
+MESH_START, MESH_STEPS = 524272, 16
+MESH_CACHE_SEED = 3
+#: the measured device time a step must reach, as a share of the roofline's
+#: larger term: a bound above the card's own time is a counting fault
+MESH_BOUND_SHARE = 0.95
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def phase_mesh_full() -> dict:
+    """(a) launch/dryrun.run_one for MESH_ARCH's full config at every
+    MESH_DRYRUN combination (fake DTensors on placeholder ranks, traced on
+    the host CPU): each record's memory, roofline terms, bottleneck and
+    trace seconds printed, status "ok" required. (b) The real step:
+    build_case(MESH_ARCH, "long_500k", mesh=make_host_mesh(),
+    variant="dense"), materialised on the card at all 48 layers and full
+    width (init_params(m2=False): 59.1 GB of fp32 weights) with the
+    window's 8192-slot ring at MESH_START, its K/V seeded normal values,
+    MESH_STEPS serve steps: 48
+    flash_decode launches a step (its counter); the first step's calls held
+    against the plain version (held_to_plain); the host record's
+    argument_gb equal to the real params', cache's and tokens' bytes; the
+    median device ms of a step (device_profile, five sessions of one step)
+    at least MESH_BOUND_SHARE x the record's max(compute_s, memory_s).
+    Returns ({"mesh_full": launches}, the held kernels' largest errors)."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, release_mesh
+    from repro_torch.launch.steps import build_case
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    records = {}
+    for mesh, variant, shape in MESH_DRYRUN:
+        rec = dryrun.run_one(MESH_ARCH, shape, mesh=mesh, variant=variant,
+                             verbose=False)
+        records[(mesh, variant, shape)] = rec
+        r = rec["roofline"]
+        log({"phase": "mesh_full dryrun", "arch": MESH_ARCH, "shape": shape,
+             "mesh": rec["mesh"], "variant": variant,
+             "status": rec["status"], "memory": rec["memory"],
+             "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+             "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
+             "collectives": r["collectives"],
+             "useful_flops_ratio": r["useful_flops_ratio"],
+             "trace_s": rec["trace_s"], "cost": rec["cost"]})
+        require(rec["status"] == "ok", f"mesh_full: the dry run of {shape} "
+                f"on {mesh} ({variant}) is {rec['status']}")
+    dry_s = time.perf_counter() - t_phase
+    host = records[("host", "dense", "long_500k")]
+    bound_ms = max(host["roofline"]["compute_s"],
+                   host["roofline"]["memory_s"]) * 1e3
+
+    cfg = get_config(MESH_ARCH)
+    mesh = make_host_mesh()
+    held, launches = {}, {}
+    try:
+        case = build_case(MESH_ARCH, "long_500k", mesh=mesh, variant="dense")
+        require(case.meta["chips"] == 1 and case.meta["window"],
+                f"mesh_full: the case is not one card's ring: {case.meta}")
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seed=0, device="cuda", m2=False)
+        cache = T.init_cache(cfg, 1, INPUT_SHAPES["long_500k"].seq_len,
+                             window=case.meta["window"], device="cuda")
+        cache["pos"] = MESH_START
+        # every slot of the ring holds seeded K/V, so that the first step's
+        # hold sees which slot the token writes and which slots it reads
+        gen = torch.Generator(device="cuda").manual_seed(MESH_CACHE_SEED)
+        for t in _leaves(cache):
+            if isinstance(t, torch.Tensor):
+                t.normal_(generator=gen)
+        require(_shapes(params) == _shapes(case.args[0])
+                and _shapes(cache) == _shapes(case.args[1]),
+                "mesh_full: the real params or cache are not the case's")
+        tok = torch.full((1, 1), 17, dtype=torch.int32, device="cuda")
+        real_bytes = _tensor_bytes(params) + _tensor_bytes(cache) \
+            + _tensor_bytes(tok)
+        arg_bytes = host["memory"]["argument_gb"] * 2 ** 30
+        walls, toks, per_step = [], [], []
+        for i in range(MESH_STEPS):
+            held_step = held_to_plain("mesh_full", held) if i == 0 \
+                else contextlib.nullcontext()
+            with held_step:
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                logits, cache = case.fn(params, cache, {"tokens": tok})
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = read_counts()
+            per_step.append(counts["flash_decode"])
+            for n, c in counts.items():
+                launches[n] = launches.get(n, 0) + c
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            toks.append(int(tok))
+        finite = bool(torch.isfinite(logits).all())
+
+        def step():
+            cache["pos"] = MESH_START
+            case.fn(params, cache, {"tokens": tok})
+        profiles = [device_profile(step, reps=1) for _ in range(5)]
+        dev = [p["device_ms"] for p in profiles
+               if isinstance(p.get("device_ms"), float)]
+        dev_ms = statistics.median(dev) if dev else "not measured"
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, cache, logits
+    finally:
+        release_mesh()
+    torch.cuda.empty_cache()
+    ratio = dev_ms / bound_ms if dev else "not measured"
+    line = {"phase": "mesh_full", "config": cfg.name, "layers":
+            cfg.num_layers, "case": case.name, "meta": case.meta,
+            "start_pos": MESH_START, "steps": MESH_STEPS,
+            "flash_decode_launches_by_step": per_step,
+            "held_to_plain": held, "tol_rel": 1e-5,
+            "argument_bytes_record": arg_bytes, "argument_bytes_real":
+            real_bytes, "step_wall_ms_median": statistics.median(
+                walls[1:]) * 1e3, "step_wall_ms_first": walls[0] * 1e3,
+            "step_device_ms_median": dev_ms, "step_device_ms_sessions": dev,
+            "busy_share": [p.get("busy_share") for p in profiles],
+            "kernels_per_step": profiles[-1].get("kernels_per_call"),
+            "top_kernels_ms": profiles[-1].get("top_kernels_ms"),
+            "roofline_bound_ms": bound_ms,
+            "roofline_bottleneck": host["roofline"]["bottleneck"],
+            "device_ms_over_bound": ratio, "bound_share_required":
+            MESH_BOUND_SHARE, "max_memory_allocated_gib": peak_gb,
+            "record_per_device_gib": host["memory"]["per_device_gb"],
+            "tokens": toks, "dryrun_seconds": dry_s,
+            "launches": launches, "seconds": time.perf_counter() - t_phase}
+    log(line)
+    require(finite, "mesh_full: non-finite logits")
+    require(all(n == cfg.num_layers for n in per_step),
+            f"mesh_full: flash_decode launches by step {per_step}, want "
+            f"{cfg.num_layers} each")
+    require(arg_bytes == real_bytes, f"mesh_full: the record's arguments "
+            f"{arg_bytes} bytes, the real ones {real_bytes}")
+    require(isinstance(ratio, float) and ratio >= MESH_BOUND_SHARE,
+            f"mesh_full: a step's device time {dev_ms} ms against the "
+            f"roofline's {bound_ms:.4g} ms")
+    require_path_kernels("mesh_full", "dense_decode", launches)
+    return {"mesh_full": launches}, {
+        n: max(e["max_abs_err"] for e in by_key.values())
+        for n, by_key in held.items()}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4656,7 +4834,8 @@ def main(only=None):
                  "kernels_long": (phase_kernels_long, dev),
                  "steps_tiny": (phase_steps_tiny,),
                  "long_context_full": (lambda: phase_long_context_full(
-                     *full_model()[1:]),)}
+                     *full_model()[1:]),),
+                 "mesh_full": (phase_mesh_full,)}
         for name in only:
             timed(name, *calls[name])
         log({"phase": "timing", "seconds": seconds,
@@ -4704,6 +4883,12 @@ def main(only=None):
     del params
     torch.cuda.empty_cache()
     timed("train_full", phase_train_full)
+    torch.cuda.empty_cache()
+    mesh_paths, held = timed("mesh_full", phase_mesh_full)
+    paths.update(mesh_paths)
+    for name, err in held.items():
+        row = kern[LONG_ROWS[name]]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
     paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
     paths.update(timed("moe_archs", phase_moe_archs, B, P, gen_len))
     paths.update(timed("hybrid_arch", phase_hybrid_arch, B, P, gen_len))
@@ -4861,7 +5046,7 @@ def main(only=None):
                                       "flash_attention", ("long_context",)),
         "flash_decode_ring_8k": (c + "flash_decode.cu",
                                  k + "flash_decode.py:26", "flash_decode",
-                                 ("long_context",)),
+                                 ("long_context", "mesh_full")),
         "qmatmul_gemv_b1": (c + "qmatmul.cu", k + "qmatmul.py:38",
                             "qmatmul_gemv", ("long_context",)),
         "qmatmul_mma_m8704": (c + "qmatmul.cu", k + "qmatmul.py:38",

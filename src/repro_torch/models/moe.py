@@ -7,8 +7,11 @@ capacity is per row, as in GShard/Switch. A choice at or past the capacity
 ``C`` is dropped: it reaches no expert and adds nothing to the output. The
 drops are part of the result and match the reference's exactly.
 
-The reference's mesh ``policy`` (a ``shard_map`` over the batch axes) is
-TPU-mesh tooling and is not ported: the port runs on one card.
+With a mesh ``policy``, dispatch and combine run under ``local_map``
+over the batch axes that shard the rows (the reference's ``shard_map``;
+replicated where none divides the batch), so their data-dependent indexing
+stays local to each shard; on plain tensors, or without a policy, they run
+on the whole tensor, and the bits are the same.
 """
 from __future__ import annotations
 
@@ -16,6 +19,97 @@ import torch
 
 from repro_torch.core.predictor import top_k
 from repro_torch.models.common import activation, glu_ffn
+
+
+def _batch_axes(policy, B: int) -> tuple:
+    """Mesh axes the batch dim is actually sharded over (divisibility-checked,
+    moe.py:20-31)."""
+    if policy is None:
+        return ()
+    axes = []
+    size = 1
+    for a in ("pod", "data"):
+        ext = getattr(policy.axes, a)
+        if ext > 1 and B % (size * ext) == 0:
+            axes.append(a)
+            size *= ext
+    return tuple(axes)
+
+
+def _targets(flat_e, pos, E: int, C: int):
+    """Each choice's flat slot in its rows' (B, E, C) buffer."""
+    rows = torch.arange(flat_e.shape[0], device=flat_e.device)[:, None]
+    return (rows * E + flat_e) * C + pos, rows
+
+
+def _dispatch(src, flat_e, pos, keep, E: int, C: int):
+    """Each kept choice of ``src`` (B, S*k, d) to its own slot of a (B, E,
+    C, d) buffer; dropped choices go to a spare slot that is never read."""
+    B, _, d = src.shape
+    target, _ = _targets(flat_e, pos, E, C)
+    spare = B * E * C
+    slots = src.new_zeros((spare + 1, d))
+    slots.index_copy_(0, torch.where(keep, target, spare).reshape(-1),
+                      src.reshape(-1, d))
+    return slots[:spare].view(B, E, C, d)
+
+
+def _combine(out_buf, flat_e, pos, keep):
+    """Each choice's slot of ``out_buf`` (B, E, C, d), a dropped one 0:
+    (B, S*k, d)."""
+    B, E, C, d = out_buf.shape
+    target, rows = _targets(flat_e, pos, E, C)
+    read = torch.where(keep, target, rows * E * C)
+    gathered = out_buf.reshape(B * E * C, d)[read.reshape(-1)].view(
+        B, -1, d)
+    return torch.where(keep[..., None], gathered, 0.0)
+
+
+def _row_local(fn, policy, axes, n_in: int):
+    """``fn`` under ``local_map`` with every input and the output sharded on
+    dim 0 over the mesh's ``axes`` and replicated over its other dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    place = tuple(Shard(0) if n in axes else Replicate()
+                  for n in policy.mesh.mesh_dim_names)
+    return local_map(fn, out_placements=list(place),
+                     in_placements=(place,) * n_in
+                     + (None,) * (fn.__code__.co_argcount - n_in),
+                     device_mesh=policy.mesh, redistribute_inputs=True)
+
+
+def _experts(buf, w_gate, w_up, w_down, act_name: str):
+    """The GLU experts over the dispatch buffer (B, E, C, d)."""
+    act = activation(act_name)
+    h = act(torch.einsum("becd,edf->becf", buf, w_gate))
+    h = h * torch.einsum("becd,edf->becf", buf, w_up)
+    return torch.einsum("becf,efd->becd", h, w_down)
+
+
+def _experts_local(policy, batch_axes, E: int):
+    """:func:`_experts` under ``local_map``, placed as the policy places the
+    experts (``expert_parallel``): the hidden dim f on "model" (the down
+    product's output a partial sum over it); with ``expert_data_shard`` the
+    experts on "data", the buffer moved there by an all-to-all; else the
+    buffer's rows on the batch axes and the weights gathered (FSDP)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    by_e = policy.expert_data_shard and E % policy.axes.data == 0
+    buf, w_in, w_out, out = [], [], [], []
+    for n in policy.mesh.mesh_dim_names:
+        if n == "model":
+            place = (Replicate(), Shard(2), Shard(1), Partial())
+        elif n == "data" and by_e:
+            place = (Shard(1), Shard(0), Shard(0), Shard(1))
+        elif n in batch_axes:
+            place = (Shard(0), Replicate(), Replicate(), Shard(0))
+        else:
+            place = (Replicate(),) * 4
+        for lst, pl in zip((buf, w_in, w_out, out), place):
+            lst.append(pl)
+    return local_map(_experts, out_placements=out,
+                     in_placements=(buf, w_in, w_in, w_out, None),
+                     device_mesh=policy.mesh, redistribute_inputs=True)
 
 
 def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
@@ -47,7 +141,7 @@ def route(x, router_w, *, E: int, k: int, capacity_factor: float):
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
-            capacity_factor: float, act_name: str, shared=None):
+            capacity_factor: float, act_name: str, shared=None, policy=None):
     """x: (B, S, d). w_gate/w_up: (E, d, f); w_down: (E, f, d). ``shared``:
     (gate, up, down) of an always-on shared expert (llama4), or None.
 
@@ -60,7 +154,9 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
     never read. The reference scatter-adds into zeros (dropped choices add
     a zero source at slot (0, 0)): every slot holds 0.0 + its one kept
     value, so the port adds 0.0 too (a -0.0 becomes +0.0). The expert
-    products run over all E experts, as the reference's einsums do."""
+    products run over all E experts, as the reference's einsums do.
+    ``policy``: dispatch and combine local to the batch's shards (see the
+    module's docstring)."""
     B, S, d = x.shape
     E = w_gate.shape[0]
     k = num_experts_per_tok
@@ -69,25 +165,22 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
 
     # ---- dispatch: each kept choice to its own slot of (B, E, C, d)
     flat_e = expert_idx.reshape(B, S * k)
-    rows = torch.arange(B, device=x.device)[:, None]
-    target = (rows * E + flat_e) * C + pos
-    spare = B * E * C
+    dispatch, combine = _dispatch, _combine
+    if policy is not None:
+        ba = _batch_axes(policy, B)
+        dispatch = _row_local(_dispatch, policy, ba, 4)
+        combine = _row_local(_combine, policy, ba, 4)
     src = torch.repeat_interleave(x, k, dim=1) + 0.0     # (B, S*k, d)
-    slots = x.new_zeros((spare + 1, d))
-    slots.index_copy_(0, torch.where(keep, target, spare).reshape(-1),
-                      src.reshape(-1, d))
-    buf = slots[:spare].view(B, E, C, d)
+    buf = dispatch(src, flat_e, pos, keep, E, C)
 
     # ---- expert compute over all E experts
-    act = activation(act_name)
-    h = act(torch.einsum("becd,edf->becf", buf, w_gate))
-    h = h * torch.einsum("becd,edf->becf", buf, w_up)
-    out_buf = torch.einsum("becf,efd->becd", h, w_down)   # (B, E, C, d)
+    experts = _experts
+    if policy is not None:
+        experts = _experts_local(policy, ba, E)
+    out_buf = experts(buf, w_gate, w_up, w_down, act_name)   # (B, E, C, d)
 
     # ---- combine: a dropped choice reads slot (0, 0) and is masked to 0
-    read = torch.where(keep, target, rows * E * C)
-    gathered = out_buf.reshape(B * E * C, d)[read.reshape(-1)].view(B, S * k, d)
-    gathered = torch.where(keep[..., None], gathered, 0.0)
+    gathered = combine(out_buf, flat_e, pos, keep)
     weighted = gathered * gate_vals.reshape(B, S * k, 1).to(gathered.dtype)
     y = weighted.reshape(B, S, k, d).sum(dim=2)
 

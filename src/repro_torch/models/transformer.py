@@ -47,6 +47,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -56,6 +57,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import hybrid, moe, ssm
 from repro_torch.models.common import (apply_norm, chunked_attention, each_row,
                                        glu_ffn, rope)
+from repro_torch.sharding import P
 
 # ---------------------------------------------------------------------------
 # Parameter specification
@@ -253,6 +255,56 @@ def abstract_params(cfg, *, dtype=torch.float32, m2: bool = True):
     return params
 
 
+#: the port's per-layer leaf kinds that hold the reference's (d, f) layout
+#: transposed (``core.quantize.to_neuron_major``)
+_NEURON_MAJOR = ("wg_fp", "wu_fp", "wg_i8", "wu_i8", "wg_i4", "wu_i4")
+
+
+def _drop_lead(p):
+    return P(*tuple(p)[1:])
+
+
+def param_shardings(cfg, policy, *, dtype=torch.float32, m2: bool = True):
+    """PartitionSpec tree of :func:`abstract_params`' tree
+    (transformer.py:190-230). A layer's leaf gets the spec the reference
+    gives its stacked leaf, the unsharded lead dim dropped (which is the
+    spec of an unstacked remainder leaf); a neuron-major bank (f, d) gets
+    the transpose of the reference's (d, f) ``m2_in`` spec."""
+    def resolve(leaf):
+        sh, _, kind = leaf
+        if kind == "col":
+            return policy.col_parallel(sh)
+        if kind == "row":
+            return policy.row_parallel(sh)
+        if kind == "expert_in":                 # (E, d, f)
+            return _drop_lead(policy.expert_parallel((1,) + sh))
+        if kind == "expert_out":
+            return _drop_lead(policy.expert_parallel_out((1,) + sh))
+        if kind == "vector":
+            return policy.vector(sh)
+        if kind == "replicated":
+            return P()
+        if kind == "vocab":
+            return policy.vocab_embed(sh)
+        if kind == "codebook":                  # (K, V, d)
+            return policy.spec(sh, None, "model", policy._fsdp_axis())
+        if kind == "codebook_out":              # (K, d, V)
+            return policy.spec(sh, None, policy._fsdp_axis(), "model")
+        if kind == "m2_in":                     # (d|d//2, f): d on model
+            return policy.spec(sh, "model", None)
+        if kind in ("m2_out", "pred_out"):      # (f, d|d//2), (r, f)
+            return policy.spec(sh, None, "model")
+        raise ValueError(kind)
+
+    specs = _map_specs(resolve, model_param_specs(cfg, dtype=dtype, m2=m2))
+    for layer in specs["layers"]:
+        banks = layer.get("ffn", {}).get("banks")
+        if banks is not None:
+            for k in _NEURON_MAJOR:
+                banks[k] = P(*reversed(banks[k]))
+    return specs
+
+
 @torch.no_grad()
 def init_params(cfg, *, seed: int = 0, device=None, dtype=torch.float32,
                 generator: torch.Generator = None, m2: bool = True):
@@ -353,6 +405,36 @@ def cache_specs(cfg, batch: int, max_seq: int, *, window: int = 0,
                   kv_quant)
 
 
+def cache_shardings(cfg, policy, batch: int, max_seq: int, *,
+                    window: int = 0, dtype=torch.float32,
+                    kv_quant: bool = False):
+    """PartitionSpec tree of :func:`cache_specs`' tree
+    (transformer.py:383-408): the pattern entries' stacked leaves and the
+    remainder entries' unstacked ones, ``pos`` replicated."""
+    specs = cache_specs(cfg, batch, max_seq, window=window, dtype=dtype,
+                        kv_quant=kv_quant)
+
+    def resolve(name, t, stacked):
+        sh = tuple(t.shape)
+        if name in ("k", "v"):                  # (F, B, S, kvH, Dh)
+            if stacked:
+                return policy.kv_cache(sh)
+            return _drop_lead(policy.kv_cache((1,) + sh))
+        if name in ("k_s", "v_s"):              # (F, B, S, kvH) scales
+            if stacked:
+                return P(*tuple(policy.kv_cache(sh + (1,)))[:-1])
+            return P(*tuple(policy.kv_cache((1,) + sh + (1,)))[1:-1])
+        if stacked:                             # recurrent states
+            return policy.recurrent_state(sh)
+        return _drop_lead(policy.recurrent_state((1,) + sh))
+
+    return {"pattern": [{n: resolve(n, t, True) for n, t in e.items()}
+                        for e in specs["pattern"]],
+            "remainder": [{n: resolve(n, t, False) for n, t in e.items()}
+                          for e in specs["remainder"]],
+            "pos": P()}
+
+
 def layer_cache(cfg, cache, l: int) -> Dict:
     """Layer ``l``'s cache entry as views of the cache's leaves (writes go
     into the cache): pattern position l % len(pattern), repeat l //
@@ -425,8 +507,83 @@ def _kv_dequantize(q, scale, dtype):
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
+def constrain(x, policy, *spec):
+    """Activation sharding constraint (transformer.py:455-461): the identity
+    without a policy or on a plain tensor; a DTensor is redistributed to
+    the policy's placements of ``spec`` (checked against x's shape)."""
+    if policy is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(*policy.named(tuple(x.shape), *spec))
+
+
+def _tp_input(x, policy):
+    """A column-parallel product's input with its features replicated over
+    "model" (Megatron's f): DTensor picks each op's placements alone, and
+    left with the residual's model-sharded features it contracts them into
+    a partial sum that it reduce-scatters onto the sequence dim, which a
+    later flatten cannot shard evenly."""
+    return constrain(x, policy, ("pod", "data"), *[None] * (x.dim() - 1))
+
+
+def _norm(cfg, x, w, policy):
+    """``apply_norm`` over features replicated over "model", in and out
+    (:func:`_tp_input`): a LayerNorm's mean over sharded features is a
+    partial average whose gradient DTensor cannot form from a partial
+    sum."""
+    return _tp_input(apply_norm(cfg, _tp_input(x, policy), w), policy)
+
+
+def _write_slots(buf, at, new, policy=None):
+    """``buf[b, at[b, j]] = new[b, j]`` for every row b and token j, in
+    place. With a policy, a DTensor buffer sharded over the mesh (batch, or
+    a decode step's slots with ``shard_kv_seq``) is written shard by shard:
+    each device writes the tokens whose slots it holds."""
+    if policy is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+        if isinstance(buf, DTensor) and not all(
+                isinstance(pl, Replicate) for pl in buf.placements):
+            _write_shards(buf, at, new, policy)
+            return
+    rows = torch.arange(new.shape[0], device=new.device)[:, None]
+    buf[rows, at] = new.to(buf.dtype)
+
+
+def _write_shards(buf, at, new, policy):
+    """:func:`_write_slots` on a sharded DTensor ``buf``, one token a row
+    (a decode step): each device's block of ``buf`` takes the rows it
+    holds at the slots it holds, from its offset along the slots, and
+    writes the slot's old value back where the token lies elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if at.shape[1] != 1:
+        raise NotImplementedError("a sharded cache takes one token a row")
+    mesh, place = buf.device_mesh, tuple(buf.placements)
+    offset = policy.block_offset(tuple(buf.shape), place, 1)
+    rows = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in place)
+
+    def write(b, t, a):
+        local = a - offset
+        inside = (local >= 0) & (local < b.shape[1])
+        local = local.clamp(0, b.shape[1] - 1)
+        r = torch.arange(b.shape[0], device=b.device)[:, None]
+        b[r, local] = torch.where(inside[..., None, None], t.to(b.dtype),
+                                  b[r, local])
+        return b
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    local_map(write, out_placements=list(place),
+              in_placements=(place, rows, rows),
+              device_mesh=mesh, redistribute_inputs=True)(buf, dt(new),
+                                                          dt(at))
+
+
 def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
-                      slots, softcap: float):
+                      slots, softcap: float, policy=None):
     """The attention of a serving mode, which writes this call's K/V (or,
     with an int8 cache, their :func:`_kv_quantize` bytes and scales) into
     the cache views ``kv`` in place; ``attn_layer`` says what each mode
@@ -452,16 +609,21 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
     # decode or prefill_resume: the reference writes by a one-hot select or
     # a dynamic_update_slice into a new buffer; the port overwrites the
     # rows' slots of the cache in place
-    b_idx = torch.arange(B, device=q.device)[:, None]
     at = torch.remainder(positions, sbuf) if window else positions
     for n, t in store.items():
-        kv[n][b_idx, at] = t.to(kv[n].dtype)
+        _write_slots(kv[n], at, t, policy)
     if "k_s" in kv:
         ck = _kv_dequantize(kv["k"], kv["k_s"], q.dtype)
         cv = _kv_dequantize(kv["v"], kv["v_s"], q.dtype)
     else:
         ck, cv = kv["k"], kv["v"]
     if mode == "decode":
+        # the flash-decoding layout (transformer.py:528-529): the buffer's
+        # sequence dim on "model" with ``shard_kv_seq``
+        kv_seq = "model" if (policy is not None
+                             and policy.shard_kv_seq) else None
+        ck = constrain(ck, policy, ("pod", "data"), kv_seq, None, None)
+        cv = constrain(cv, policy, ("pod", "data"), kv_seq, None, None)
         return ops.decode_attention(q, ck, cv, *slots, softcap=softcap)
     # causal mask kv_pos <= q_pos hides the chunk's future tokens and
     # whatever sits above the prefill front
@@ -469,7 +631,7 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
 
 
 def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
-               slots=None, m2: bool = True, window: int = 0):
+               slots=None, m2: bool = True, window: int = 0, policy=None):
     """x: (B, S, d). kv: this layer's {'k', 'v'} cache views (and
     {'k_s', 'v_s'} with an int8 cache), updated in place (None in "train").
     pos0: (B,) int64 start positions on x's device (all 0 for "prefill"
@@ -491,6 +653,9 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     token's K and V quantized (:func:`_kv_quantize`); a prompt attends over
     its own unquantized K/V, a decode step or a chunk over the buffer
     dequantized to fp32.
+    ``policy`` (a ``sharding.ShardingPolicy``) constrains K/V (and a
+    decode step's q and buffer) where the reference does
+    (transformer.py:493-494, 513-531), a no-op on plain tensors.
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
     load-balance loss: 0.0 for another FFN, a (B,) tensor with
     ``rows``)."""
@@ -502,7 +667,7 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
         return each_row(fn, t) if rows else fn(t)
 
     def norm_qkv(t):
-        h = apply_norm(cfg, t, p["norm1"])
+        h = _norm(cfg, t, p["norm1"], policy)
         qkv = h @ p["wqkv"]
         if cfg.qkv_bias:
             qkv = qkv + p["bqkv"].to(qkv.dtype)
@@ -518,40 +683,57 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     k = rope(k, positions, cfg.rope_theta)
 
     cap, w_eff = cfg.logit_softcap, cfg.window_size or window
+    batch = ("pod", "data")
+    # a decode step's q is replicated over "model" (transformer.py:
+    # 522-524); elsewhere its heads stay on "model" where the kv heads
+    # divide the axis, so that the grouped-query split keeps them there
+    heads = None if policy is None or mode == "decode" or \
+        hkv % policy.axes.model else "model"
+    q = constrain(q, policy, batch, None, heads, None)
+    # replicate K/V over "model" before attention: their kv-head dim rarely
+    # divides the axis
+    k = constrain(k, policy, batch, None, None, None)
+    v = constrain(v, policy, batch, None, None, None)
     if mode == "train":
         attn_out = chunked_attention(q, k, v, positions, positions,
                                      window=w_eff, softcap=cap)
     else:
         attn_out = _cached_attention(q, k, v, kv, positions, mode=mode,
-                                     window=w_eff, slots=slots, softcap=cap)
+                                     window=w_eff, slots=slots, softcap=cap,
+                                     policy=policy)
 
+    # and the output in q's placement, which the backward pass's gradient
+    # then takes before the split
+    attn_out = constrain(attn_out, policy, batch, None, heads, None)
     attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
 
     def ffn(t):
-        return _ffn_apply(cfg, p["ffn"], t, m2=m2, rows=rows)
+        return _ffn_apply(cfg, p["ffn"], t, m2=m2, rows=rows, policy=policy)
     if cfg.parallel_block:
         ffn_out, idx, lb = ffn(h)
         y = x + attn_out + ffn_out
     else:
         x = x + attn_out
-        ffn_out, idx, lb = ffn(dense(lambda t: apply_norm(cfg, t, p["norm2"]),
-                                     x))
+        ffn_out, idx, lb = ffn(dense(
+            lambda t: _norm(cfg, t, p["norm2"], policy), x))
         y = x + ffn_out
     return y, idx, lb
 
 
-def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool):
+def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool, policy=None):
     """A layer's FFN (the reference's ``_ffn_apply``, transformer.py:
     414-432): the MoE experts, the M2Cache FFN where ``m2`` and the layer
-    has banks, else the dense GLU; ``rows`` as in :func:`attn_layer`.
+    has banks, else the dense GLU; ``rows`` and ``policy`` (the MoE
+    dispatch's batch shards) as in :func:`attn_layer`.
     Returns (y, active ids (empty but for the M2Cache FFN), the MoE
     load-balance loss or 0.0)."""
     def dense(fn, t):
         return each_row(fn, t) if rows else fn(t)
+    x = _tp_input(x, policy)
     empty = torch.zeros((x.shape[0], 0) if rows else (0,), dtype=torch.int32,
                         device=x.device)
     if cfg.num_experts:
-        y, lb = dense(lambda t: _moe_apply(cfg, p_ffn, t), x)
+        y, lb = dense(lambda t: _moe_apply(cfg, p_ffn, t, policy), x)
         return y, empty, lb if rows else lb[0]
     if m2 and "banks" in p_ffn:
         y, info = mp.mp_ffn_apply(cfg, p_ffn["banks"], p_ffn["pred"], x,
@@ -562,7 +744,7 @@ def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool):
     return y, empty, 0.0
 
 
-def _moe_apply(cfg, p_ffn, x):
+def _moe_apply(cfg, p_ffn, x, policy=None):
     """An MoE layer's FFN (the reference's ``_ffn_apply``, transformer.py:
     417-426): (y, the router's load-balance loss as a (1,) tensor). The
     per-expert predictor leaves are not read."""
@@ -573,37 +755,40 @@ def _moe_apply(cfg, p_ffn, x):
         x, p_ffn["router"], p_ffn["wg"], p_ffn["wu"], p_ffn["wd"],
         num_experts_per_tok=cfg.num_experts_per_tok,
         capacity_factor=cfg.moe_capacity_factor, act_name=cfg.ffn_act,
-        shared=shared)
+        shared=shared, policy=policy)
     return y, aux["lb_loss"].reshape(1)
 
 
-def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True):
+def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True,
+                policy=None):
     """An RG-LRU layer (transformer.py:636-643): x: (B, S, d); state: this
     layer's {'h', 'conv'} cache views, updated in place (None: no cache).
     ``rows`` and ``m2`` as in :func:`attn_layer`. Returns (y, active ids,
     0.0)."""
     def dense(fn, t):
         return each_row(fn, t) if rows else fn(t)
-    h = dense(lambda t: apply_norm(cfg, t, p["norm1"]), x)
+    h = dense(lambda t: _norm(cfg, t, p["norm1"], policy), x)
     mix, new_state = hybrid.rglru_block(cfg, p, h, state, rows=rows)
     if state is not None:
         state["h"].copy_(new_state["h"])
         state["conv"].copy_(new_state["conv"])
     x = x + mix
-    h2 = dense(lambda t: apply_norm(cfg, t, p["norm2"]), x)
-    y, idx, lb = _ffn_apply(cfg, p["ffn"], h2, m2=m2, rows=rows)
+    h2 = dense(lambda t: _norm(cfg, t, p["norm2"], policy), x)
+    y, idx, lb = _ffn_apply(cfg, p["ffn"], h2, m2=m2, rows=rows,
+                            policy=policy)
     return x + y, idx, lb
 
 
-def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False):
+def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False,
+              policy=None):
     """An SSD layer (transformer.py:646-649): norm1, the Mamba-2 block, the
     residual; no FFN. x: (B, S, d); state: this layer's {'h', 'conv'}
     cache views, updated in place (None: no cache). ``rows`` as in
     :func:`attn_layer`. Returns (y, empty active ids: (0,), or (B, 0) with
     ``rows``, 0.0)."""
     def block(t, st):
-        y, new = ssm.ssm_block(cfg, p, apply_norm(cfg, t, p["norm1"]), st,
-                               mode=mode)
+        h = _norm(cfg, t, p["norm1"], policy)
+        y, new = ssm.ssm_block(cfg, p, h, st, mode=mode)
         for k in st or {}:
             st[k].copy_(new[k])
         return y
@@ -622,16 +807,25 @@ def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False):
 # Embedding / unembedding
 
 
-def embed_tokens(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens, policy=None):
+    """The tokens' embeddings; with a ``policy`` each lookup of a
+    vocab-sharded table (a masked partial sum) is reduced before another
+    touches it (:func:`_tp_input`)."""
     if cfg.family == "audio":
         # tokens (B, K, S): the K codebooks' embeddings summed in codebook
         # order (transformer.py:670-676)
         tokens = tokens.long()
-        x = params["embed"][0][tokens[:, 0]]
+
+        def lookup(k):
+            return _tp_input(F.embedding(tokens[:, k], params["embed"][k]),
+                             policy)
+        x = lookup(0)
         for k in range(1, tokens.shape[1]):
-            x = x + params["embed"][k][tokens[:, k]]
+            x = x + lookup(k)
         return x
-    x = params["embed"][tokens.long()]
+    # the gather as ``embedding``: DTensor places its lookup and gradient
+    # over a vocab-sharded table (an index's gradient it may not)
+    x = _tp_input(F.embedding(tokens.long(), params["embed"]), policy)
     if cfg.family == "hybrid":                  # gemma-style scale
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -650,7 +844,7 @@ def unembed(cfg, params, x):
 
 def forward(cfg, params, tokens, *, prefix=None, cache=None,
             mode: str = "train", m2: bool = True, rows: bool = False,
-            remat: bool = False, window: int = 0):
+            remat: bool = False, window: int = 0, policy=None):
     """Returns (logits, cache, aux); ``cache`` is updated in place.
 
     tokens: (B, S) integer ids, (B, K, S) for the audio family's K
@@ -689,7 +883,12 @@ def forward(cfg, params, tokens, *, prefix=None, cache=None,
     reference's vmapped layout. MoE, SSD and dense-FFN layers have no
     active neurons: their entries are (F, 0), (B, F, 0) with ``rows``.
     aux["lb_loss"] sums the MoE layers' load-balance losses (0.0 without
-    MoE; (B,) with ``rows``)."""
+    MoE; (B,) with ``rows``).
+    ``policy``: a ``sharding.ShardingPolicy`` whose activation constraints
+    (the residual after the embedding and after each pattern repeat, K/V,
+    a decode step's q and buffer: transformer.py:493-531, 719, 736) apply
+    to DTensor activations; on plain tensors it changes nothing. Rows mode
+    takes none."""
     check_supported(cfg)
     if mode not in ("train", "prefill", "prefill_resume", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -704,37 +903,41 @@ def forward(cfg, params, tokens, *, prefix=None, cache=None,
     grad = contextlib.nullcontext() if mode == "train" else torch.no_grad()
     with grad:
         return _forward(cfg, params, tokens, prefix, cache, mode,
-                        m2 and cfg.m2_enabled, rows, remat, window)
+                        m2 and cfg.m2_enabled, rows, remat, window, policy)
 
 
 def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
-             window):
+             window, policy):
     pat, F, rem = pattern_split(cfg)
     w_eff = cfg.window_size or window
     if mode == "prefill_resume" and (w_eff or set(pat) - {"attn"}):
         raise NotImplementedError(
             "prefill_resume does not support sliding-window attention or "
             "recurrent layers")
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, policy)
     n_prefix = 0
     if prefix is not None and mode != "decode":
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
         n_prefix = prefix.shape[1]
     B, S = x.shape[:2]
+    act = (("pod", "data"), None, "model")
+    x = constrain(x, policy, *act)
     slots = None
     if cache is None:
         pos0 = torch.zeros(B, dtype=torch.int64, device=x.device)
     else:
         sbuf = kv_slots(cache)
-        pos = row_positions(cache, B)
-        if mode == "prefill":
-            pos = torch.zeros_like(pos)
-        if int(pos.min()) < 0 or (sbuf is not None and not w_eff
-                                  and int(pos.max()) + S > sbuf):
+        pos = 0 if mode == "prefill" else cache["pos"]
+        # an int position is known on the host without a read (a traced
+        # step's tensors hold no data); a per-row tensor is read
+        lo, hi = ((int(pos.min()), int(pos.max()))
+                  if isinstance(pos, torch.Tensor) else (int(pos), int(pos)))
+        if lo < 0 or (sbuf is not None and not w_eff and hi + S > sbuf):
+            shown = pos.tolist() if isinstance(pos, torch.Tensor) else pos
             raise ValueError(f"{mode} of {S} token(s) at positions "
-                             f"{pos.tolist()} outside the cache buffer of "
+                             f"{shown} outside the cache buffer of "
                              f"{sbuf} slots")
-        pos0 = pos.to(x.device)
+        pos0 = row_positions({"pos": pos}, B).to(x.device)
         if mode == "decode" and sbuf is not None:
             slots = decode_slots(pos0, sbuf, bool(w_eff))
 
@@ -742,27 +945,29 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
         c = None if cache is None else layer_cache(cfg, cache, l)
         if kind == "attn":
             return attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
-                              slots=slots, m2=m2, window=window)
+                              slots=slots, m2=m2, window=window,
+                              policy=policy)
         if kind == "rglru":
-            return rglru_layer(cfg, p, x, c, rows=rows, m2=m2)
-        return ssm_layer(cfg, p, x, c, mode=mode, rows=rows)
+            return rglru_layer(cfg, p, x, c, rows=rows, m2=m2, policy=policy)
+        return ssm_layer(cfg, p, x, c, mode=mode, rows=rows, policy=policy)
 
-    idxs, lb_acc = [], 0.0
+    idxs, lb_acc, n = [], 0.0, len(pat)
     for l, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
         if remat:
             x, idx, lb = checkpoint(layer, l, kind, p, x, use_reentrant=False)
         else:
             x, idx, lb = layer(l, kind, p, x)
+        if l < F * n and l % n == n - 1:        # a pattern repeat's end
+            x = constrain(x, policy, *act)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 
     def head(t):
-        t = apply_norm(cfg, t, params["final_norm"])
+        t = _norm(cfg, t, params["final_norm"], policy)
         return unembed(cfg, params, t[:, n_prefix:])
     logits = each_row(head, x) if rows else head(x)
     if cache is not None:
         cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)
-    n = len(pat)
 
     def stacked(i):
         """Pattern position i's active ids over the F repeats."""
@@ -781,15 +986,17 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
 
 
 def lm_loss(cfg, params, batch, *, remat: bool = True, m2: bool = False,
-            window: int = 0):
+            window: int = 0, policy=None):
     """Next-token cross entropy plus 0.01 x the MoE load-balance loss
     (transformer.py:796-815), from a train-mode :func:`forward`. batch:
     {"tokens": (B, S) ids, (B, K, S) for audio (targets (B, K, S-1)),
     optionally "prefix": (B, N, d)}, tensors on the params' device.
-    Returns (total, {"nll", "lb_loss"})."""
+    ``policy`` as :func:`forward` takes it. Returns (total, {"nll",
+    "lb_loss"})."""
     tokens = batch["tokens"]
     logits, _, aux = forward(cfg, params, tokens, prefix=batch.get("prefix"),
-                             mode="train", remat=remat, m2=m2, window=window)
+                             mode="train", remat=remat, m2=m2, window=window,
+                             policy=policy)
     if cfg.family == "audio":
         tgt, lg = tokens[..., 1:], logits[..., :-1, :]
     else:

@@ -20,12 +20,13 @@ from repro_torch.training.optimizer import (AdamWConfig, apply_updates,
 
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, remat: bool = True,
-                    window: int = 0):
+                    window: int = 0, policy=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)``: the loss (attention within a sliding ``window``
-    where one is given, as ``lm_loss`` takes it) and the gradients of every
-    float leaf, then :func:`apply_updates`, which writes into ``params``
-    and the moments. ``batch`` holds tensors on the params' device.
+    where one is given, and the mesh ``policy``'s activation constraints,
+    a no-op on plain tensors, as ``lm_loss`` takes them) and the gradients
+    of every float leaf, then :func:`apply_updates`, which writes into
+    ``params`` and the moments. ``batch`` holds tensors on the params' device.
     metrics: {"nll", "lb_loss", "loss", "grad_norm", "lr"}."""
 
     def train_step(params, opt_state, batch):
@@ -34,7 +35,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, remat: bool = True,
             t.requires_grad_(True)
         try:
             loss, metrics = T.lm_loss(cfg, params, batch, remat=remat,
-                                      window=window)
+                                      window=window, policy=policy)
             grads = dict(zip(map(id, trained), torch.autograd.grad(
                 loss, trained, allow_unused=True)))
         finally:
