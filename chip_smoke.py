@@ -53,8 +53,8 @@ Phases, each printing one JSON line:
                 0-3, 24-token prompts, 8 steps, top-5) at full width for
                 int8 and int4, numbers of random weights with no gate;
  10. dense_archs — qwen2.5-32b, command-r-35b, mistral-large-123b and
-                internvl2-1b in turn (DENSE_ARCHS: depth cut to 4, 4, 2
-                and 12 layers): tiny through launch/serve and launch/server
+                internvl2-1b in turn (DENSE_ARCHS: depth cut to 2, 2, 2
+                and 6 layers): tiny through launch/serve and launch/server
                 on cuda against cpu (as phases 3 and 5); at full width
                 full's serve traffic and server_full's server traffic (prefix
                 cache cold, warm, off, and batched decode off: tokens
@@ -77,7 +77,7 @@ Phases, each printing one JSON line:
  12. hybrid_arch — recurrentgemma-2b (RG-LRU blocks beside attention
                 over a sliding window's ring cache, head dim 256): tiny
                 through both entry points on cuda against cpu; at full
-                width and 14 of its 26 layers (HYBRID_ARCH), every
+                width and 8 of its 26 layers (HYBRID_ARCH), every
                 predictor A drawn, full's
                 serve traffic, a ring run (2 prompts of 2176 = 2048 + 128
                 tokens, 16 new: the prefill's window masks the last 128
@@ -89,7 +89,7 @@ Phases, each printing one JSON line:
                 RG-LRU recurrence's device ms at both prefill shapes.
  13. ssm_arch — mamba2-370m (attention-free Mamba-2 blocks, the SSD
                 scan, no FFN, no kernel on its paths): tiny through both
-                entry points on cuda against cpu; at full width and 24 of
+                entry points on cuda against cpu; at full width and 12 of
                 its 48 layers (SSM_ARCH), every SSD layer's A and dt
                 drawn, full's serve
                 traffic, a long run (2 prompts of 2048 tokens: 8 SSD
@@ -101,9 +101,10 @@ Phases, each printing one JSON line:
  14. audio_arch — musicgen-large (K = 4 codebooks, 64 conditioning
                 frames, LayerNorm, GELU, G = 1) through forward, as the
                 reference's tests drive it (neither package serves it):
-                tiny on cuda against cpu; at full width and all 48 layers
-                (every predictor A drawn) a prefill of 4 x 128 codebook
-                steps after the frames and 16 greedy decode steps, each
+                tiny on cuda against cpu; at full width and 24 of its 48
+                layers (AUDIO_ARCH; every predictor A drawn) a prefill of
+                4 x 128 codebook steps after the frames and 16 greedy
+                decode steps, each
                 call's kernels held to its form of the path (the prefill
                 flash_attention and qmatmul B, a decode step flash_decode
                 and qmatmul A), twice; device time and busy share of the
@@ -163,7 +164,11 @@ Phases, each printing one JSON line:
                 every input shape on the host (1 x 1) and 16 x 16 meshes,
                 dense, and decode_32k m2 on 16 x 16 (fake DTensors traced
                 on the host's CPU), each record's memory, roofline terms
-                and trace seconds printed, status ok required; then one
+                and trace seconds printed, status ok required; beside
+                them, in a process each, the dry-run CLI for the five
+                16 x 16 combinations torch 2.11 could not trace before
+                (MESH_REPAIRED), status ok and 2.13's FLOPs required
+                (but MESH_FLOPS_OPEN's, logged); then one
                 real build_case step (long_500k, dense, make_host_mesh())
                 at all 48 layers and full width (59.1 GB of fp32 weights,
                 the 8192-slot ring from position 524272), 16 serve steps:
@@ -175,7 +180,8 @@ Phases 4, 6-9, 16 and 20 share one set of full-width weights; each prints
 its seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
 (per-row qmatmul, chunked-prefill attention), the two kernels no path
-runs yet (atu_update, mp_glu_ffn), and (``kernels_dense``) the shapes
+runs yet (atu_update from an fp32 bank, and from an int8 one into an int8
+and an fp32 unit; mp_glu_ffn), and (``kernels_dense``) the shapes
 only phase 10 gives: flash_decode at G = 12 (two head groups), 7 (D =
 64) and 8, both attention forms at G = 12 and at G = 7, D = 64, and one
 layer's FFN at d = 12288; and (``kernels_moe``) the three attention
@@ -1365,6 +1371,45 @@ def server_ffn_rows(check, g, dev, cfg, R: int, chunk: int) -> tuple:
     return out, (wg, wu, wd), idx
 
 
+def atu_row(name: str, bank, unit, src, dst, bg: int) -> dict:
+    """atu_update of ``bank`` into ``unit`` (not written) bit for bit
+    against its plain version, and again with groups 0 and 1 sharing a
+    destination block (the later wins); then timed beside the plain
+    version, the library's ``index_select`` + ``index_copy_`` and the
+    bound (each element read once and written once, and the indices)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.atu_update import atu_update
+    d, m = bank.shape[0], src.numel()
+    dup_dst = dst.clone()
+    dup_dst[:bg] = dst[bg:2 * bg]              # groups 0 and 1 share a block
+    for label, dd in (("", dst), (" with a duplicate destination (the later "
+                                  "group must win)", dup_dst)):
+        want = ref.atu_update_ref(bank, unit.clone(), src.cpu(), dd.cpu(),
+                                  bg=bg)
+        got = atu_update(bank, unit.clone(), src, dd, bg=bg)
+        require(torch.equal(got, want),
+                f"{name} differs from its plain version{label}")
+    src_l, dst_l = src.long(), dst.long()
+    scratch = unit.clone()
+
+    def lib_copy():
+        scratch.index_copy_(1, dst_l,
+                            bank.index_select(1, src_l).to(unit.dtype))
+    nbytes = m * d * (bank.element_size() + unit.element_size()) + 2 * m * 4
+    b_ms, b_by = bound(nbytes, 0.0)
+    return {
+        "max_abs_err": 0.0, "d": d, "f": bank.shape[1], "k": unit.shape[1],
+        "m": m, "bg": bg, "bank": str(bank.dtype), "unit": str(unit.dtype),
+        "ms": time_ms(lambda: atu_update(bank, scratch, src, dst, bg=bg)),
+        "plain_ms": time_ms(lambda: ref.atu_update_ref(bank, scratch, src,
+                                                       dst, bg=bg), reps=5),
+        "library_ms": time_ms(lib_copy), "bound_ms": b_ms, "bound_by": b_by,
+        "profile": device_profile(lambda: atu_update(bank, scratch, src, dst,
+                                                     bg=bg)),
+        "library_profile": device_profile(lib_copy)}
+
+
 def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
                          sbuf: int = 256) -> dict:
     """Per-row gathered qmatmul (R rows with their own active sets, M = 1
@@ -1377,7 +1422,6 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
     from repro_torch.core.mp_ffn import tier_sizes
     from repro_torch.core.quantize import unpack_int4
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.atu_update import atu_update
 
     g = torch.Generator(device=dev).manual_seed(4321)
     d, f = cfg.d_model, cfg.d_ff
@@ -1407,8 +1451,9 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
         check, randn, dev, "flash_decode_rows", S, hkv, hq // hkv, D,
         lengths[:R], full_checks=True, sweep=(32, 64, 128))
 
-    # --- atu_update: m = 832 changed columns (104 groups of 8) of the fp32
-    # bank into a (d, k4 + k8 + k16 + ...) unit, one duplicate destination
+    # --- atu_update: m = 832 changed columns (104 groups of 8) of a (d, f)
+    # bank into a (d, k4 + k8 + k16 + ...) unit: the fp32 bank, and an int8
+    # one into an int8 and an fp32 unit
     bg, m = 8, 832
     unit_k = 4152
     groups = torch.randperm(f // bg, generator=g, device=dev)[:m // bg]
@@ -1416,31 +1461,16 @@ def phase_kernels_server(cfg, dev, R: int = 4, chunk: int = 16,
     src = (groups[:, None] * bg + torch.arange(bg, device=dev)).reshape(-1)
     dst = (dests[:, None] * bg + torch.arange(bg, device=dev)).reshape(-1)
     src, dst = src.to(torch.int32).contiguous(), dst.to(torch.int32).contiguous()
-    unit = randn(d, unit_k)
-    want = ref.atu_update_ref(wg, unit.clone(), src.cpu(), dst.cpu(), bg=bg)
-    got = atu_update(wg, unit.clone(), src, dst, bg=bg)
-    require(torch.equal(got, want), "atu_update differs from its plain version")
-    dup_dst = dst.clone()
-    dup_dst[:bg] = dst[bg:2 * bg]              # groups 0 and 1 share a block
-    want = ref.atu_update_ref(wg, unit.clone(), src.cpu(), dup_dst.cpu(), bg=bg)
-    require(torch.equal(atu_update(wg, unit.clone(), src, dup_dst, bg=bg), want),
-            "atu_update with a duplicate destination differs (last must win)")
-    src_l, dst_l = src.long(), dst.long()
-    scratch = unit.clone()
-
-    def lib_copy():
-        scratch.index_copy_(1, dst_l, wg.index_select(1, src_l))
-    nbytes = 2 * m * d * 4 + 2 * m * 4
-    b_ms, b_by = bound(nbytes, 0.0)
-    out["atu_update"] = {
-        "max_abs_err": 0.0, "d": d, "f": f, "k": unit_k, "m": m, "bg": bg,
-        "ms": time_ms(lambda: atu_update(wg, scratch, src, dst, bg=bg)),
-        "plain_ms": time_ms(lambda: ref.atu_update_ref(wg, scratch, src, dst,
-                                                       bg=bg), reps=5),
-        "library_ms": time_ms(lib_copy), "bound_ms": b_ms, "bound_by": b_by,
-        "profile": device_profile(lambda: atu_update(wg, scratch, src, dst,
-                                                     bg=bg)),
-        "library_profile": device_profile(lib_copy)}
+    i8 = torch.randint(-128, 128, wg.shape, generator=g, device=dev,
+                       dtype=torch.int8)
+    for name, bank, unit_t in (("atu_update", wg, torch.float32),
+                               ("atu_update_int8", i8, torch.int8),
+                               ("atu_update_int8_fp32", i8, torch.float32)):
+        unit = (randn(d, unit_k) if unit_t.is_floating_point else
+                torch.randint(-128, 128, (d, unit_k), generator=g, device=dev,
+                              dtype=unit_t))
+        out[name] = atu_row(name, bank, unit, src, dst, bg)
+    del i8
 
     # --- mp_glu_ffn over compact banks of one active set: tiers 1037/1037/
     # 2072 (int4 packs along the contraction, so its width must be even;
@@ -2497,9 +2527,9 @@ def phase_divergence(cfg, params) -> dict:
 
 #: dense_archs: each dense-attention config the port serves besides
 #: qwen2.5-14b, at full width with its depth cut to this many layers
-#: (internvl2-1b 24 -> 12, so that hybrid_arch's 26 layers fit the time)
-DENSE_ARCHS = {"qwen2.5-32b": 4, "command-r-35b": 4,
-               "mistral-large-123b": 2, "internvl2-1b": 12}
+#: (so that the script ends within its time on a slow host)
+DENSE_ARCHS = {"qwen2.5-32b": 2, "command-r-35b": 2,
+               "mistral-large-123b": 2, "internvl2-1b": 6}
 
 
 def phase_dense_archs(B: int, P: int, gen_len: int) -> dict:
@@ -2827,12 +2857,12 @@ def phase_moe_archs(B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued, and phase 12: the hybrid family (recurrentgemma-2b)
 
 
-#: hybrid_arch: the hybrid config, the depth it runs at full width (14 of
-#: its 26 layers: 4 repeats of (rglru, rglru, attn) and a remainder of 2,
-#: so that the script ends within its time; all 26 in PRs 19-21), and the
+#: hybrid_arch: the hybrid config, the depth it runs at full width (8 of
+#: its 26 layers: 2 repeats of (rglru, rglru, attn) and a remainder of 2,
+#: so that the script ends within its time on a slow host), and the
 #: ring run's traffic: 2 prompts of the window + 128 tokens, so that the
 #: prefill's window masks the last 128 queries and decode wraps the ring
-HYBRID_ARCH = ("recurrentgemma-2b", 14)
+HYBRID_ARCH = ("recurrentgemma-2b", 8)
 RING_RUN = dict(B=2, P=2048 + 128, gen_len=16)
 #: decode consistency: a decode step's logits against one whole-prompt
 #: prefill's at the same position, within RING_TOL x max(1, max|prefill|),
@@ -3104,19 +3134,20 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued, and phases 13 and 14: the SSM and audio families
 
 
-#: ssm_arch: mamba2-370m at full width, 24 of its 48 layers (so that the
-#: script ends within its time; all 48 in PRs 20-21)
-SSM_ARCH = ("mamba2-370m", 24)
+#: ssm_arch: mamba2-370m at full width, 12 of its 48 layers (so that the
+#: script ends within its time on a slow host)
+SSM_ARCH = ("mamba2-370m", 12)
 #: the long run: 2 prompts of 2048 tokens (8 SSD chunks of 256: the state
 #: crosses 7 chunk boundaries), 16 new tokens; its decode logits at
 #: SSM_CHECK_STEPS held to a whole-prompt prefill's within RING_TOL
 SSM_LONG = dict(B=2, P=2048, gen_len=16)
 SSM_CHECK_STEPS = (1, 8, 16)
-#: audio_arch: musicgen-large at full width and its full depth, through
+#: audio_arch: musicgen-large at full width and 24 of its 48 layers (so
+#: that the script ends within its time on a slow host), through
 #: forward: B rows of P codebook steps after the config's 64 conditioning
 #: frames, gen_len greedy decode steps; decode logits at AUDIO_CHECK_STEPS
 #: held to a whole-prompt prefill's within RING_TOL
-AUDIO_ARCH = ("musicgen-large", 48)
+AUDIO_ARCH = ("musicgen-large", 24)
 AUDIO_RUN = dict(B=4, P=128, gen_len=16)
 AUDIO_CHECK_STEPS = (1, 16)
 
@@ -3397,8 +3428,8 @@ def phase_audio_tiny(label: str) -> dict:
 def phase_audio_arch() -> dict:
     """musicgen-large (AUDIO_ARCH) through ``forward``, as the reference's
     tests drive it (neither package's entry points serve it): tiny on cuda
-    against cpu; at full width and all 48 layers (random weights from a
-    seed, every predictor A drawn) a prefill of AUDIO_RUN's codebook steps
+    against cpu; at full width and AUDIO_ARCH's depth (random weights from
+    a seed, every predictor A drawn) a prefill of AUDIO_RUN's codebook steps
     after 64 conditioning frames and 16 greedy decode steps, each call's
     kernels held to its form of the path, twice (the same codes); the
     prefill's and a decode step's device time and busy share; decode
@@ -4619,6 +4650,21 @@ MESH_DRYRUN = tuple((mesh, "dense", shape) for mesh in ("host", "single")
                     for shape in ("train_4k", "prefill_32k", "decode_32k",
                                   "long_500k")) + (("single", "m2",
                                                     "decode_32k"),)
+#: the 16 x 16 dry runs (dense) that torch 2.11's DTensor could not trace
+#: before the port gave it a flip rule, the RG-LRU's gates replicated
+#: inputs and the prompt's attention local shards: each runs through the
+#: dry-run CLI in a process of its own, all at once, beside (a); each with
+#: its flops_per_device under torch 2.13 (the CLI's records), which it must
+#: equal under any torch but where MESH_FLOPS_OPEN says otherwise
+MESH_REPAIRED = {("recurrentgemma-2b", "train_4k"): 261499083816960.0,
+                 ("recurrentgemma-2b", "prefill_32k"): 199630079918080.0,
+                 ("mamba2-370m", "train_4k"): 31583713099776.0,
+                 ("musicgen-large", "train_4k"): 201996606898176.0,
+                 ("musicgen-large", "prefill_32k"): 79302007717888.0}
+#: combinations whose FLOPs depend on the torch version (ROADMAP queue 3):
+#: torch 2.11 computes mamba2-370m's in_proj weight gradient whole on every
+#: "model" rank; logged beside the 2.13 count, not required equal
+MESH_FLOPS_OPEN = {("mamba2-370m", "train_4k")}
 #: the real step: long_500k's one row, its 8192-slot ring started at the
 #: position steps_tiny starts from, MESH_STEPS serve steps
 MESH_START, MESH_STEPS = 524272, 16
@@ -4637,7 +4683,11 @@ def phase_mesh_full() -> dict:
     """(a) launch/dryrun.run_one for MESH_ARCH's full config at every
     MESH_DRYRUN combination (fake DTensors on placeholder ranks, traced on
     the host CPU): each record's memory, roofline terms, bottleneck and
-    trace seconds printed, status "ok" required. (b) The real step:
+    trace seconds printed, status "ok" required; beside it, the dry-run
+    CLI for each MESH_REPAIRED combination on 16 x 16 in a process of its
+    own, status "ok" and torch 2.13's flops_per_device required (but for
+    MESH_FLOPS_OPEN, logged), its trace seconds and torch version
+    printed. (b) The real step:
     build_case(MESH_ARCH, "long_500k", mesh=make_host_mesh(),
     variant="dense"), materialised on the card at all 48 layers and full
     width (init_params(m2=False): 59.1 GB of fp32 weights) with the
@@ -4656,22 +4706,59 @@ def phase_mesh_full() -> dict:
     from repro_torch.launch.steps import build_case
     from repro_torch.models import transformer as T
     t_phase = time.perf_counter()
-    records = {}
-    for mesh, variant, shape in MESH_DRYRUN:
-        rec = dryrun.run_one(MESH_ARCH, shape, mesh=mesh, variant=variant,
-                             verbose=False)
-        records[(mesh, variant, shape)] = rec
-        r = rec["roofline"]
-        log({"phase": "mesh_full dryrun", "arch": MESH_ARCH, "shape": shape,
-             "mesh": rec["mesh"], "variant": variant,
-             "status": rec["status"], "memory": rec["memory"],
-             "compute_s": r["compute_s"], "memory_s": r["memory_s"],
-             "collective_s": r["collective_s"], "bottleneck": r["bottleneck"],
-             "collectives": r["collectives"],
-             "useful_flops_ratio": r["useful_flops_ratio"],
-             "trace_s": rec["trace_s"], "cost": rec["cost"]})
-        require(rec["status"] == "ok", f"mesh_full: the dry run of {shape} "
-                f"on {mesh} ({variant}) is {rec['status']}")
+    out_dir = Path(tempfile.mkdtemp(prefix="mesh_repaired_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    repaired = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)) for arch, shape in MESH_REPAIRED]
+    try:
+        records = {}
+        for mesh, variant, shape in MESH_DRYRUN:
+            rec = dryrun.run_one(MESH_ARCH, shape, mesh=mesh,
+                                 variant=variant, verbose=False)
+            records[(mesh, variant, shape)] = rec
+            r = rec["roofline"]
+            log({"phase": "mesh_full dryrun", "arch": MESH_ARCH,
+                 "shape": shape, "mesh": rec["mesh"], "variant": variant,
+                 "status": rec["status"], "memory": rec["memory"],
+                 "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+                 "collective_s": r["collective_s"],
+                 "bottleneck": r["bottleneck"],
+                 "collectives": r["collectives"],
+                 "useful_flops_ratio": r["useful_flops_ratio"],
+                 "trace_s": rec["trace_s"], "cost": rec["cost"]})
+            require(rec["status"] == "ok", f"mesh_full: the dry run of "
+                    f"{shape} on {mesh} ({variant}) is {rec['status']}")
+        for arch, shape, proc in repaired:
+            text, _ = proc.communicate()
+            path = out_dir / f"{arch}__{shape}__single__dense.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            flops = rec.get("roofline", {}).get("flops_per_device")
+            want = MESH_REPAIRED[(arch, shape)]
+            log({"phase": "mesh_full repaired", "arch": arch,
+                 "shape": shape, "mesh": "16x16", "variant": "dense",
+                 "torch": torch.__version__, "status": rec.get("status"),
+                 "trace_s": rec.get("trace_s"),
+                 "error": rec.get("error"), "exit": proc.returncode,
+                 "flops_per_device": flops, "flops_torch_2_13": want,
+                 "flops_open": (arch, shape) in MESH_FLOPS_OPEN,
+                 "bytes_per_device": rec.get("roofline", {}).get(
+                     "bytes_per_device")})
+            require(proc.returncode == 0 and rec.get("status") == "ok",
+                    f"mesh_full: the dry run of {arch} {shape} on 16 x 16 "
+                    f"failed: {rec.get('error') or text[-2000:]}")
+            require((arch, shape) in MESH_FLOPS_OPEN or flops == want,
+                    f"mesh_full: the dry run of {arch} {shape} on 16 x 16 "
+                    f"counts {flops} FLOPs a device, {want} under torch "
+                    "2.13")
+    finally:
+        for *_, proc in repaired:      # a failure above leaves none
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(out_dir, ignore_errors=True)
     dry_s = time.perf_counter() - t_phase
     host = records[("host", "dense", "long_500k")]
     bound_ms = max(host["roofline"]["compute_s"],
@@ -4824,7 +4911,8 @@ def main(only=None):
         return out
     if only:
         dev = torch.device("cuda")
-        calls = {"kernels_audio": (phase_kernels_audio, dev),
+        calls = {"kernels_server": (phase_kernels_server, cfg, dev),
+                 "kernels_audio": (phase_kernels_audio, dev),
                  "ssm_arch": (phase_ssm_arch, B, P, gen_len),
                  "audio_arch": (phase_audio_arch,),
                  "offline_tiny": (phase_offline_tiny,),
@@ -5056,6 +5144,10 @@ def main(only=None):
                                   ("long_context",)),
         "atu_update": (c + "atu_update.cu", k + "atu_update.py:24",
                        "atu_update", ()),
+        "atu_update_int8": (c + "atu_update.cu", k + "atu_update.py:24",
+                            "atu_update", ()),
+        "atu_update_int8_fp32": (c + "atu_update.cu", k + "atu_update.py:24",
+                                 "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),
     }
     table = []

@@ -9,9 +9,10 @@ Traces the step as ``launch/dryrun.run_one`` does (trip-count weighted,
 fake tensors on placeholder ranks) and prints one JSON line: the torch
 version, the methods of DTensor's ``ShardingPropagator``, the counts of
 ``roofline/op_cost.py`` (flops, bytes, ops, the DTensor ops it let through
-and the ops of DTensor's sharding propagation it left out) and every op's
-bytes, largest first. Run it under two torch versions to find the ops
-whose bytes differ. Imports no JAX.
+and the ops of DTensor's sharding propagation it left out), every op's
+bytes, and the FLOPs of every op and its local input shapes, largest
+first. Run it under two torch versions to find the ops whose counts
+differ. Imports no JAX.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ def main(argv=None) -> int:
         **{k: cost[k] for k in ("flops", "bytes", "ops", "dtensor_ops",
                                 "propagation_ops", "collectives")},
         "bytes_by_op": dict(sorted(cost["bytes_by_op"].items(),
+                                   key=lambda kv: -kv[1])),
+        "flops_by_op": dict(sorted(cost["flops_by_op"].items(),
                                    key=lambda kv: -kv[1])),
     }))
     return 0

@@ -44,10 +44,10 @@ def atu_update(bank: torch.Tensor, unit: torch.Tensor, src_idx: torch.Tensor,
                dst_idx: torch.Tensor, *, bg: int = 8) -> torch.Tensor:
     """bank (d, f), unit (d, k), src_idx/dst_idx (m,) int32 with m % bg == 0
     and m <= k. Group g copies bank columns ``[src[g*bg]//bg*bg, +bg)`` into
-    unit columns ``[dst[g*bg]//bg*bg, +bg)``; when groups share a
-    destination the last one wins. ``unit`` is updated in place and
-    returned. Index values are read on the device, unchecked: a group
-    outside bank or unit is skipped."""
+    unit columns ``[dst[g*bg]//bg*bg, +bg)``; a group outside bank or unit
+    is skipped, and of the others that share a destination the last one
+    wins. ``unit`` is updated in place and returned. Index values are read
+    on the device, unchecked."""
     global launches
     _require(bank.is_cuda, "bank must be a CUDA tensor")
     _require(unit.device == bank.device and src_idx.device == bank.device

@@ -11,6 +11,19 @@ import math
 import torch
 import torch.nn.functional as F
 
+def constrain(x, policy, *spec):
+    """Activation sharding constraint (the reference's transformer.py:
+    455-461): the identity without a policy or on a plain tensor; a DTensor
+    is redistributed to the policy's placements of ``spec`` (checked
+    against x's shape)."""
+    if policy is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(*policy.named(tuple(x.shape), *spec))
+
+
 # ---------------------------------------------------------------------------
 # Norms
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import _gelu_tanh, causal_conv1d, each_row
+from repro_torch.models.common import (_gelu_tanh, causal_conv1d, constrain,
+                                       each_row)
 
 _C = 8.0  # recurrence-gate temperature from the Griffin paper
 
@@ -56,13 +57,18 @@ def rg_lru(x, r, i, lam, h0=None):
     return h_seq.to(x.dtype), h_seq[:, -1].to(x.dtype)
 
 
-def rglru_block(cfg, p, x, state, *, rows: bool = False):
+def rglru_block(cfg, p, x, state, *, rows: bool = False, policy=None):
     """Griffin recurrent block. x: (B, S, d).
 
     state: {'h': (B, W), 'conv': (B, cw-1, W)} or None. Returns (y,
     new_state). ``rows``: the batch rows are separate requests, and the
     five products run one row at a time (``each_row``); the rest is
-    elementwise along each row."""
+    elementwise along each row. ``policy``: the conv's output is made
+    replicated over "model" (a no-op on plain tensors), so that the gate
+    products ``w_a`` and ``w_i`` come out sharded on their columns as
+    their biases are, not as partial sums: a partial sum plus a sharded
+    bias needs a redistribution from a shard to a partial sum, which
+    DTensor has not got."""
     def dense(w, t):
         return each_row(lambda tr: tr @ w, t) if rows else t @ w
 
@@ -70,6 +76,7 @@ def rglru_block(cfg, p, x, state, *, rows: bool = False):
     xb = dense(p["w_x"], x)
     conv_state = None if state is None else state["conv"]
     xb, new_conv = causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
+    xb = constrain(xb, policy, ("pod", "data"), None, None)
 
     r = torch.sigmoid(dense(p["w_a"], xb) + p["b_a"])
     i = torch.sigmoid(dense(p["w_i"], xb) + p["b_i"])

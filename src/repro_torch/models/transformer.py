@@ -55,8 +55,8 @@ from repro_torch.core import mp_ffn as mp
 from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
 from repro_torch.models import hybrid, moe, ssm
-from repro_torch.models.common import (apply_norm, chunked_attention, each_row,
-                                       glu_ffn, rope)
+from repro_torch.models.common import (apply_norm, chunked_attention,
+                                       constrain, each_row, glu_ffn, rope)
 from repro_torch.sharding import P
 
 # ---------------------------------------------------------------------------
@@ -507,18 +507,6 @@ def _kv_dequantize(q, scale, dtype):
     return (q.float() * scale[..., None].float()).to(dtype)
 
 
-def constrain(x, policy, *spec):
-    """Activation sharding constraint (transformer.py:455-461): the identity
-    without a policy or on a plain tensor; a DTensor is redistributed to
-    the policy's placements of ``spec`` (checked against x's shape)."""
-    if policy is None:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(*policy.named(tuple(x.shape), *spec))
-
-
 def _tp_input(x, policy):
     """A column-parallel product's input with its features replicated over
     "model" (Megatron's f): DTensor picks each op's placements alone, and
@@ -582,12 +570,41 @@ def _write_shards(buf, at, new, policy):
                                                           dt(at))
 
 
+def _sharded_attention(fn, q, k, v, positions, policy, heads):
+    """``fn(q, k, v, positions)``, an attention without a cache; with a
+    policy and DTensor inputs, under ``local_map`` on each device's batch
+    rows and, where ``heads`` is "model", its query heads and the kv heads
+    they read (the grouped-query split keeps a shard's query heads on its
+    own kv heads when the kv heads divide the axis). DTensor cannot follow
+    the attention's products itself: their batch and head dims, both
+    sharded, are flattened into one. The output is placed as q."""
+    if policy is None:
+        return fn(q, k, v, positions)
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, positions)
+    from torch.distributed.tensor.experimental import local_map
+    batch = ("pod", "data")
+    mesh, q_pl = policy.named(tuple(q.shape), batch, None, heads, None)
+    kv_pl = policy.named(tuple(k.shape), batch, None, heads, None)[1]
+    pos_pl = policy.named(tuple(positions.shape), batch, None)[1]
+    if not isinstance(positions, DTensor):
+        positions = DTensor.from_local(positions, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+    return local_map(fn, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl, pos_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         q, k, v, positions)
+
+
 def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
-                      slots, softcap: float, policy=None):
+                      slots, softcap: float, policy=None, heads=None):
     """The attention of a serving mode, which writes this call's K/V (or,
     with an int8 cache, their :func:`_kv_quantize` bytes and scales) into
     the cache views ``kv`` in place; ``attn_layer`` says what each mode
-    attends over."""
+    attends over. A prompt attends through :func:`_sharded_attention`
+    (``policy``, ``heads``)."""
     B, S = q.shape[:2]
     sbuf = kv["k"].shape[1]
     if "k_s" in kv:
@@ -597,15 +614,21 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
         store = {"k": k, "v": v}
     if mode == "prefill":                   # from position 0
         if window and S >= sbuf:            # the ring keeps the last sbuf
-            ring = torch.remainder(torch.arange(S - sbuf, S,
-                                                device=q.device), sbuf)
+            # position p goes to slot p mod sbuf: the last sbuf tokens fill
+            # the ring from slot S mod sbuf on and wrap once. Two slice
+            # writes (an indexed write has no DTensor rule in torch 2.11)
+            o = S % sbuf
             for n, t in store.items():
-                kv[n][:, ring] = t[:, S - sbuf:].to(kv[n].dtype)
+                last = t[:, S - sbuf:].to(kv[n].dtype)
+                kv[n][:, o:] = last[:, :sbuf - o]
+                kv[n][:, :o] = last[:, sbuf - o:]
         else:
             for n, t in store.items():
                 kv[n][:, :S] = t.to(kv[n].dtype)
-        return ops.prefill_attention(q, k, v, positions, window=window,
-                                     softcap=softcap)
+        return _sharded_attention(
+            lambda q, k, v, pos: ops.prefill_attention(
+                q, k, v, pos, window=window, softcap=softcap),
+            q, k, v, positions, policy, heads)
     # decode or prefill_resume: the reference writes by a one-hot select or
     # a dynamic_update_slice into a new buffer; the port overwrites the
     # rows' slots of the cache in place
@@ -691,16 +714,19 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
         hkv % policy.axes.model else "model"
     q = constrain(q, policy, batch, None, heads, None)
     # replicate K/V over "model" before attention: their kv-head dim rarely
-    # divides the axis
+    # divides the axis (where it does, each shard of a prompt's attention
+    # takes its own kv heads from them: _sharded_attention)
     k = constrain(k, policy, batch, None, None, None)
     v = constrain(v, policy, batch, None, None, None)
     if mode == "train":
-        attn_out = chunked_attention(q, k, v, positions, positions,
-                                     window=w_eff, softcap=cap)
+        attn_out = _sharded_attention(
+            lambda q, k, v, pos: chunked_attention(
+                q, k, v, pos, pos, window=w_eff, softcap=cap),
+            q, k, v, positions, policy, heads)
     else:
         attn_out = _cached_attention(q, k, v, kv, positions, mode=mode,
                                      window=w_eff, slots=slots, softcap=cap,
-                                     policy=policy)
+                                     policy=policy, heads=heads)
 
     # and the output in q's placement, which the backward pass's gradient
     # then takes before the split
@@ -768,7 +794,8 @@ def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True,
     def dense(fn, t):
         return each_row(fn, t) if rows else fn(t)
     h = dense(lambda t: _norm(cfg, t, p["norm1"], policy), x)
-    mix, new_state = hybrid.rglru_block(cfg, p, h, state, rows=rows)
+    mix, new_state = hybrid.rglru_block(cfg, p, h, state, rows=rows,
+                                        policy=policy)
     if state is not None:
         state["h"].copy_(new_state["h"])
         state["conv"].copy_(new_state["conv"])

@@ -186,6 +186,7 @@ class CostMode(TorchDispatchMode):
         self.dtensor_ops = 0
         self.propagation_ops = 0
         self.bytes_by_op: Dict[str, float] = {}
+        self.flops_by_op: Dict[str, float] = {}
         self._args = {_storage_key(t).cdata for t in _tensors(arguments)}
         self._live: Dict[int, tuple] = {}
         self.live_bytes = 0
@@ -261,8 +262,10 @@ class CostMode(TorchDispatchMode):
         self.ops += 1
         packet = func._overloadpacket
         if packet in self.flop_registry:
-            self.flops += self.flop_registry[packet](*args, **kwargs,
-                                                     out_val=out)
+            n = self.flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += n
+            key = f"{packet.__name__}{[tuple(t.shape) for t in ins]}"
+            self.flops_by_op[key] = self.flops_by_op.get(key, 0) + n
         ns = func.namespace
         if ns == "_c10d_functional" and packet.__name__ in _COLLECTIVES:
             d = self.collectives.setdefault(_COLLECTIVES[packet.__name__],
@@ -291,7 +294,8 @@ class CostMode(TorchDispatchMode):
                 "dtensor_ops": self.dtensor_ops,
                 "propagation_ops": self.propagation_ops,
                 "peak_bytes": self.peak_bytes,
-                "bytes_by_op": dict(self.bytes_by_op)}
+                "bytes_by_op": dict(self.bytes_by_op),
+                "flops_by_op": dict(self.flops_by_op)}
 
 
 @contextlib.contextmanager
@@ -343,19 +347,74 @@ def _constants_outside_the_trace():
         common.rope_freqs = orig
 
 
+def _flip_sharding(x, dims):
+    """``aten.flip``'s placements on one mesh dim, as (output, inputs)
+    pairs: a shard on a dim that is not flipped stays (each block flips in
+    place), a partial sum passes through, and a shard on a flipped dim
+    matches none, so DTensor first makes it ``Replicate``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ndim = len(x.shape)
+    flipped = {d % ndim for d in dims}
+    return ([([Replicate()], [Replicate(), None]),
+             ([Partial()], [Partial(), None])]
+            + [([Shard(d)], [Shard(d), None])
+               for d in range(ndim) if d not in flipped])
+
+
+def has_sharding_rule(op) -> bool:
+    """Whether this torch's DTensor has a sharding rule of its own for
+    ``op``."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return any(op in getattr(prop, t, {}) for t in (
+        "op_strategy_funcs", "op_single_dim_strategy_funcs", "op_to_rules"))
+
+
+@contextlib.contextmanager
+def flip_rule():
+    """While open, DTensor propagates ``aten.flip`` (which the backward of
+    ``cumsum`` runs) by :func:`_flip_sharding` if this torch has no rule
+    for it (2.11 has none): what DTensor holds for the op is set aside, the
+    rule registered with its dims (argument 1) in DTensor's cache key
+    (``register_sharding`` keys only int arguments), and DTensor's cache of
+    propagated ops cleared; on exit all is as it was."""
+    op = aten.flip.default
+    if has_sharding_rule(op):
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor.experimental import register_sharding
+    prop = DTensor._op_dispatcher.sharding_propagator
+    tables = {n: t for n, t in vars(prop).items() if isinstance(t, dict)}
+    saved = {n: t.pop(op) for n, t in tables.items() if op in t}
+    prop.propagate_op_sharding.cache_clear()
+    register_sharding(op)(_flip_sharding)
+    prop.op_to_schema_info[op] = RuntimeSchemaInfo(1)
+    try:
+        yield
+    finally:
+        for t in tables.values():
+            t.pop(op, None)
+        for n, entry in saved.items():
+            tables[n][op] = entry
+        prop.propagate_op_sharding.cache_clear()
+
+
 def analyze(fn, *args, fake: bool = True) -> Dict:
     """Runs ``fn(*args)`` once and returns {'flops', 'bytes', 'collectives':
     {op: {count, bytes}}, 'ops', 'peak_bytes', 'out'}, per device.
     ``fake``: under ``FakeTensorMode`` (the caller makes ``args`` inside
     :func:`fake_mode`), counting only ops on fake tensors: an op on real
     ones is host work (a constant, DTensor's bookkeeping, done once a
-    process). ``KERNEL_CALLS`` count at their boundary."""
+    process). ``KERNEL_CALLS`` count at their boundary; ``aten.flip``
+    propagates by :func:`flip_rule`."""
     from repro_torch.kernels import ops
     mode = fake_mode() if fake else contextlib.nullcontext()
     with mode:
         cost = CostMode(args, fake_only=fake)
         with cost.kernel_calls(ops), _offsets_outside_the_trace(), \
-                _constants_outside_the_trace(), cost:
+                _constants_outside_the_trace(), flip_rule(), cost:
             out = fn(*args)
     _check_propagation(cost)
     return dict(cost.result(), out=out)

@@ -492,6 +492,60 @@ def test_atu_update_matches_plain_with_duplicates(dev):
                        want)
 
 
+#: (bank dtype, unit dtype) for each of the kernel's kinds: 1, 2 and 4-byte
+#: bitwise copies and the int8 -> fp32 cast
+ATU_KINDS = {1: (torch.int8, torch.int8), 2: (torch.float16, torch.float16),
+             4: (torch.float32, torch.float32), 5: (torch.int8, torch.float32)}
+#: (d, f, k, groups or 0 for m = k): the ATU row's shape (d = 5120, f =
+#: 13824, a unit of 4152 columns, 104 groups); a d that is no multiple of
+#: any block's rows, with odd widths, so that an item is one element; and
+#: m = k, every unit column replaced
+ATU_SHAPES = {"row": (5120, 13824, 4152, 104), "odd": (777, 2051, 1027, 37),
+              "m_eq_k": (300, 1024, 512, 0)}
+
+
+def _atu_values(shape, dtype, dev, g):
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, dtype=dtype, device=dev,
+                             generator=g)
+    return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("shape", sorted(ATU_SHAPES))
+@pytest.mark.parametrize("bg", (1, 8, 32, 256))
+@pytest.mark.parametrize("kind", sorted(ATU_KINDS))
+def test_atu_update_every_kind_and_group_width(dev, kind, bg, shape):
+    """Bit for bit against the plain version, with a duplicate destination
+    (the later group wins) and a group whose source lies outside the bank,
+    which the kernel skips and the plain version is not given; it shares
+    its destination with an earlier group, which must still land."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.atu_update import atu_update
+    d, f, k, n = ATU_SHAPES[shape]
+    n = min(n, f // bg, k // bg) if n else k // bg
+    g = torch.Generator(device=dev).manual_seed(kind * 1000 + bg)
+    bank_t, unit_t = ATU_KINDS[kind]
+    bank = _atu_values((d, f), bank_t, dev, g)
+    unit = _atu_values((d, k), unit_t, dev, g)
+    groups = torch.randperm(f // bg, generator=g, device=dev)[:n].cpu()
+    dests = torch.randperm(k // bg, generator=g, device=dev)[:n].cpu()
+    keep = torch.ones(n, dtype=torch.bool)
+    if n >= 3:
+        dests[1] = dests[n - 2]            # a duplicate: group n - 2 wins
+        groups[n - 1] = f // bg + 1        # outside the bank: skipped
+        dests[n - 1] = dests[0]
+        keep[n - 1] = False
+    src = (groups[:, None] * bg + torch.arange(bg)).reshape(-1).int()
+    dst = (dests[:, None] * bg + torch.arange(bg)).reshape(-1).int()
+    assert src.numel() <= k
+    inside = keep.repeat_interleave(bg)
+    want = ref.atu_update_ref(bank, unit.clone(), src[inside], dst[inside],
+                              bg=bg)
+    got = atu_update(bank, unit, src.to(dev), dst.to(dev), bg=bg)
+    torch.cuda.synchronize()
+    assert got is unit and torch.equal(got, want)
+
+
 def test_mp_glu_ffn_matches_plain(dev):
     from repro_torch.kernels import ops, ref
     d, f = 256, 512
