@@ -165,10 +165,12 @@ Phases, each printing one JSON line:
                 dense, and decode_32k m2 on 16 x 16 (fake DTensors traced
                 on the host's CPU), each record's memory, roofline terms
                 and trace seconds printed, status ok required; beside
-                them, in a process each, the dry-run CLI for the five
-                16 x 16 combinations torch 2.11 could not trace before
-                (MESH_REPAIRED), status ok and 2.13's FLOPs required
-                (but MESH_FLOPS_OPEN's, logged); then one
+                them, in a process each, the dry-run CLI for seven more
+                16 x 16 combinations (MESH_SUBPROCESS: the five torch
+                2.11 could not trace before, mistral-large-123b's
+                prompt, llama4's long_500k), status ok required; every
+                16 x 16 record's FLOPs a device within 1 % of the
+                reference's own count (MESH_REFERENCE_FLOPS); then one
                 real build_case step (long_500k, dense, make_host_mesh())
                 at all 48 layers and full width (59.1 GB of fp32 weights,
                 the 8192-slot ring from position 524272), 16 serve steps:
@@ -4650,21 +4652,39 @@ MESH_DRYRUN = tuple((mesh, "dense", shape) for mesh in ("host", "single")
                     for shape in ("train_4k", "prefill_32k", "decode_32k",
                                   "long_500k")) + (("single", "m2",
                                                     "decode_32k"),)
-#: the 16 x 16 dry runs (dense) that torch 2.11's DTensor could not trace
-#: before the port gave it a flip rule, the RG-LRU's gates replicated
-#: inputs and the prompt's attention local shards: each runs through the
-#: dry-run CLI in a process of its own, all at once, beside (a); each with
-#: its flops_per_device under torch 2.13 (the CLI's records), which it must
-#: equal under any torch but where MESH_FLOPS_OPEN says otherwise
-MESH_REPAIRED = {("recurrentgemma-2b", "train_4k"): 261499083816960.0,
-                 ("recurrentgemma-2b", "prefill_32k"): 199630079918080.0,
-                 ("mamba2-370m", "train_4k"): 31583713099776.0,
-                 ("musicgen-large", "train_4k"): 201996606898176.0,
-                 ("musicgen-large", "prefill_32k"): 79302007717888.0}
-#: combinations whose FLOPs depend on the torch version (ROADMAP queue 3):
-#: torch 2.11 computes mamba2-370m's in_proj weight gradient whole on every
-#: "model" rank; logged beside the 2.13 count, not required equal
-MESH_FLOPS_OPEN = {("mamba2-370m", "train_4k")}
+#: the reference's per-device FLOPs of each 16 x 16 combination held here,
+#: (arch, input shape, variant) -> flops_per_device, from its own dry run on
+#: the CPU: ``PYTHONPATH=src JAX_PLATFORMS=cpu python -m repro.launch.dryrun
+#: --arch all --shape all --mesh single --variant dense`` (and ``--variant
+#: m2``), its HLO's dots counted by repro/roofline/hlo_cost.py
+MESH_REFERENCE_FLOPS = {
+    ("qwen2.5-14b", "train_4k", "dense"): 556176789995520.0,
+    ("qwen2.5-14b", "prefill_32k", "dense"): 378493992960000.0,
+    ("qwen2.5-14b", "decode_32k", "dense"): 30096752640.0,
+    ("qwen2.5-14b", "long_500k", "dense"): 392417280.0,
+    ("qwen2.5-14b", "decode_32k", "m2"): 23020290048.0,
+    ("recurrentgemma-2b", "train_4k", "dense"): 130657267220480.0,
+    ("recurrentgemma-2b", "prefill_32k", "dense"): 111670659645440.0,
+    ("mamba2-370m", "train_4k", "dense"): 12516675551232.0,
+    ("musicgen-large", "train_4k", "dense"): 125750199975936.0,
+    ("musicgen-large", "prefill_32k", "dense"): 79302007717888.0,
+    ("mistral-large-123b", "prefill_32k", "dense"): 1581647476555776.0,
+    ("llama4-maverick-400b-a17b", "long_500k", "dense"): 6405706240.0}
+#: the 16 x 16 dry runs (dense) that each run through the dry-run CLI in a
+#: process of their own, all at once, beside (a): the five that torch
+#: 2.11's DTensor could not trace before the port gave it a flip rule, the
+#: RG-LRU's gates replicated inputs and the prompt's attention local shards,
+#: and the two that counted furthest from the reference (15x and 6.5x its
+#: FLOPs before their placements were GSPMD's)
+MESH_SUBPROCESS = (("recurrentgemma-2b", "train_4k"),
+                   ("recurrentgemma-2b", "prefill_32k"),
+                   ("mamba2-370m", "train_4k"),
+                   ("musicgen-large", "train_4k"),
+                   ("musicgen-large", "prefill_32k"),
+                   ("mistral-large-123b", "prefill_32k"),
+                   ("llama4-maverick-400b-a17b", "long_500k"))
+#: how far a record's flops_per_device may lie from the reference's
+MESH_FLOPS_TOL = 0.01
 #: the real step: long_500k's one row, its 8192-slot ring started at the
 #: position steps_tiny starts from, MESH_STEPS serve steps
 MESH_START, MESH_STEPS = 524272, 16
@@ -4683,11 +4703,11 @@ def phase_mesh_full() -> dict:
     """(a) launch/dryrun.run_one for MESH_ARCH's full config at every
     MESH_DRYRUN combination (fake DTensors on placeholder ranks, traced on
     the host CPU): each record's memory, roofline terms, bottleneck and
-    trace seconds printed, status "ok" required; beside it, the dry-run
-    CLI for each MESH_REPAIRED combination on 16 x 16 in a process of its
-    own, status "ok" and torch 2.13's flops_per_device required (but for
-    MESH_FLOPS_OPEN, logged), its trace seconds and torch version
-    printed. (b) The real step:
+    trace seconds printed, status "ok" required, and on 16 x 16 its
+    flops_per_device within MESH_FLOPS_TOL of MESH_REFERENCE_FLOPS; beside
+    it, the dry-run CLI for each MESH_SUBPROCESS combination on 16 x 16 in
+    a process of its own, status "ok" and the same tolerance required, its
+    trace seconds and torch version printed. (b) The real step:
     build_case(MESH_ARCH, "long_500k", mesh=make_host_mesh(),
     variant="dense"), materialised on the card at all 48 layers and full
     width (init_params(m2=False): 59.1 GB of fp32 weights) with the
@@ -4712,7 +4732,13 @@ def phase_mesh_full() -> dict:
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)) for arch, shape in MESH_REPAIRED]
+        text=True)) for arch, shape in MESH_SUBPROCESS]
+
+    def off_reference(arch, shape, variant, flops):
+        """flops_per_device / the reference's, where it is held, else
+        None."""
+        want = MESH_REFERENCE_FLOPS.get((arch, shape, variant))
+        return None if want is None or flops is None else flops / want
     try:
         records = {}
         for mesh, variant, shape in MESH_DRYRUN:
@@ -4731,28 +4757,40 @@ def phase_mesh_full() -> dict:
                  "trace_s": rec["trace_s"], "cost": rec["cost"]})
             require(rec["status"] == "ok", f"mesh_full: the dry run of "
                     f"{shape} on {mesh} ({variant}) is {rec['status']}")
+            if mesh == "single":
+                flops = r["flops_per_device"]
+                ratio = off_reference(MESH_ARCH, shape, variant, flops)
+                log({"phase": "mesh_full reference", "arch": MESH_ARCH,
+                     "shape": shape, "variant": variant, "mesh": "16x16",
+                     "flops_per_device": flops, "flops_reference":
+                     MESH_REFERENCE_FLOPS[(MESH_ARCH, shape, variant)],
+                     "over_reference": ratio})
+                require(abs(ratio - 1) <= MESH_FLOPS_TOL,
+                        f"mesh_full: the dry run of {MESH_ARCH} {shape} "
+                        f"({variant}) on 16 x 16 counts {ratio:.4f} x the "
+                        "reference's FLOPs a device")
         for arch, shape, proc in repaired:
             text, _ = proc.communicate()
             path = out_dir / f"{arch}__{shape}__single__dense.json"
             rec = json.loads(path.read_text()) if path.exists() else {}
             flops = rec.get("roofline", {}).get("flops_per_device")
-            want = MESH_REPAIRED[(arch, shape)]
-            log({"phase": "mesh_full repaired", "arch": arch,
+            ratio = off_reference(arch, shape, "dense", flops)
+            log({"phase": "mesh_full subprocess", "arch": arch,
                  "shape": shape, "mesh": "16x16", "variant": "dense",
                  "torch": torch.__version__, "status": rec.get("status"),
                  "trace_s": rec.get("trace_s"),
                  "error": rec.get("error"), "exit": proc.returncode,
-                 "flops_per_device": flops, "flops_torch_2_13": want,
-                 "flops_open": (arch, shape) in MESH_FLOPS_OPEN,
+                 "flops_per_device": flops, "flops_reference":
+                 MESH_REFERENCE_FLOPS[(arch, shape, "dense")],
+                 "over_reference": ratio,
                  "bytes_per_device": rec.get("roofline", {}).get(
                      "bytes_per_device")})
             require(proc.returncode == 0 and rec.get("status") == "ok",
                     f"mesh_full: the dry run of {arch} {shape} on 16 x 16 "
                     f"failed: {rec.get('error') or text[-2000:]}")
-            require((arch, shape) in MESH_FLOPS_OPEN or flops == want,
+            require(abs(ratio - 1) <= MESH_FLOPS_TOL,
                     f"mesh_full: the dry run of {arch} {shape} on 16 x 16 "
-                    f"counts {flops} FLOPs a device, {want} under torch "
-                    "2.13")
+                    f"counts {ratio:.4f} x the reference's FLOPs a device")
     finally:
         for *_, proc in repaired:      # a failure above leaves none
             if proc.poll() is None:

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.core.predictor import predictor_scores, shared_topk_indices
 from repro_torch.kernels import ops
-from repro_torch.models.common import activation, each_row
+from repro_torch.models.common import activation, each_row, on_model
 
 
 def tier_sizes(f: int, cfg) -> Dict[str, int]:
@@ -37,6 +37,8 @@ def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
     """x: (B, S, d) — serving activations. banks/pred: one layer's params.
     ``rows``: each batch row takes its own active set over its own S
     positions (idx (B, k)) instead of one shared set (idx (k,)).
+    On a mesh (a DTensor x) the predictor reads x with its features on
+    "model", as the reference's activations come.
 
     Returns (y, info) where info carries the rank-sorted active indices and
     the per-step weight bytes the tiers move."""
@@ -46,8 +48,8 @@ def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
 
     def top_k(xs):                                            # rank-sorted
-        return shared_topk_indices(predictor_scores(xs, pred["A"], pred["B"]),
-                                   k)
+        return shared_topk_indices(
+            predictor_scores(on_model(xs), pred["A"], pred["B"]), k)
     idx = each_row(lambda xr: top_k(xr)[None], x) if rows else top_k(x)
     y = ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act)
     bytes_moved = 3 * d * (k16 * 2 + k8 * 1 + k4 * 0.5)

@@ -14,12 +14,14 @@ import math
 
 import torch
 
-from repro_torch.models.common import activation
+from repro_torch.models.common import activation, reduced
 
 
 def predictor_scores(x, A, B):
-    """x: (..., d) -> scores (..., f) in fp32."""
-    h = torch.einsum("...d,dr->...r", x.float(), A.float())
+    """x: (..., d) -> scores (..., f) in fp32 (on a mesh the rank-r
+    activations' sums are reduced before the second product, as GSPMD
+    does)."""
+    h = reduced(torch.einsum("...d,dr->...r", x.float(), A.float()))
     return torch.einsum("...r,rf->...f", h, B.float())
 
 

@@ -12,7 +12,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.quantize import unpack_int4
-from repro_torch.models.common import activation, chunked_attention
+from repro_torch.models.common import activation, chunked_attention, reduced
 
 
 def _unpack_rows(w):
@@ -95,7 +95,8 @@ def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
     wd = gathered("wd")                         # (k, d)
     act = activation(act_name)
     h = act(torch.einsum("bsd,dk->bsk", x, wg))
-    h = h * torch.einsum("bsd,dk->bsk", x, wu)
+    # (on a mesh the up product's sums are reduced first, as GSPMD does)
+    h = h * reduced(torch.einsum("bsd,dk->bsk", x, wu))
     return torch.einsum("bsk,kd->bsd", h, wd)
 
 

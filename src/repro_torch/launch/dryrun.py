@@ -44,7 +44,8 @@ import torch
 from torch.utils._pytree import tree_flatten
 
 from repro_torch import sharding as SH
-from repro_torch.configs.base import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
+from repro_torch.configs.base import (ASSIGNED_ARCHS, INPUT_SHAPES,
+                                      InputShape, get_config)
 from repro_torch.core.hw import H100_SXM
 from repro_torch.launch import mesh as M
 from repro_torch.launch.steps import build_case
@@ -57,6 +58,13 @@ from repro_torch.roofline.analysis import (COMPUTE_PEAK, model_flops_for,
 MESHES = {"host": ((1, 1), ("data", "model")),
           "single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+#: INPUT_SHAPES cut for the tiny configs (batches divisible by data = 2 of
+#: a 2 x 4 mesh)
+TINY_SHAPES = {"train_4k": InputShape("train_4k", 32, 4, "train"),
+               "prefill_32k": InputShape("prefill_32k", 64, 4, "prefill"),
+               "decode_32k": InputShape("decode_32k", 64, 4, "decode"),
+               "long_500k": InputShape("long_500k", 96, 1, "decode")}
 
 
 def _distribute(arg, spec, policy):

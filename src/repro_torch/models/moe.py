@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.predictor import top_k
-from repro_torch.models.common import activation, glu_ffn
+from repro_torch.models.common import activation, glu_ffn, reduced
 
 
 def _batch_axes(policy, B: int) -> tuple:
@@ -86,30 +86,50 @@ def _experts(buf, w_gate, w_up, w_down, act_name: str):
     return torch.einsum("becf,efd->becd", h, w_down)
 
 
-def _experts_local(policy, batch_axes, E: int):
-    """:func:`_experts` under ``local_map``, placed as the policy places the
-    experts (``expert_parallel``): the hidden dim f on "model" (the down
+def _experts_local(policy, batch_axes, E: int, w_gate):
+    """:func:`_experts` with each product under ``local_map``, placed as
+    GSPMD places the reference's: the hidden dim f on "model" (the down
     product's output a partial sum over it); with ``expert_data_shard`` the
-    experts on "data", the buffer moved there by an all-to-all; else the
-    buffer's rows on the batch axes and the weights gathered (FSDP)."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+    experts on "data", the buffer moved there by an all-to-all; the
+    buffer's rows on the batch axes, the weights gathered there (FSDP); on
+    a mesh dim that holds no rows (one row) and shards the weights' d
+    (FSDP), the buffer's d too: the gate and up products' sums are partial
+    over it, reduced before the activation, and the down product's output
+    keeps d sharded."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     by_e = policy.expert_data_shard and E % policy.axes.data == 0
-    buf, w_in, w_out, out = [], [], [], []
-    for n in policy.mesh.mesh_dim_names:
+    # per mesh dim: (buf, w_in, h) -> h_in; (h, w_out) -> out
+    buf, w_in, h_in, h, w_out, out = ([] for _ in range(6))
+    for i, n in enumerate(policy.mesh.mesh_dim_names):
         if n == "model":
-            place = (Replicate(), Shard(2), Shard(1), Partial())
+            place = (Replicate(), Shard(2), Shard(3), Shard(3), Shard(1),
+                     Partial())
         elif n == "data" and by_e:
-            place = (Shard(1), Shard(0), Shard(0), Shard(1))
+            place = (Shard(1), Shard(0), Shard(1), Shard(1), Shard(0),
+                     Shard(1))
         elif n in batch_axes:
-            place = (Shard(0), Replicate(), Replicate(), Shard(0))
+            place = (Shard(0), Replicate(), Shard(0), Shard(0), Replicate(),
+                     Shard(0))
+        elif isinstance(w_gate, DTensor) and w_gate.placements[i] == Shard(1):
+            place = (Shard(3), Shard(1), Partial(), Replicate(), Shard(2),
+                     Shard(3))
         else:
-            place = (Replicate(),) * 4
-        for lst, pl in zip((buf, w_in, w_out, out), place):
+            place = (Replicate(),) * 6
+        for lst, pl in zip((buf, w_in, h_in, h, w_out, out), place):
             lst.append(pl)
-    return local_map(_experts, out_placements=out,
-                     in_placements=(buf, w_in, w_in, w_out, None),
-                     device_mesh=policy.mesh, redistribute_inputs=True)
+    mesh = policy.mesh
+    prod_in = local_map(lambda b, w: torch.einsum("becd,edf->becf", b, w),
+                        out_placements=h_in, in_placements=(buf, w_in),
+                        device_mesh=mesh, redistribute_inputs=True)
+    prod_out = local_map(lambda t, w: torch.einsum("becf,efd->becd", t, w),
+                         out_placements=out, in_placements=(h, w_out),
+                         device_mesh=mesh, redistribute_inputs=True)
+
+    def experts(b, w_gate, w_up, w_down, act_name):
+        g = activation(act_name)(reduced(prod_in(b, w_gate)))
+        return prod_out(g * reduced(prod_in(b, w_up)), w_down)
+    return experts
 
 
 def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
@@ -117,16 +137,34 @@ def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
     return max(int(S * k / E * capacity_factor), 1)
 
 
-def route(x, router_w, *, E: int, k: int, capacity_factor: float):
+def route(x, router_w, *, E: int, k: int, capacity_factor: float,
+          policy=None):
     """The router of ``x`` (B, S, d): fp32 logits (B, S, E); each token's
     k experts in ``jax.lax.top_k``'s order (top-k of the logits, then a
     softmax of the k; for k = 1 the softmax first, then the top one); each
     choice's position in its expert's slots, counted over the row's
     ``S * k`` choices in order; and whether it is kept (position < C).
     Returns (logits, gate values (B, S, k), experts (B, S, k), positions
-    (B, S*k), keep (B, S*k), C)."""
+    (B, S*k), keep (B, S*k), C). ``policy``: the logits' product reads x
+    with its features on "model", as the reference's activations come (its
+    sums then reduced, and x's gradient sharded as x), under ``local_map``
+    (a no-op on plain tensors)."""
     B, S, _ = x.shape
-    logits = torch.einsum("bsd,de->bse", x.float(), router_w.float())
+
+    def product(t, w):
+        return torch.einsum("bsd,de->bse", t.float(), w.float())
+    from torch.distributed.tensor import DTensor, Partial
+    if policy is not None and isinstance(x, DTensor):
+        from torch.distributed.tensor.experimental import local_map
+        mesh, x_pl = policy.named(tuple(x.shape), ("pod", "data"), None,
+                                  "model")
+        w_pl = policy.named(tuple(router_w.shape), "model", None)[1]
+        out_pl = [Partial() if n == "model" else pl
+                  for n, pl in zip(mesh.mesh_dim_names, x_pl)]
+        product = local_map(product, out_placements=out_pl,
+                            in_placements=(x_pl, w_pl), device_mesh=mesh,
+                            redistribute_inputs=True)
+    logits = reduced(product(x, router_w))
     if k == 1:
         gate_vals, expert_idx = top_k(torch.softmax(logits, dim=-1), 1)
     else:
@@ -161,7 +199,8 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
     E = w_gate.shape[0]
     k = num_experts_per_tok
     logits, gate_vals, expert_idx, pos, keep, C = route(
-        x, router_w, E=E, k=k, capacity_factor=capacity_factor)
+        x, router_w, E=E, k=k, capacity_factor=capacity_factor,
+        policy=policy)
 
     # ---- dispatch: each kept choice to its own slot of (B, E, C, d)
     flat_e = expert_idx.reshape(B, S * k)
@@ -176,17 +215,13 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
     # ---- expert compute over all E experts
     experts = _experts
     if policy is not None:
-        experts = _experts_local(policy, ba, E)
+        experts = _experts_local(policy, ba, E, w_gate)
     out_buf = experts(buf, w_gate, w_up, w_down, act_name)   # (B, E, C, d)
 
     # ---- combine: a dropped choice reads slot (0, 0) and is masked to 0
     gathered = combine(out_buf, flat_e, pos, keep)
     weighted = gathered * gate_vals.reshape(B, S * k, 1).to(gathered.dtype)
     y = weighted.reshape(B, S, k, d).sum(dim=2)
-
-    if shared is not None:                 # llama4's always-on shared expert
-        sw_gate, sw_up, sw_down = shared
-        y = y + glu_ffn(x, sw_gate, sw_up, sw_down, act_name)
 
     # ---- router aux (Switch-style load-balance terms)
     probs = torch.softmax(logits, dim=-1)
@@ -196,4 +231,11 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, *, num_experts_per_tok: int,
     lb_loss = E * torch.sum(frac_tokens * frac_probs)
     aux = {"lb_loss": lb_loss,
            "dropped_frac": 1.0 - keep.float().mean()}
+
+    # llama4's always-on shared expert, last: a layer's recompute in the
+    # backward pass stops before its closing product, whose output the
+    # backward never reads (as the reference's remat leaves it out)
+    if shared is not None:
+        sw_gate, sw_up, sw_down = shared
+        y = y + glu_ffn(x, sw_gate, sw_up, sw_down, act_name)
     return y, aux

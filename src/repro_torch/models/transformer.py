@@ -56,7 +56,10 @@ from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
 from repro_torch.models import hybrid, moe, ssm
 from repro_torch.models.common import (apply_norm, chunked_attention,
-                                       constrain, each_row, glu_ffn, rope)
+                                       constrain, each_row, glu_down,
+                                       glu_ffn, glu_hidden, head_slots,
+                                       head_split, placed_product, rope,
+                                       sharded_on)
 from repro_torch.sharding import P
 
 # ---------------------------------------------------------------------------
@@ -570,41 +573,55 @@ def _write_shards(buf, at, new, policy):
                                                           dt(at))
 
 
-def _sharded_attention(fn, q, k, v, positions, policy, heads):
+def _sharded_attention(fn, q, k, v, positions, policy):
     """``fn(q, k, v, positions)``, an attention without a cache; with a
     policy and DTensor inputs, under ``local_map`` on each device's batch
-    rows and, where ``heads`` is "model", its query heads and the kv heads
-    they read (the grouped-query split keeps a shard's query heads on its
-    own kv heads when the kv heads divide the axis). DTensor cannot follow
-    the attention's products itself: their batch and head dims, both
-    sharded, are flattened into one. The output is placed as q."""
+    rows and the heads GSPMD gives it (:func:`head_split`): the query heads
+    and the kv heads they read are laid out in ``model`` slots (a block
+    that several devices hold is repeated), one slot a device, and the
+    output is read back from the first of each block's slots, replicated
+    over "model". DTensor cannot follow the attention's products itself:
+    their batch and head dims, both sharded, are flattened into one."""
     if policy is None:
         return fn(q, k, v, positions)
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(q, DTensor):
         return fn(q, k, v, positions)
     from torch.distributed.tensor.experimental import local_map
+    B, S, hq, D = q.shape
+    hkv = k.shape[2]
+    a, b, r = head_split(hq, hkv, policy.axes.model)
     batch = ("pod", "data")
-    mesh, q_pl = policy.named(tuple(q.shape), batch, None, heads, None)
-    kv_pl = policy.named(tuple(k.shape), batch, None, heads, None)[1]
+    whole = (batch, None, None, None)
+    qs = head_slots(constrain(q, policy, *whole), hkv, a, b, r)
+    ks = head_slots(constrain(k, policy, *whole), hkv, a, 1, b * r)
+    vs = head_slots(constrain(v, policy, *whole), hkv, a, 1, b * r)
+    mesh, q_pl = policy.named(tuple(qs.shape), batch, None, "model")
+    kv_pl = policy.named(tuple(ks.shape), batch, None, "model")[1]
     pos_pl = policy.named(tuple(positions.shape), batch, None)[1]
     if not isinstance(positions, DTensor):
         positions = DTensor.from_local(positions, mesh,
                                        [Replicate()] * mesh.ndim,
                                        run_check=False)
-    return local_map(fn, out_placements=q_pl,
-                     in_placements=(q_pl, kv_pl, kv_pl, pos_pl),
-                     device_mesh=mesh, redistribute_inputs=True)(
-                         q, k, v, positions)
+
+    def slot(q, k, v, pos):
+        return fn(q[:, :, 0], k[:, :, 0], v[:, :, 0], pos).unsqueeze(2)
+    out = local_map(slot, out_placements=q_pl,
+                    in_placements=(q_pl, kv_pl, kv_pl, pos_pl),
+                    device_mesh=mesh, redistribute_inputs=True)(
+                        qs, ks, vs, positions)
+    out = constrain(out, policy, batch, None, None, None, None)
+    out = out.reshape(B, S, a, b, r, hkv // a, hq // hkv // b, D)
+    return out[:, :, :, :, 0].transpose(3, 4).reshape(B, S, hq, D)
 
 
 def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
-                      slots, softcap: float, policy=None, heads=None):
+                      slots, softcap: float, policy=None):
     """The attention of a serving mode, which writes this call's K/V (or,
     with an int8 cache, their :func:`_kv_quantize` bytes and scales) into
     the cache views ``kv`` in place; ``attn_layer`` says what each mode
     attends over. A prompt attends through :func:`_sharded_attention`
-    (``policy``, ``heads``)."""
+    (``policy``)."""
     B, S = q.shape[:2]
     sbuf = kv["k"].shape[1]
     if "k_s" in kv:
@@ -628,7 +645,7 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
         return _sharded_attention(
             lambda q, k, v, pos: ops.prefill_attention(
                 q, k, v, pos, window=window, softcap=softcap),
-            q, k, v, positions, policy, heads)
+            q, k, v, positions, policy)
     # decode or prefill_resume: the reference writes by a one-hot select or
     # a dynamic_update_slice into a new buffer; the port overwrites the
     # rows' slots of the cache in place
@@ -654,7 +671,8 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
 
 
 def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
-               slots=None, m2: bool = True, window: int = 0, policy=None):
+               slots=None, m2: bool = True, window: int = 0, policy=None,
+               remat: bool = False):
     """x: (B, S, d). kv: this layer's {'k', 'v'} cache views (and
     {'k_s', 'v_s'} with an int8 cache), updated in place (None in "train").
     pos0: (B,) int64 start positions on x's device (all 0 for "prefill"
@@ -679,59 +697,37 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     ``policy`` (a ``sharding.ShardingPolicy``) constrains K/V (and a
     decode step's q and buffer) where the reference does
     (transformer.py:493-494, 513-531), a no-op on plain tensors.
+    ``remat`` (train, a parallel block with the dense GLU only): the layer
+    checkpoints itself (``forward``'s ``remat``).
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
     load-balance loss: 0.0 for another FFN, a (B,) tensor with
     ``rows``)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    batch = ("pod", "data")
 
     def dense(fn, t):
         """The products and norms of separate requests: one row at a time."""
         return each_row(fn, t) if rows else fn(t)
 
-    def norm_qkv(t):
-        h = _norm(cfg, t, p["norm1"], policy)
-        qkv = h @ p["wqkv"]
-        if cfg.qkv_bias:
-            qkv = qkv + p["bqkv"].to(qkv.dtype)
-        return h, qkv
-    h, qkv = dense(norm_qkv, x)
-    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
-    q = q.reshape(B, S, hq, hd)
-    k = k.reshape(B, S, hkv, hd)
-    v = v.reshape(B, S, hkv, hd)
+    def attend(t):
+        return _attention(cfg, p, t, kv, pos0, mode=mode, rows=rows,
+                       slots=slots, window=window, policy=policy)
+    if remat and cfg.parallel_block:
+        # the backward pass recomputes the layer up to its two closing
+        # products, whose outputs it never reads, as the reference's remat
+        # leaves them out (a recompute stops at the last tensor it saves)
+        f = p["ffn"]
 
-    positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-
-    cap, w_eff = cfg.logit_softcap, cfg.window_size or window
-    batch = ("pod", "data")
-    # a decode step's q is replicated over "model" (transformer.py:
-    # 522-524); elsewhere its heads stay on "model" where the kv heads
-    # divide the axis, so that the grouped-query split keeps them there
-    heads = None if policy is None or mode == "decode" or \
-        hkv % policy.axes.model else "model"
-    q = constrain(q, policy, batch, None, heads, None)
-    # replicate K/V over "model" before attention: their kv-head dim rarely
-    # divides the axis (where it does, each shard of a prompt's attention
-    # takes its own kv heads from them: _sharded_attention)
-    k = constrain(k, policy, batch, None, None, None)
-    v = constrain(v, policy, batch, None, None, None)
-    if mode == "train":
-        attn_out = _sharded_attention(
-            lambda q, k, v, pos: chunked_attention(
-                q, k, v, pos, pos, window=w_eff, softcap=cap),
-            q, k, v, positions, policy, heads)
-    else:
-        attn_out = _cached_attention(q, k, v, kv, positions, mode=mode,
-                                     window=w_eff, slots=slots, softcap=cap,
-                                     policy=policy, heads=heads)
-
-    # and the output in q's placement, which the backward pass's gradient
-    # then takes before the split
-    attn_out = constrain(attn_out, policy, batch, None, heads, None)
-    attn_out = dense(lambda t: t @ p["wo"], attn_out.reshape(B, S, hq * hd))
+        def body(t):
+            h, a = attend(t)
+            return a, glu_hidden(_tp_input(h, policy), f["wg"], f["wu"],
+                                 cfg.ffn_act)
+        a, hidden = checkpoint(body, x, use_reentrant=False)
+        y = x + a @ p["wo"] + glu_down(hidden, f["wd"])
+        return y, torch.zeros((0,), dtype=torch.int32, device=x.device), 0.0
+    h, attn_out = attend(x)
+    attn_out = dense(lambda t: t @ p["wo"], attn_out)
 
     def ffn(t):
         return _ffn_apply(cfg, p["ffn"], t, m2=m2, rows=rows, policy=policy)
@@ -744,6 +740,57 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
             lambda t: _norm(cfg, t, p["norm2"], policy), x))
         y = x + ffn_out
     return y, idx, lb
+
+
+def _attention(cfg, p, x, kv, pos0, *, mode, rows, slots, window, policy):
+    """:func:`attn_layer`'s attention half: (the normed input, the
+    attention's output (B, S, hq * hd) before ``wo``)."""
+    B, S, d = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    batch = ("pod", "data")
+
+    def dense(fn, t):
+        """The products and norms of separate requests: one row at a time."""
+        return each_row(fn, t) if rows else fn(t)
+
+    def norm_qkv(t):
+        h = _norm(cfg, t, p["norm1"], policy)
+        qkv = h @ p["wqkv"]
+        if cfg.qkv_bias:
+            qkv = qkv + p["bqkv"].to(qkv.dtype)
+        # column-parallel, as its gradient must come back for the weight's
+        return h, constrain(qkv, policy, batch, None, "model")
+    h, qkv = dense(norm_qkv, x)
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    q = q.reshape(B, S, hq, hd)
+    k = k.reshape(B, S, hkv, hd)
+    v = v.reshape(B, S, hkv, hd)
+
+    positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    cap, w_eff = cfg.logit_softcap, cfg.window_size or window
+    # q, K and V replicated over "model" (a decode step's q as the
+    # reference's, transformer.py:522-524; K/V before a prompt's attention,
+    # :486-494): a prompt's attention then takes its heads from them
+    # (_sharded_attention)
+    q = constrain(q, policy, batch, None, None, None)
+    k = constrain(k, policy, batch, None, None, None)
+    v = constrain(v, policy, batch, None, None, None)
+    if mode == "train":
+        attn_out = _sharded_attention(
+            lambda q, k, v, pos: chunked_attention(
+                q, k, v, pos, pos, window=w_eff, softcap=cap),
+            q, k, v, positions, policy)
+    else:
+        attn_out = _cached_attention(q, k, v, kv, positions, mode=mode,
+                                     window=w_eff, slots=slots, softcap=cap,
+                                     policy=policy)
+
+    # the output's heads on "model", as the row-parallel wo reads them
+    attn_out = constrain(attn_out, policy, batch, None, "model", None)
+    return h, attn_out.reshape(B, S, hq * hd)
 
 
 def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool, policy=None):
@@ -815,7 +862,7 @@ def ssm_layer(cfg, p, x, state, *, mode: str, rows: bool = False,
     ``rows``, 0.0)."""
     def block(t, st):
         h = _norm(cfg, t, p["norm1"], policy)
-        y, new = ssm.ssm_block(cfg, p, h, st, mode=mode)
+        y, new = ssm.ssm_block(cfg, p, h, st, mode=mode, policy=policy)
         for k in st or {}:
             st[k].copy_(new[k])
         return y
@@ -862,6 +909,12 @@ def unembed(cfg, params, x):
     if cfg.family == "audio":                   # bsd,kdv->bksv
         return x[:, None] @ params["unembed"][None]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if sharded_on(table, "model", 0) or sharded_on(table, "model", 1):
+        # on a mesh, placed as GSPMD places it (the vocab on "model", or
+        # the features where the axis does not divide the vocab); a tied
+        # table's two gradients (this and the lookup's) then share their
+        # placements, where DTensor's own choice can leave two it cannot add
+        return placed_product(x, table.T)
     return x @ table.T
 
 
@@ -880,9 +933,10 @@ def forward(cfg, params, tokens, *, prefix=None, cache=None,
     fill the cache's first N slots of the run and get no logits
     (transformer.py: 711-714, 775-776). mode: train | prefill |
     prefill_resume | decode. "train" takes no cache and runs under the
-    caller's autograd mode (``remat``: each layer recomputed in the
-    backward pass, ``torch.utils.checkpoint``, as the reference's
-    ``jax.checkpoint`` of each pattern repeat, transformer.py:739-740);
+    caller's autograd mode (``remat``: each pattern repeat recomputed in
+    the backward pass, ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of each, transformer.py:739-740; no remainder
+    layer);
     the serving modes take a cache and run under ``no_grad``. decode and
     prefill_resume start each row at its ``cache["pos"]`` (prefill_resume
     raises on a sliding window or a recurrent layer, as the reference
@@ -978,20 +1032,47 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
             return rglru_layer(cfg, p, x, c, rows=rows, m2=m2, policy=policy)
         return ssm_layer(cfg, p, x, c, mode=mode, rows=rows, policy=policy)
 
-    idxs, lb_acc, n = [], 0.0, len(pat)
-    for l, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
-        if remat:
-            x, idx, lb = checkpoint(layer, l, kind, p, x, use_reentrant=False)
+    n = len(pat)
+
+    def repeat(first, x):
+        """The pattern repeat from layer ``first``, its layers inline (the
+        reference's ``super_block``): (x, [(active ids, lb loss)] a
+        layer)."""
+        outs = []
+        for l in range(first, first + n):
+            x, idx, lb = layer(l, cfg.layer_kinds[l], params["layers"][l], x)
+            outs.append((idx, lb))
+        return constrain(x, policy, *act), outs
+
+    # ``remat`` recomputes a pattern repeat as a whole, and no remainder
+    # layer (as the reference's jax.checkpoint of its super_block)
+    idxs, lb_acc = [], 0.0
+    for first in range(0, F * n, n):
+        p = params["layers"][first]
+        if remat and pat == ("attn",) and cfg.parallel_block \
+                and "wd" in p["ffn"] and not (m2 and "banks" in p["ffn"]):
+            x, idx, lb = attn_layer(cfg, p, x, None, pos0, mode=mode,
+                                    m2=m2, window=window, policy=policy,
+                                    remat=True)
+            x, outs = constrain(x, policy, *act), [(idx, lb)]
+        elif remat:
+            x, outs = checkpoint(repeat, first, x, use_reentrant=False)
         else:
-            x, idx, lb = layer(l, kind, p, x)
-        if l < F * n and l % n == n - 1:        # a pattern repeat's end
-            x = constrain(x, policy, *act)
+            x, outs = repeat(first, x)
+        for idx, lb in outs:
+            idxs.append(idx)
+            lb_acc = lb_acc + lb
+    for l in range(F * n, len(cfg.layer_kinds)):
+        x, idx, lb = layer(l, cfg.layer_kinds[l], params["layers"][l], x)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 
     def head(t):
         t = _norm(cfg, t, params["final_norm"], policy)
-        return unembed(cfg, params, t[:, n_prefix:])
+        logits = unembed(cfg, params, t[:, n_prefix:])
+        # vocab-parallel, as its gradient must come back for the table's
+        return constrain(logits, policy, act[0],
+                         *[None] * (logits.dim() - 2), "model")
     logits = each_row(head, x) if rows else head(x)
     if cache is not None:
         cache["pos"] = cache["pos"] + (1 if mode == "decode" else S)

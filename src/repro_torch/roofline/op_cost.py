@@ -9,7 +9,9 @@ under ``FakeTensorMode``, so nothing is allocated or computed:
 
   * flops        — the products' (mm, bmm, addmm, baddbmm, convolutions,
                    SDPA) FLOPs on the local shards, by ``torch.utils.
-                   flop_counter``'s formulas on local shapes
+                   flop_counter``'s formulas on local shapes, and the
+                   contractions of ``CONTRACTIONS``, which the port sums
+                   elementwise where the reference's einsum is a dot
   * bytes        — each op's input and output bytes; views and metadata ops
                    0; reads of a region (indexing, gather, index_select,
                    embedding) 2 x the result and writes of one (index_put_,
@@ -46,6 +48,13 @@ aten = torch.ops.aten
 #: ``kernels.ops`` functions that run as hand-written kernels on the card
 KERNEL_CALLS = ("decode_attention", "prefill_attention", "chunk_attention",
                 "mp_ffn")
+
+#: (module, name) of functions that compute a contraction by elementwise
+#: products summed in a fixed order (a row's bits then do not depend on the
+#: rows beside it), where the reference's einsum is a ``dot``: the causal
+#: depthwise conv, ``bswc,wc->bsc`` over its W taps
+CONTRACTIONS = (("repro_torch.models.hybrid", "causal_conv1d"),
+                ("repro_torch.models.ssm", "causal_conv1d"))
 
 _COLLECTIVES = {"all_reduce": "all-reduce",
                 "all_reduce_coalesced": "all-reduce",
@@ -234,6 +243,43 @@ class CostMode(TorchDispatchMode):
             for n, fn in saved.items():
                 setattr(module, n, fn)
 
+    @contextlib.contextmanager
+    def contraction_calls(self, sites=CONTRACTIONS):
+        """While open, each call of a function of ``sites`` (a causal
+        conv: x (B, S, C), taps w (W, C)) counts the FLOPs of the
+        contraction its elementwise ops compute, 2 x the output's local
+        elements x W, and as much again when the backward pass reaches its
+        output and the taps take a gradient (their product with the
+        windows, a contraction over (B, S); x's gradient is elementwise)."""
+        import importlib
+        saved = [(importlib.import_module(m), n) for m, n in sites]
+        fns = [getattr(mod, n) for mod, n in saved]
+
+        def wrap(fn):
+            def call(x, w, *a, **kw):
+                out = fn(x, w, *a, **kw)
+                y = out[0]
+                n = 2 * _local(y).numel() * w.shape[0]
+                key = fn.__name__ + str([tuple(_local(t).shape)
+                                         for t in (x, w)])
+                self._add_flops(key, n)
+                if w.requires_grad and torch.is_grad_enabled():
+                    y.register_hook(
+                        lambda g: self._add_flops(key + ".grad", n))
+                return out
+            return call
+        for (mod, n), fn in zip(saved, fns):
+            setattr(mod, n, wrap(fn))
+        try:
+            yield self
+        finally:
+            for (mod, n), fn in zip(saved, fns):
+                setattr(mod, n, fn)
+
+    def _add_flops(self, key: str, n: int):
+        self.flops += n
+        self.flops_by_op[key] = self.flops_by_op.get(key, 0) + n
+
     def _add_bytes(self, name: str, n: int):
         self.bytes += n
         self.bytes_by_op[name] = self.bytes_by_op.get(name, 0) + n
@@ -262,10 +308,9 @@ class CostMode(TorchDispatchMode):
         self.ops += 1
         packet = func._overloadpacket
         if packet in self.flop_registry:
-            n = self.flop_registry[packet](*args, **kwargs, out_val=out)
-            self.flops += n
-            key = f"{packet.__name__}{[tuple(t.shape) for t in ins]}"
-            self.flops_by_op[key] = self.flops_by_op.get(key, 0) + n
+            self._add_flops(
+                f"{packet.__name__}{[tuple(t.shape) for t in ins]}",
+                self.flop_registry[packet](*args, **kwargs, out_val=out))
         ns = func.namespace
         if ns == "_c10d_functional" and packet.__name__ in _COLLECTIVES:
             d = self.collectives.setdefault(_COLLECTIVES[packet.__name__],
@@ -407,13 +452,14 @@ def analyze(fn, *args, fake: bool = True) -> Dict:
     ``fake``: under ``FakeTensorMode`` (the caller makes ``args`` inside
     :func:`fake_mode`), counting only ops on fake tensors: an op on real
     ones is host work (a constant, DTensor's bookkeeping, done once a
-    process). ``KERNEL_CALLS`` count at their boundary; ``aten.flip``
-    propagates by :func:`flip_rule`."""
+    process). ``KERNEL_CALLS`` count at their boundary, ``CONTRACTIONS``
+    their FLOPs; ``aten.flip`` propagates by :func:`flip_rule`."""
     from repro_torch.kernels import ops
     mode = fake_mode() if fake else contextlib.nullcontext()
     with mode:
         cost = CostMode(args, fake_only=fake)
-        with cost.kernel_calls(ops), _offsets_outside_the_trace(), \
+        with cost.kernel_calls(ops), cost.contraction_calls(), \
+                _offsets_outside_the_trace(), \
                 _constants_outside_the_trace(), flip_rule(), cost:
             out = fn(*args)
     _check_propagation(cost)

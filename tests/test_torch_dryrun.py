@@ -22,7 +22,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import INPUT_SHAPES, InputShape, get_config
+from repro_torch.configs.base import INPUT_SHAPES, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
 from repro_torch.launch import steps as S
@@ -33,10 +33,7 @@ from repro_torch.roofline import op_cost
 from repro_torch.sharding import ShardingPolicy
 
 #: INPUT_SHAPES cut for the tiny configs (batches divisible by data = 2)
-SMALL = {"train_4k": InputShape("train_4k", 32, 4, "train"),
-         "prefill_32k": InputShape("prefill_32k", 64, 4, "prefill"),
-         "decode_32k": InputShape("decode_32k", 64, 4, "decode"),
-         "long_500k": InputShape("long_500k", 96, 1, "decode")}
+SMALL = D.TINY_SHAPES
 
 
 @pytest.fixture

@@ -9,10 +9,10 @@ _sharded_attention``), on a fake 2 x 4 mesh of placeholder ranks:
   tables are as they were after it;
 - ``rglru_block`` makes the conv's output replicated over "model";
 - a prompt's attention runs under ``local_map`` on each device's rows and
-  heads: musicgen-large's per-device FLOPs are the parent's less the
-  attention products that every "model" rank ran whole, and its prompt's
+  heads: musicgen-large's prompt's and train step's per-device FLOPs
   equal the reference's own count (``repro/roofline/hlo_cost.py``) of the
-  same step on a 2 x 4 mesh of placeholder devices.
+  same step on a 2 x 4 mesh of placeholder devices (every config's:
+  ``test_torch_dryrun_parity_*.py``).
 
 The plain paths are held to the reference by the parity tests
 (``test_torch_hybrid.py``, ``test_torch_audio.py`` and the rest)."""
@@ -25,7 +25,6 @@ import textwrap
 import pytest
 import torch
 
-from repro_torch.configs.base import get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.models import hybrid
 from repro_torch.roofline import op_cost
@@ -122,46 +121,38 @@ def test_rglru_block_replicates_the_conv_output(small_shapes, mesh_2x4,
         assert kind is DTensor and placements[model] == Replicate()
 
 
-#: musicgen-large tiny's flops_per_device on the 2 x 4 mesh before the
-#: prompt's attention ran under ``local_map`` (SMALL shapes): DTensor then
-#: gathered the query heads before the attention's products, so that every
-#: "model" rank ran all 4 heads of its batch rows
-PARENT_FLOPS = {"prefill_32k": 36_700_160.0, "train_4k": 76_546_048.0}
-#: the attention's batched products a trace runs: 2 layers x (2 forward;
-#: in train also the forward again under remat and the backward's 4)
-ATTENTION_BMMS = {"prefill_32k": 2 * 2, "train_4k": 2 * 8}
-#: the attention's entries a trace makes: a layer's forward, in train
-#: again under remat
+#: the attention's entries a trace makes (``local_map`` calls of four
+#: inputs; the products' calls take two): a layer's forward, in train again
+#: under remat
 ATTENTION_CALLS = {"prefill_32k": 2, "train_4k": 2 * 2}
 
 
 @pytest.mark.parametrize("shape", ("prefill_32k", "train_4k"))
 def test_musicgen_attention_under_local_map(shape, small_shapes, mesh_2x4,
                                             monkeypatch):
+    """The attention's inputs reach ``local_map`` with the batch on "data"
+    and the head slots on "model" (musicgen-large tiny: 4 query heads over
+    4 kv heads, one a device), and the step's count equals the
+    reference's."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor import experimental
     placements = []
     orig = experimental.local_map
 
     def spy(fn, *a, **kw):
-        placements.append(kw["in_placements"])
+        if len(kw["in_placements"]) == 4:   # q, k, v, positions
+            placements.append(kw["in_placements"])
         return orig(fn, *a, **kw)
     monkeypatch.setattr(experimental, "local_map", spy)
     rec = D.run_one("musicgen-large", shape, mesh=mesh_2x4, tiny=True,
                     verbose=False)
     assert rec["status"] == "ok"
-    cfg = get_config("musicgen-large", tiny=True)
     assert len(placements) == ATTENTION_CALLS[shape]
     heads = (Shard(0), Shard(2))        # batch on "data", heads on "model"
     for q, k, v, pos in placements:
         assert tuple(q) == tuple(k) == tuple(v) == heads
         assert tuple(pos) == (Shard(0), Replicate())
-    shp = SMALL[shape]
-    data, model = mesh_2x4.shape
-    whole = (2 * (shp.global_batch // data) * cfg.num_heads * shp.seq_len
-             * shp.seq_len * cfg.head_dim)
-    redundant = ATTENTION_BMMS[shape] * whole * (model - 1) // model
-    assert rec["roofline"]["flops_per_device"] == PARENT_FLOPS[shape] - redundant
+    assert rec["roofline"]["flops_per_device"] == _reference_flops(shape)
 
 
 #: the reference's per-device FLOPs of a tiny step at SMALL's shape on a
@@ -188,8 +179,10 @@ _REFERENCE = textwrap.dedent("""
 """)
 
 
-def test_musicgen_prompt_flops_equal_the_references(small_shapes, mesh_2x4):
-    shp = SMALL["prefill_32k"]
+def _reference_flops(shape_name):
+    """The reference's count of musicgen-large tiny's step at SMALL's
+    ``shape_name`` on a 2 x 4 mesh."""
+    shp = SMALL[shape_name]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
                JAX_PLATFORMS="cpu")
@@ -198,8 +191,12 @@ def test_musicgen_prompt_flops_equal_the_references(small_shapes, mesh_2x4):
          str(shp.seq_len), str(shp.global_batch), shp.kind],
         capture_output=True, text=True, env=env, timeout=300, cwd=root)
     assert out.returncode == 0, out.stderr[-3000:]
-    want = json.loads(out.stdout.strip().splitlines()[-1])
-    rec = D.run_one("musicgen-large", shp.name, mesh=mesh_2x4, tiny=True,
-                    verbose=False)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_musicgen_prompt_flops_equal_the_references(small_shapes, mesh_2x4):
+    rec = D.run_one("musicgen-large", "prefill_32k", mesh=mesh_2x4,
+                    tiny=True, verbose=False)
     assert rec["status"] == "ok"
-    assert rec["roofline"]["flops_per_device"] == want
+    assert rec["roofline"]["flops_per_device"] == _reference_flops(
+        "prefill_32k")
