@@ -6,6 +6,7 @@ NVIDIA GPU.
   python3 chip_smoke.py --only offline_tiny,ratio_search_full,train_full
                                    # the device phase and the named ones
   python3 chip_smoke.py --only mesh_full
+  python3 chip_smoke.py --only mesh_bf16_full
 
 Phases, each printing one JSON line:
   1. device   — the card's name and power limit, torch/CUDA versions, and
@@ -54,7 +55,7 @@ Phases, each printing one JSON line:
                 int8 and int4, numbers of random weights with no gate;
  10. dense_archs — qwen2.5-32b, command-r-35b, mistral-large-123b and
                 internvl2-1b in turn (DENSE_ARCHS: depth cut to 2, 2, 2
-                and 6 layers): tiny through launch/serve and launch/server
+                and 3 layers): tiny through launch/serve and launch/server
                 on cuda against cpu (as phases 3 and 5); at full width
                 full's serve traffic and server_full's server traffic (prefix
                 cache cold, warm, off, and batched decode off: tokens
@@ -101,7 +102,7 @@ Phases, each printing one JSON line:
  14. audio_arch — musicgen-large (K = 4 codebooks, 64 conditioning
                 frames, LayerNorm, GELU, G = 1) through forward, as the
                 reference's tests drive it (neither package serves it):
-                tiny on cuda against cpu; at full width and 24 of its 48
+                tiny on cuda against cpu; at full width and 12 of its 48
                 layers (AUDIO_ARCH; every predictor A drawn) a prefill of
                 4 x 128 codebook steps after the frames and 16 greedy
                 decode steps, each
@@ -178,6 +179,27 @@ Phases, each printing one JSON line:
                 held against the plain version, the record's arguments
                 equal to the real bytes, and a step's median device time
                 at least MESH_BOUND_SHARE of the record's roofline bound.
+ 22. mesh_bf16_full — the same long_500k serve step at bf16, the
+                reference's default precision (the card emptied again):
+                build_case(variant="m2", dtype=bf16) at all 48 layers and
+                full width (about 45 GB: the bf16 fp tier, int8 and int4
+                banks), then the dense bf16 step (about 30 GB), each 16
+                steps over the seeded ring: the bf16 launches a step
+                (qmatmul 432 for m2, flash_decode 48), the first step's
+                kernel calls held against their plain versions and its
+                logits against the same step through the plain versions
+                on the card (MESH_BF16_TOL), the bf16 dry-run record's
+                arguments equal to the real bytes, a step's median device
+                time at least MESH_BOUND_SHARE of its roofline bound;
+ 23. bf16_tiny — the families of BF16_FAMILIES tiny at bf16 through
+                forward on cuda against cpu (same weights): every kernel
+                call held against its plain version, logits within the
+                family's BF16_TINY_TOL of the CPU's scale, greedy tokens
+                equal where the margin allows, only bf16 launches, each
+                kernel of the family launched;
+ 24. moe_bf16_full — llama4-maverick at full width, depth 48 -> 1 (about
+                36.6 GB of bf16), through forward with full's traffic:
+                device ms a step and its bf16 attention launches.
 Phases 4, 6-9, 16 and 20 share one set of full-width weights; each prints
 its seconds, and a ``timing`` line gives every phase's.
 The kernel phase (2) also holds the server path's kernels at its shapes
@@ -204,7 +226,14 @@ tokens within the 8192 window (against the plain chunked_attention, and
 float64 on its first and last 512 queries), flash_decode over the
 wrapped 8192-slot ring, one layer's FFN at M = 1 and 8704, and a decode
 step's attention over int8 K/V at 8 x 32768 slots against the bound of
-the int8 bytes (dequantize and flash_decode timed apart). qmatmul
+the int8 bytes (dequantize and flash_decode timed apart); and
+(``kernels_bf16``) each kernel's bf16 form at the bf16 paths' shapes: one
+layer's FFN at d = 5120 through kernel A (M = 1, and 4 rows of M = 1) and
+kernel B (M = 512, and 4 rows of a 16-token chunk), every call held;
+flash_decode over long_500k's wrapped 8192-slot ring and at the serve step;
+the whole prompt and the chunk form; beside each, its plain version, one
+library call at bf16 (torch.matmul on the gathered weights, SDPA) and the
+fp32 form of the same kernel, and its bound at bf16 bytes. qmatmul
 has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
@@ -406,21 +435,31 @@ def tf32_bound(nbytes: float, M: int, d: int, k16: int, k8: int,
                                "(fp tier 3, int tiers 2)"}
 
 
-def attention_row(run, plain, lib, nbytes: float, flops: float,
-                  plain_reps: int = 20) -> dict:
-    """Times of one attention kernel call beside its plain version and the
-    library call, device profiles of the kernel and the library, and both
-    bounds: fp32 outside the tensor cores, and the 3 TF32 products the
-    kernel issues per fp32 product at the TF32 peak."""
-    b_ms, b_by = bound(nbytes, flops)
-    from repro_torch.core.hw import H100_SXM
-    t_ms, t_by = bound(nbytes, 3 * flops, H100_SXM.flops_tf32)
-    return {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=plain_reps),
-            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by,
-            "bound_tf32_ms": t_ms, "bound_tf32_by": t_by,
-            "bound_tf32_note": "TF32 dense peak x 3 products (both operands "
-                               "split) per fp32 product",
-            "profile": device_profile(run), "library_profile": device_profile(lib)}
+def kernel_row(run, plain, lib, nbytes: float, flops: float, *,
+               peak: float = None, tf32_products: int = 3, fp32_form=None,
+               plain_reps: int = 20) -> dict:
+    """Times of one kernel call beside its plain version and the library
+    call (and the fp32 form of the same kernel on the same values, where
+    ``fp32_form`` is given), device profiles of the kernel and the library,
+    and two bounds: the operations at ``peak`` (fp32 outside the tensor
+    cores unless given; work on bf16 operands at the bf16 tensor peak), and
+    the ``tf32_products`` TF32 products the kernel issues per product at
+    the TF32 peak (3 where both operands are split, 1 where both are bf16
+    or integers, exact in TF32; None for a kernel on the CUDA cores)."""
+    b_ms, b_by = bound(nbytes, flops, peak)
+    row = {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=plain_reps),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    if tf32_products:
+        from repro_torch.core.hw import H100_SXM
+        t_ms, t_by = bound(nbytes, tf32_products * flops,
+                           H100_SXM.flops_tf32)
+        row.update(bound_tf32_ms=t_ms, bound_tf32_by=t_by,
+                   bound_tf32_note=f"TF32 dense peak x {tf32_products} "
+                                   f"TF32 products per product")
+    if fp32_form is not None:
+        row["fp32_form_ms"] = time_ms(fp32_form)
+    return {**row, "profile": device_profile(run),
+            "library_profile": device_profile(lib)}
 
 
 @contextlib.contextmanager
@@ -1076,7 +1115,7 @@ def phase_kernels(cfg, dev, B: int, P: int, gen_len: int) -> dict:
         "by_pair_device_ms": by_pair(lambda: flash_attention(q, kp, vp), got),
         "max_abs_err": err, "B": 1, "S": SL,
         "plan": whole_plan(SL, hq, hkv, D, build.sm_count(dev))._asdict(),
-        **attention_row(lambda: flash_attention(q, kp, vp),
+        **kernel_row(lambda: flash_attention(q, kp, vp),
                         lambda: ref.flash_attention_ref(q, kp, vp),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, is_causal=True, enable_gqa=True),
@@ -1134,7 +1173,7 @@ def whole_prompt_row(check, randn, dev, B: int, P: int, hq: int, hkv: int,
         "D": D, "max_score_checked": big,
         "plan": _plan(P, hq, hkv, D, build.sm_count(dev))._asdict(),
         "plain_max_abs_err_vs_f64_at_large_scores": plain_err64,
-        **attention_row(lambda: flash_attention(q, kp, vp),
+        **kernel_row(lambda: flash_attention(q, kp, vp),
                         lambda: ref.flash_attention_ref(q, kp, vp,
                                                         softcap=softcap),
                         lambda: F.scaled_dot_product_attention(
@@ -1244,7 +1283,7 @@ def chunk_rows(check, randn, dev, *, pos0, chunk, sbuf, hq, hkv, D,
         "max_abs_err": max(errs), "R": R, "S": chunk, "S_buf": sbuf,
         "pos0": pos0, "plan": plan._asdict(),
         "by_split": by_split, "split_extra_launches": 0,
-        **attention_row(lambda: chunk_attention(q, kb, vb, p0),
+        **kernel_row(lambda: chunk_attention(q, kb, vb, p0),
                         lambda: plain(q, kb, vb, p0),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask, enable_gqa=True),
@@ -2531,7 +2570,7 @@ def phase_divergence(cfg, params) -> dict:
 #: qwen2.5-14b, at full width with its depth cut to this many layers
 #: (so that the script ends within its time on a slow host)
 DENSE_ARCHS = {"qwen2.5-32b": 2, "command-r-35b": 2,
-               "mistral-large-123b": 2, "internvl2-1b": 6}
+               "mistral-large-123b": 2, "internvl2-1b": 3}
 
 
 def phase_dense_archs(B: int, P: int, gen_len: int) -> dict:
@@ -2937,7 +2976,7 @@ def phase_kernels_hybrid(dev, B: int, P: int, gen_len: int) -> dict:
         "window": W, "key_query_pairs": pairs,
         "plan": whole_plan(rp, hq, hkv, D, build.sm_count(dev))._asdict(),
         "library": "SDPA, the window as a boolean mask, enable_gqa",
-        **attention_row(lambda: flash_attention(q, kp, vp, window=W),
+        **kernel_row(lambda: flash_attention(q, kp, vp, window=W),
                         lambda: ref.flash_attention_ref(q, kp, vp, window=W),
                         lambda: F.scaled_dot_product_attention(
                             qt, kt, vt, attn_mask=mask, enable_gqa=True),
@@ -3136,20 +3175,20 @@ def phase_hybrid_arch(B: int, P: int, gen_len: int) -> dict:
 # Phase 2, continued, and phases 13 and 14: the SSM and audio families
 
 
-#: ssm_arch: mamba2-370m at full width, 12 of its 48 layers (so that the
+#: ssm_arch: mamba2-370m at full width, 6 of its 48 layers (so that the
 #: script ends within its time on a slow host)
-SSM_ARCH = ("mamba2-370m", 12)
+SSM_ARCH = ("mamba2-370m", 6)
 #: the long run: 2 prompts of 2048 tokens (8 SSD chunks of 256: the state
 #: crosses 7 chunk boundaries), 16 new tokens; its decode logits at
 #: SSM_CHECK_STEPS held to a whole-prompt prefill's within RING_TOL
 SSM_LONG = dict(B=2, P=2048, gen_len=16)
 SSM_CHECK_STEPS = (1, 8, 16)
-#: audio_arch: musicgen-large at full width and 24 of its 48 layers (so
+#: audio_arch: musicgen-large at full width and 12 of its 48 layers (so
 #: that the script ends within its time on a slow host), through
 #: forward: B rows of P codebook steps after the config's 64 conditioning
 #: frames, gen_len greedy decode steps; decode logits at AUDIO_CHECK_STEPS
 #: held to a whole-prompt prefill's within RING_TOL
-AUDIO_ARCH = ("musicgen-large", 24)
+AUDIO_ARCH = ("musicgen-large", 12)
 AUDIO_RUN = dict(B=4, P=128, gen_len=16)
 AUDIO_CHECK_STEPS = (1, 16)
 
@@ -3588,22 +3627,34 @@ def counted_search(cfg, params, prompts, **kw):
 
 @contextlib.contextmanager
 def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
-    """Inside the block every call of ``ops.mp_ffn``, ``flash_attention``
-    and ``flash_decode`` returns its kernels' result after holding it
-    against the plain version on the same inputs, within tol_rel x max(1,
-    max|plain|); a whole prompt longer than 2 x SLICE tokens on its first
-    and last SLICE queries against float64 (``attention_f64``: the plain
-    version would build Hq x S^2 fp32 scores, 12 GB at 8704 tokens).
-    ``held`` gathers, by kernel and then by shape (and tier
-    split), the calls held, the largest error and the largest error over
-    its tolerance. The plain versions launch no kernel: the counts stay
-    the path's own."""
+    """Inside the block every kernel call that ``kernels.ops`` makes returns
+    its kernel's result after holding it against the plain version on the
+    same inputs, within tol_rel x max(1, max|plain|): each ``qmatmul``
+    product (of ``ops.mp_ffn``: gate, up and down a tier), ``flash_decode``
+    and both attention forms (``flash_attention``, ``chunk_kernel``), the
+    attention forms against the plain version's fp32 result; a whole prompt
+    longer than 2 x SLICE tokens on its first and last SLICE queries
+    against float64 (``attention_f64``: the plain version would build Hq x
+    S^2 fp32 scores, 12 GB at 8704 tokens). An output in bf16 is rounded
+    once from the kernel's fp32 sums, so it may differ by half a bf16 unit
+    of the result more (at most 2^-8 of it: bf16 keeps 8 significant
+    bits). ``held`` gathers, by kernel and then by shape (an FFN's products
+    by its M and tier split), the calls held, the largest error and the
+    largest error over its tolerance. The plain versions launch no kernel:
+    the counts stay the path's own."""
     import torch
     from repro_torch.kernels import ops, qmatmul, ref
-    saved = ops.mp_ffn, ops.flash_attention, ops.flash_decode
+    names = ("mp_ffn", "qmatmul_gathered", "flash_attention", "chunk_kernel",
+             "flash_decode")
+    saved = {n: getattr(ops, n) for n in names}
+    split = []
 
     def hold(kernel, key, got, want):
-        err = max_err(got, want)
+        want = want.float()
+        diff = (got.float() - want).abs()
+        if got.dtype == torch.bfloat16:
+            diff = diff - want.abs() * 2.0 ** -8
+        err = max(float(diff.max()), 0.0)
         tol = tol_rel * max(1.0, float(want.abs().max()))
         require(bool(torch.isfinite(got).all()) and err <= tol,
                 f"{label}: {kernel} {key}: max|d|={err:.3g} > tol {tol:.3g}")
@@ -3615,25 +3666,34 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
         return got
 
     def mp_ffn(x, banks, idx, sizes, act_name):
-        n0 = qmatmul.launches_gemv, qmatmul.launches_mma
-        got = saved[0](x, banks, idx, sizes, act_name)
-        kernels = [k for k, a, b in (("qmatmul_gemv", n0[0],
-                                      qmatmul.launches_gemv),
-                                     ("qmatmul_mma", n0[1],
-                                      qmatmul.launches_mma)) if b > a]
-        require(len(kernels) == 1, f"{label}: one mp_ffn call ran {kernels}")
-        M = x.shape[0] * x.shape[1] if idx.dim() == 1 else x.shape[1]
-        key = f"M={M} tiers={sizes['fp16']}/{sizes['int8']}/{sizes['int4']}"
-        return hold(kernels[0], key, got, ref.mp_ffn_gathered_ref(
-            x, banks, idx, sizes, act_name))
+        split.append(f"tiers={sizes['fp16']}/{sizes['int8']}/{sizes['int4']}")
+        try:
+            return saved["mp_ffn"](x, banks, idx, sizes, act_name)
+        finally:
+            split.pop()
+
+    def qmatmul_gathered(x, w, scale=None, idx=None, *, precision="fp",
+                         layout="col", out=None):
+        n0 = qmatmul.launches_mma
+        before = None if out is None else out.clone()
+        got = saved["qmatmul_gathered"](x, w, scale, idx, precision=precision,
+                                        layout=layout, out=out)
+        kernel = "qmatmul_mma" if qmatmul.launches_mma > n0 else \
+            "qmatmul_gemv"
+        key = (f"M={x.shape[-2]} {split[-1]}" if split
+               else f"x={tuple(x.shape)} {precision} {layout}")
+        return hold(kernel, key, got, ref.qmm_gathered_ref(
+            x, w, scale, idx, precision=precision, layout=layout, out=before))
 
     def flash_attention(q, k, v, *, window=0, softcap=0.0):
-        got = saved[1](q, k, v, window=window, softcap=softcap)
+        got = saved["flash_attention"](q, k, v, window=window,
+                                       softcap=softcap)
         key = f"q={tuple(q.shape)} kv={tuple(k.shape)} window={window}"
         S = q.shape[1]
         if S <= 2 * SLICE:
             return hold("flash_attention", key, got, ref.flash_attention_ref(
-                q, k, v, window=window, softcap=softcap))
+                q.float(), k.float(), v.float(), window=window,
+                softcap=softcap))
         for lo in (0, S - SLICE):
             hi = lo + SLICE
             hold("flash_attention", f"{key} queries {lo}..{hi} vs float64",
@@ -3643,17 +3703,28 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
                      softcap=softcap, window=window))
         return got
 
+    def chunk_kernel(q, k, v, pos0, *, softcap=0.0):
+        return hold("chunk_attention", f"q={tuple(q.shape)} kv="
+                    f"{tuple(k.shape)}", saved["chunk_kernel"](
+                        q, k, v, pos0, softcap=softcap),
+                    ref.chunk_attention_ref(q.float(), k.float(), v.float(),
+                                            pos0, softcap=softcap))
+
     def flash_decode(q, k, v, slots, lengths, *, softcap=0.0):
-        got = saved[2](q, k, v, slots, lengths, softcap=softcap)
+        got = saved["flash_decode"](q, k, v, slots, lengths, softcap=softcap)
         return hold("flash_decode", f"q={tuple(q.shape)} "
                     f"kv={tuple(k.shape)}", got, ref.flash_decode_ref(
                         q, k, v, slots, lengths, softcap=softcap))
-    ops.mp_ffn, ops.flash_attention, ops.flash_decode = (
-        mp_ffn, flash_attention, flash_decode)
+    for n, fn in (("mp_ffn", mp_ffn), ("qmatmul_gathered", qmatmul_gathered),
+                  ("flash_attention", flash_attention),
+                  ("chunk_kernel", chunk_kernel),
+                  ("flash_decode", flash_decode)):
+        setattr(ops, n, fn)
     try:
         yield held
     finally:
-        ops.mp_ffn, ops.flash_attention, ops.flash_decode = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def require_search_launches(label: str, cfg, per, gen_len: int):
@@ -3992,14 +4063,11 @@ def phase_ratio_search_full(cfg, params) -> dict:
     log(line)
     # every launch of the search was held against its plain version, and
     # every searched split at the decode's M = B and the prefill's M = B*P
-    B, P, L = SEARCH_FULL["B"], SEARCH_FULL["P"], cfg.num_layers
+    B, P = SEARCH_FULL["B"], SEARCH_FULL["P"]
     calls = {n: sum(e["calls"] for e in held.get(n, {}).values())
              for n in ("qmatmul_gemv", "qmatmul_mma", "flash_attention",
                        "flash_decode")}
-    require(calls["flash_attention"] == total["flash_attention"]
-            and calls["flash_decode"] == total["flash_decode"]
-            and calls["qmatmul_mma"] == L * len(per)
-            and calls["qmatmul_gemv"] == L * kw["gen_len"] * len(per),
+    require(all(calls[n] == total[n] for n in calls),
             f"ratio_search_full: calls held {calls}, launches {total}")
     for c in per:
         t = c["tiers"]
@@ -4216,7 +4284,7 @@ def phase_kernels_long(dev) -> dict:
         "plain": "models.common.chunked_attention (512-query chunks)",
         "library": "SDPA, K/V expanded to the query heads beforehand, the "
                    "window as a boolean mask",
-        **attention_row(run, plain, lambda: F.scaled_dot_product_attention(
+        **kernel_row(run, plain, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), (2 * q.numel() + 2 * kp.numel()) * 4,
             4 * hq * D * pairs, plain_reps=5)}
     del q, kp, vp, qt, kt, vt, mask
@@ -4906,6 +4974,620 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# bf16, the reference's default precision: the kernels' bf16 forms, the
+# families tiny at bf16, and the full-depth long_500k steps at bf16
+
+#: bf16_tiny: the families, each tiny at bf16 through forward on cuda
+#: against cpu from the same weights
+BF16_FAMILIES = ("qwen2.5-14b", "internvl2-1b", "grok-1-314b",
+                 "llama4-maverick-400b-a17b", "recurrentgemma-2b",
+                 "mamba2-370m")
+#: |cuda - cpu| a family's logit may differ by at bf16, as a share of
+#: max(1, max|cpu logits|), about 3x its largest reading with the CPU's
+#: active sets replayed on the card (H100 80GB HBM3, 700 W: qwen2.5-14b
+#: 0.0100, internvl2-1b 0.0133, grok-1-314b 0.0166, llama4 0.0253,
+#: recurrentgemma-2b 0.0066, mamba2-370m 0.0065, the same in four runs).
+#: Every kernel call is held to its plain version (held_to_plain); the
+#: rest is rounding: the kernels sum in fp32 and round once (qmatmul a
+#: product, attention its output) where the CPU's plain versions round
+#: every bf16 op, so the residual stream differs by bf16 units from the
+#: first layer on. The control each M2Cache family's limit must fail: the
+#: sets left free, where a predictor score that ties within a bf16 unit
+#: swaps a neuron (qwen2.5-14b 0.117, internvl2-1b 0.118,
+#: recurrentgemma-2b 0.029). Greedy tokens must agree where the CPU's
+#: top-2 margin is wider than the limit
+BF16_TINY_TOL = {"qwen2.5-14b": 0.03, "internvl2-1b": 0.04,
+                 "grok-1-314b": 0.05, "llama4-maverick-400b-a17b": 0.075,
+                 "recurrentgemma-2b": 0.02, "mamba2-370m": 0.02}
+#: mesh_bf16_full: the first step's logits through the kernels against the
+#: same step through the plain versions on the card, with the kernels'
+#: active sets replayed, as a share of max(1, max|plain|): about 2x the
+#: readings (m2 0.0610, dense 0.0586, logits below 1, H100 80GB HBM3,
+#: 700 W), 48 layers of bf16 activations rounded at other places on the
+#: two sides (the kernels sum in fp32 and round once, the plain versions
+#: round every bf16 op). The control it must fail: the m2 step with the
+#: sets left free, 1.14 apart (a predictor score that ties within a bf16
+#: unit swaps a neuron, and 48 layers of random weights carry each swap on)
+MESH_BF16_TOL = 0.125
+#: moe_bf16_full: llama4-maverick at full width, its depth cut to this
+MOE_BF16_LAYERS = 1
+#: mesh_bf16_full's and bf16_tiny's held kernels -> their rows of the
+#: kernel table
+BF16_MESH_ROWS = {"qmatmul_gemv": "qmatmul_gemv_bf16_b1",
+                  "flash_decode": "flash_decode_bf16_ring_8k"}
+BF16_TINY_ROWS = {"qmatmul_gemv": "qmatmul_gemv_bf16_b1",
+                  "qmatmul_mma": "qmatmul_mma_bf16_m512",
+                  "flash_decode": "flash_decode_bf16",
+                  "flash_attention": "flash_attention_bf16"}
+
+
+@contextlib.contextmanager
+def active_sets(record: list, replay: bool):
+    """Inside the block the M2Cache FFN's active sets are appended to
+    ``record`` (``replay`` False) or taken from it in order (``replay``
+    True), in place of the predictor's top-k."""
+    from repro_torch.core import mp_ffn
+    saved = mp_ffn.shared_topk_indices
+    it = iter(list(record))
+
+    def topk(scores, k):
+        if replay:
+            return next(it).to(scores.device)
+        idx = saved(scores, k)
+        record.append(idx)
+        return idx
+    mp_ffn.shared_topk_indices = topk
+    try:
+        yield record
+    finally:
+        mp_ffn.shared_topk_indices = saved
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Inside the block ``kernels.ops`` sends every tensor to its plain
+    PyTorch version, on the card: the same step without the kernels."""
+    from repro_torch.kernels import ops
+    saved = ops._on_cpu
+    ops._on_cpu = lambda t: True
+    try:
+        yield
+    finally:
+        ops._on_cpu = saved
+
+
+def bf16_counts() -> dict:
+    """The bf16 launches of each kernel since the counts were last reset."""
+    from repro_torch.kernels import (chunk_attention, flash_attention,
+                                     flash_decode, qmatmul)
+    return {"qmatmul": qmatmul.launches_bf16,
+            "flash_decode": flash_decode.launches_bf16,
+            "flash_attention": flash_attention.launches_bf16,
+            "chunk_attention": chunk_attention.launches_bf16}
+
+
+def reset_bf16_counts():
+    from repro_torch.kernels import (chunk_attention, flash_attention,
+                                     flash_decode, qmatmul)
+    for mod in (qmatmul, flash_decode, flash_attention, chunk_attention):
+        mod.launches_bf16 = 0
+
+
+def phase_kernels_bf16(cfg, dev) -> dict:
+    """Each bf16 form at the shapes the bf16 paths give it, held against its
+    plain version (qmatmul's and flash_decode's fp32 outputs within 1e-5 x
+    max(1, max|plain|); the attention forms' bf16 outputs within half a
+    bf16 unit of the plain fp32 result plus that) and timed:
+    qwen2.5-14b's FFN (d = 5120, f = 13824, bf16 fp tier) at M = 1 (kernel
+    A, the m2 long_500k step) and R = 4 rows of M = 1 (kernel A, per-row
+    sets), at M = 512 (kernel B, a prompt) and R = 4 rows of a 16-token
+    chunk (kernel B): a layer's FFN, 9 calls, each held (library call: the
+    three products by torch.matmul on the gathered, dequantized bf16
+    weights); flash_decode over long_500k's wrapped 8192-slot ring and at
+    the serve step; flash_attention on a 128-token prompt and its chunk form
+    at 16 tokens over 256 slots (library call: SDPA at bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.mp_ffn import tier_sizes
+    from repro_torch.core.quantize import (build_neuron_banks,
+                                           to_neuron_major, unpack_int4)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import activation
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(26)
+    d, f = cfg.d_model, cfg.d_ff
+    banks = to_neuron_major(build_neuron_banks(
+        *(torch.randn(s, generator=g, device=dev).mul_(s[0] ** -0.5).to(bf)
+          for s in ((d, f), (d, f), (f, d)))))
+    sizes = tier_sizes(f, cfg)
+    k16, k8, k4, k = sizes["fp16"], sizes["int8"], sizes["int4"], sizes["k"]
+    act = activation(cfg.ffn_act)
+    rows = {}
+
+    def gathered(idx):
+        """The three dequantized bf16 products' weights of one active set
+        (the library call's operands)."""
+        i16, i8, i4 = idx[:k16], idx[k16:k16 + k8], idx[k16 + k8:]
+
+        def one(w):
+            return torch.cat([
+                banks[f"{w}_fp"][i16],
+                banks[f"{w}_i8"][i8].to(bf) * banks[f"{w}_i8_s"][i8].to(
+                    bf)[:, None],
+                unpack_int4(banks[f"{w}_i4"][i4], 1).to(bf)
+                * banks[f"{w}_i4_s"][i4].to(bf)[:, None]])
+        return one("wg").t().contiguous(), one("wu").t().contiguous(), \
+            one("wd").contiguous()
+    ffn_bytes = 3 * d * (2 * k16 + k8 + k4 / 2) + 3 * 4 * (k8 + k4)
+    # kernel A on the CUDA cores; kernel B one TF32 product per product
+    # (bf16 and integer operands are exact in TF32)
+    for name, R, M, products in (("qmatmul_gemv_bf16_b1", 1, 1, None),
+                                 ("qmatmul_gemv_bf16_rows", 4, 1, None),
+                                 ("qmatmul_mma_bf16_m512", 1, 512, 1),
+                                 ("qmatmul_mma_bf16_rows", 4, 16, 1)):
+        per_row = R > 1
+        x = torch.randn(R, M, d, generator=g, device=dev).to(bf)
+        sets = torch.stack([torch.randperm(f, generator=g, device=dev)[:k]
+                            for _ in range(R)]).to(torch.int32)
+        idx = sets if per_row else sets[0]
+        held = {}
+        with held_to_plain(name, held):
+            y = ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act)
+        require(y.dtype == bf and bool(torch.isfinite(y.float()).all()),
+                f"{name}: the FFN's output {y.dtype}")
+        ws = [gathered(s) for s in sets]
+
+        def lib():
+            for r, (wg, wu, wd) in enumerate(ws):
+                (act(x[r] @ wg) * (x[r] @ wu)) @ wd
+        xf = x.float()
+        fp32_banks = {n: (t.float() if t.dtype == bf else t)
+                      for n, t in banks.items()}
+        row = kernel_row(
+            lambda: ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act),
+            lambda: ref.mp_ffn_gathered_ref(x, banks, idx, sizes,
+                                            cfg.ffn_act),
+            lib, R * (ffn_bytes + 2 * M * d * 2), R * 2 * M * d * 3 * k,
+            peak=H100_SXM.flops_bf16, tf32_products=products,
+            fp32_form=lambda: ops.mp_ffn(xf, fp32_banks, idx, sizes,
+                                         cfg.ffn_act), plain_reps=10)
+        del fp32_banks
+        kernel = "qmatmul_gemv" if products is None else "qmatmul_mma"
+        require(set(held) == {kernel}, f"{name}: kernels held {set(held)}")
+        row.update(max_abs_err=max(e["max_abs_err"] for e in
+                                   held[kernel].values()),
+                   calls_held=sum(e["calls"] for e in
+                                  held[kernel].values()),
+                   shape=f"x ({R}, {M}, {d}) bf16, tiers "
+                         f"{k16}/{k8}/{k4} of {f}")
+        rows[name] = row
+        log({"phase": "kernels_bf16", "row": name, **row})
+    del banks
+    torch.cuda.empty_cache()
+
+    def decode(name, B, S, lengths, ring):
+        hkv, G, D = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, \
+            cfg.head_dim
+        q = torch.randn(B, hkv, G, D, generator=g, device=dev).to(bf)
+        kk = torch.randn(B, S, hkv, D, generator=g, device=dev).to(bf)
+        vv = torch.randn(B, S, hkv, D, generator=g, device=dev).to(bf)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        slot = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        if ring:      # slot s holds the latest position = s mod S
+            slots = (ln[:, None] - torch.remainder(ln[:, None] - slot, S))
+        else:
+            slots = slot.repeat(B, 1)
+        slots = slots.to(torch.int32).contiguous()
+        held = {}
+        with held_to_plain(name, held):
+            ops.flash_decode(q, kk, vv, slots, ln)
+        valid = (slots >= 0) & (slots <= ln[:, None])
+        mask = valid[:, None, None, :]
+        qs = q.reshape(B, hkv * G, 1, D)
+        qf, kf, vf = q.float(), kk.float(), vv.float()
+        n_valid = int(valid.sum())
+        row = kernel_row(
+            lambda: ops.flash_decode(q, kk, vv, slots, ln),
+            lambda: ref.flash_decode_ref(q, kk, vv, slots, ln),
+            lambda: F.scaled_dot_product_attention(
+                qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True),
+            q.numel() * 2 + 2 * n_valid * hkv * D * 2 + slots.numel() * 4
+            + q.numel() * 4, 4 * n_valid * hkv * G * D,
+            peak=H100_SXM.flops_bf16, tf32_products=None,
+            fp32_form=lambda: ops.flash_decode(qf, kf, vf, slots, ln),
+            plain_reps=10)
+        row.update(max_abs_err=held["flash_decode"][next(iter(
+            held["flash_decode"]))]["max_abs_err"],
+                   shape=f"q {tuple(q.shape)}, kv {tuple(kk.shape)} bf16"
+                         + (", wrapped ring" if ring else ""))
+        rows[name] = row
+        log({"phase": "kernels_bf16", "row": name, **row})
+    decode("flash_decode_bf16_ring_8k", 1, 8192, [8719], True)
+    decode("flash_decode_bf16", 4, 145, [128, 133, 138, 143], False)
+
+    hq, hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for name, B, S, sbuf, pos0 in (("flash_attention_bf16", 4, 128, 128,
+                                    None),
+                                   ("chunk_attention_bf16", 4, 16, 256,
+                                    [0, 48, 96, 112])):
+        q = torch.randn(B, S, hq, D, generator=g, device=dev).to(bf)
+        kk = torch.randn(B, sbuf, hkv, D, generator=g, device=dev).to(bf)
+        vv = torch.randn(B, sbuf, hkv, D, generator=g, device=dev).to(bf)
+        qf, kf, vf = q.float(), kk.float(), vv.float()
+        held = {}
+        if pos0 is None:
+            pos = torch.arange(S, device=dev)[None].repeat(B, 1)
+            run = lambda: ops.prefill_attention(q, kk, vv, pos)  # noqa: E731
+            fp32 = lambda: ops.prefill_attention(qf, kf, vf, pos)  # noqa: E731
+            plain = lambda: ref.flash_attention_ref(q, kk, vv)  # noqa: E731
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                is_causal=True, enable_gqa=True)
+            pairs = B * S * (S + 1) // 2
+            nbytes = (q.numel() * 2 + 2 * kk.numel()) * 2
+        else:
+            p0 = torch.tensor(pos0, device=dev)
+            pos = p0[:, None] + torch.arange(S, device=dev)[None]
+            run = lambda: ops.chunk_attention(q, kk, vv, pos)  # noqa: E731
+            fp32 = lambda: ops.chunk_attention(qf, kf, vf, pos)  # noqa: E731
+            p32 = p0.to(torch.int32)
+            plain = lambda: ref.chunk_attention_ref(  # noqa: E731
+                q, kk, vv, p32)
+            kv_pos = torch.arange(sbuf, device=dev)
+            mask = (kv_pos[None, None, None, :] <= pos[:, None, :, None])
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+            fronts = [p + S for p in pos0]
+            pairs = sum(p * S + S * (S + 1) // 2 for p in pos0)
+            nbytes = q.numel() * 2 * 2 + 2 * sum(fronts) * hkv * D * 2
+        with held_to_plain(name, held):
+            run()
+        kernel = "flash_attention" if pos0 is None else "chunk_attention"
+        row = kernel_row(run, plain, lib, nbytes, 4 * pairs * hq * D,
+                         peak=H100_SXM.flops_bf16, fp32_form=fp32,
+                         plain_reps=10)
+        row.update(max_abs_err=held[kernel][next(iter(held[kernel]))][
+            "max_abs_err"], shape=f"q {tuple(q.shape)}, kv "
+            f"{tuple(kk.shape)} bf16" + ("" if pos0 is None else
+                                         f", pos0 {pos0}"))
+        rows[name] = row
+        log({"phase": "kernels_bf16", "row": name, **row})
+    return rows
+
+
+def phase_bf16_tiny() -> tuple:
+    """BF16_FAMILIES, each tiny at bf16 (random weights from seed 0, the
+    predictor or router drawn), through forward on cuda against cpu from
+    the same weights, the card replaying the CPU's active sets: a prompt of
+    2 x 16 tokens (internvl2-1b behind a 4-frame bf16 prefix), then 4
+    decode steps fed the CPU's greedy tokens; on the card every kernel call
+    held against its plain version (held_to_plain), the bf16 kernel forms
+    only (every launch bf16), each of the family's kernels launched; the
+    logits within the family's BF16_TINY_TOL x max(1, max|cpu logits|),
+    greedy tokens equal where the CPU's top-2 margin is wider. Returns
+    ({"<arch>/bf16": launches}, the held kernels' largest errors)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    bf = torch.bfloat16
+    out, failed, errors = {}, [], {}
+    for arch in BF16_FAMILIES:
+        cfg = get_config(arch, tiny=True)
+        params = T.init_params(cfg, seed=0, dtype=bf, device="cpu")
+        draw_pred_a(params, torch.Generator().manual_seed(1), "cpu")
+        rng = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=rng)
+        prefix = None
+        if cfg.num_prefix_embeddings:
+            prefix = torch.randn(2, 4, cfg.d_model, generator=rng).to(bf)
+        n_pre = 0 if prefix is None else 4
+        steps, sets, held = {}, [], {}
+        for name in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(name), params)
+            chosen = active_sets(sets, replay=name == "cuda")
+            chosen.__enter__()
+            checked = held_to_plain(f"bf16_tiny {arch}", held) \
+                if name == "cuda" else contextlib.nullcontext()
+            checked.__enter__()
+            cache = T.init_cache(cfg, 2, 32 + n_pre, dtype=bf, device=name)
+            reset_counts()
+            reset_bf16_counts()
+            logits, cache, _ = T.forward(
+                cfg, p, tokens.to(name), cache=cache, mode="prefill",
+                prefix=None if prefix is None else prefix.to(name))
+            got = [logits[:, -1].float().cpu()]
+            for i in range(4):
+                nxt = (steps["cpu"][i] if name == "cuda" else got[-1]).argmax(
+                    -1)[:, None]
+                logits, cache, _ = T.forward(cfg, p, nxt.to(name),
+                                             cache=cache, mode="decode")
+                got.append(logits[:, -1].float().cpu())
+            checked.__exit__(None, None, None)
+            chosen.__exit__(None, None, None)
+            steps[name] = got
+        counts, bf16 = read_counts(), bf16_counts()
+        errs, tols, sure_eq = [], [], True
+        for c, gcu in zip(steps["cpu"], steps["cuda"]):
+            errs.append(float((c - gcu).abs().max()))
+            tols.append(BF16_TINY_TOL[arch] * max(1.0,
+                                                  float(c.abs().max())))
+            top2 = c.topk(2, -1).values
+            sure = top2[:, 0] - top2[:, 1] > tols[-1]
+            sure_eq &= bool(torch.equal(c.argmax(-1)[sure],
+                                        gcu.argmax(-1)[sure]))
+        want = set()
+        if cfg.family != "ssm":
+            want |= {"flash_attention", "flash_decode"}
+        if any("banks" in layer.get("ffn", {}) for layer in params["layers"]):
+            want.add("qmatmul")
+        ran = {n for n in ("qmatmul", "flash_decode", "flash_attention",
+                           "chunk_attention") if counts[n]}
+        log({"phase": "bf16_tiny", "arch": arch,
+             "tol_rel": BF16_TINY_TOL[arch], "max_abs_err_by_step": errs,
+             "tol_by_step": tols, "greedy_equal_where_sure": sure_eq,
+             "held_to_plain": held, "kernel_tol_rel": 1e-5,
+             "launches": counts, "launches_bf16": bf16})
+        calls = {n: sum(e["calls"] for e in held.get(n, {}).values())
+                 for n in ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
+                           "flash_attention", "chunk_attention")}
+        if any(calls[n] != counts[n] for n in calls):
+            failed.append(f"{arch}: calls held {calls}, launches {counts}")
+        for n, by_key in held.items():
+            errors[n] = max([errors.get(n, 0.0)] + [
+                e["max_abs_err"] for e in by_key.values()])
+        if not all(e <= t for e, t in zip(errs, tols)) or not sure_eq:
+            failed.append(f"{arch}: cuda against cpu {errs}, tolerances "
+                          f"{tols}, tokens equal where sure: {sure_eq}")
+        if ran != want:
+            failed.append(f"{arch}: kernels {ran}, want {want}")
+        if not all(bf16[n] == counts[n] for n in bf16):
+            failed.append(f"{arch}: fp32 launches in a bf16 run: {counts} "
+                          f"against {bf16}")
+        out[f"{arch}/bf16"] = {**counts, **{f"{n}_bf16": c
+                                            for n, c in bf16.items()}}
+    require(not failed, "bf16_tiny: " + "; ".join(failed))
+    return out, errors
+
+
+def phase_mesh_bf16_full() -> dict:
+    """build_case(MESH_ARCH, "long_500k", mesh=make_host_mesh(), variant,
+    dtype=bf16) at all 48 layers and full width, for variant "m2" (about 45
+    GB: the bf16 fp tier, int8 and int4 banks, the predictor drawn) and then
+    "dense" (about 30 GB): the window's 8192-slot ring at MESH_START, its
+    K/V seeded normal values, MESH_STEPS serve steps. Per step the bf16
+    launches of qmatmul (m2: 9 a layer) and flash_decode (48); the first
+    step's kernel calls held against their plain versions (held_to_plain),
+    and its logits against the same step through the plain versions on the
+    card within MESH_BF16_TOL x max(1, max|plain|); the bf16 dry-run
+    record's argument_gb equal to the real tensors' bytes, and a step's
+    median device ms at least MESH_BOUND_SHARE x its roofline bound.
+    Returns ({"mesh_bf16_m2": launches, "mesh_bf16_dense": launches},
+    the held kernels' largest errors)."""
+    import torch
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, release_mesh
+    from repro_torch.launch.steps import build_case
+    from repro_torch.models import transformer as T
+    bf = torch.bfloat16
+    cfg = get_config(MESH_ARCH)
+    paths, errors = {}, {}
+    for variant in ("m2", "dense"):
+        t_phase = time.perf_counter()
+        rec = dryrun.run_one(MESH_ARCH, "long_500k", mesh="host",
+                             variant=variant, dtype=bf, verbose=False)
+        require(rec["status"] == "ok", f"mesh_bf16_full: the dry run of "
+                f"{variant} is {rec['status']}")
+        r = rec["roofline"]
+        bound_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+        mesh = make_host_mesh()
+        held, launches, per_step = {}, {}, []
+        try:
+            case = build_case(MESH_ARCH, "long_500k", mesh=mesh,
+                              variant=variant, dtype=bf)
+            torch.cuda.reset_peak_memory_stats()
+            t_init = time.perf_counter()
+            params = T.init_params(cfg, seed=0, device="cuda", dtype=bf,
+                                   m2=variant == "m2")
+            if variant == "m2":
+                draw_pred_a(params, torch.Generator(device="cuda")
+                            .manual_seed(1), "cuda")
+            cache = T.init_cache(cfg, 1, INPUT_SHAPES["long_500k"].seq_len,
+                                 window=case.meta["window"], dtype=bf,
+                                 device="cuda")
+            cache["pos"] = MESH_START
+            gen = torch.Generator(device="cuda").manual_seed(MESH_CACHE_SEED)
+            for t in _leaves(cache):
+                if isinstance(t, torch.Tensor):
+                    t.normal_(generator=gen)
+            init_s = time.perf_counter() - t_init
+            require(_shapes(params) == _shapes(case.args[0])
+                    and _shapes(cache) == _shapes(case.args[1]),
+                    "mesh_bf16_full: the real params or cache are not the "
+                    "case's")
+            tok = torch.full((1, 1), 17, dtype=torch.int32, device="cuda")
+            real_bytes = _tensor_bytes(params) + _tensor_bytes(cache) \
+                + _tensor_bytes(tok)
+            arg_bytes = rec["memory"]["argument_gb"] * 2 ** 30
+            # the first step through the plain versions, from a copy of the
+            # cache, left free and with the kernels' active sets (recorded
+            # in the kernels' step below, so run after it)
+            saved = [t.clone() for t in _leaves(cache)
+                     if isinstance(t, torch.Tensor)]
+
+            def restore():
+                for t, s in zip([t for t in _leaves(cache)
+                                 if isinstance(t, torch.Tensor)], saved):
+                    t.copy_(s)
+                cache["pos"] = MESH_START
+            with plain_on_card():
+                free_logits, _ = case.fn(params, cache, {"tokens": tok})
+            restore()
+            sets = []
+            walls, toks = [], []
+            for i in range(MESH_STEPS):
+                step_held = held_to_plain("mesh_bf16_full", held) if i == 0 \
+                    else contextlib.nullcontext()
+                step_sets = active_sets(sets, False) if i == 0 \
+                    else contextlib.nullcontext()
+                with step_held, step_sets:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    reset_bf16_counts()
+                    t0 = time.perf_counter()
+                    logits, cache = case.fn(params, cache, {"tokens": tok})
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    first = logits.float()
+                    after = [t.clone() for t in _leaves(cache)
+                             if isinstance(t, torch.Tensor)]
+                    restore()
+                    with plain_on_card(), active_sets(sets, True):
+                        plain_logits, _ = case.fn(params, cache,
+                                                  {"tokens": tok})
+                    for t, s in zip([t for t in _leaves(cache)
+                                     if isinstance(t, torch.Tensor)], after):
+                        t.copy_(s)
+                    cache["pos"] = MESH_START + 1
+                    del after
+                counts, bf16 = read_counts(), bf16_counts()
+                per_step.append({"qmatmul": bf16["qmatmul"],
+                                 "flash_decode": bf16["flash_decode"]})
+                require(all(bf16[n] == counts[n] for n in bf16),
+                        f"mesh_bf16_full: fp32 launches in a bf16 step "
+                        f"{counts}")
+                for n, c in counts.items():
+                    launches[n] = launches.get(n, 0) + c
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+                toks.append(int(tok))
+            del saved
+            finite = bool(torch.isfinite(logits.float()).all())
+            logit_err = max_err(first, plain_logits)
+            free_err = max_err(first, free_logits)
+            logit_tol = MESH_BF16_TOL * max(
+                1.0, float(plain_logits.float().abs().max()))
+            same_token = int(first.argmax()) == int(plain_logits.argmax())
+
+            def step():
+                cache["pos"] = MESH_START
+                case.fn(params, cache, {"tokens": tok})
+            profiles = [device_profile(step, reps=1) for _ in range(5)]
+            dev = [p["device_ms"] for p in profiles
+                   if isinstance(p.get("device_ms"), float)]
+            dev_ms = statistics.median(dev) if dev else "not measured"
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            del params, cache, logits, plain_logits, free_logits, first
+        finally:
+            release_mesh()
+        torch.cuda.empty_cache()
+        ratio = dev_ms / bound_ms if dev else "not measured"
+        label = f"mesh_bf16_{variant}"
+        log({"phase": "mesh_bf16_full", "variant": variant, "config":
+             cfg.name, "layers": cfg.num_layers, "case": case.name,
+             "meta": case.meta, "start_pos": MESH_START, "steps": MESH_STEPS,
+             "bf16_launches_by_step": per_step, "held_to_plain": held,
+             "kernel_tol_rel": 1e-5, "first_logits_max_abs_err": logit_err,
+             "first_logits_tol": logit_tol, "first_token_equal": same_token,
+             "first_logits_max_abs_err_free_sets": free_err,
+             "active_sets_replayed": len(sets),
+             "argument_bytes_record": arg_bytes,
+             "argument_bytes_real": real_bytes, "init_s": init_s,
+             "step_wall_ms_median": statistics.median(walls[1:]) * 1e3,
+             "step_device_ms_median": dev_ms, "step_device_ms_sessions": dev,
+             "busy_share": [p.get("busy_share") for p in profiles],
+             "kernels_per_step": profiles[-1].get("kernels_per_call"),
+             "top_kernels_ms": profiles[-1].get("top_kernels_ms"),
+             "roofline_bound_ms": bound_ms,
+             "roofline_bottleneck": r["bottleneck"],
+             "device_ms_over_bound": ratio,
+             "max_memory_allocated_gib": peak_gb,
+             "record_memory": rec["memory"], "tokens": toks,
+             "launches": launches,
+             "seconds": time.perf_counter() - t_phase})
+        require(finite, f"{label}: non-finite logits")
+        want = {"qmatmul": 9 * cfg.num_layers if variant == "m2" else 0,
+                "flash_decode": cfg.num_layers}
+        require(all(s == want for s in per_step),
+                f"{label}: bf16 launches by step {per_step}, want {want}")
+        require(arg_bytes == real_bytes, f"{label}: the record's arguments "
+                f"{arg_bytes} bytes, the real ones {real_bytes}")
+        require(logit_err <= logit_tol, f"{label}: the first step's logits "
+                f"{logit_err:.4g} from the plain versions', tol "
+                f"{logit_tol:.4g}")
+        require(isinstance(ratio, float) and ratio >= MESH_BOUND_SHARE,
+                f"{label}: a step's device time {dev_ms} ms against the "
+                f"roofline's {bound_ms:.4g} ms")
+        paths[label] = launches
+        for n, by_key in held.items():
+            errors[n] = max([errors.get(n, 0.0)] + [
+                e["max_abs_err"] for e in by_key.values()])
+    return paths, errors
+
+
+def phase_moe_bf16_full(B: int, P: int, gen_len: int) -> dict:
+    """llama4-maverick at full width, depth 48 -> MOE_BF16_LAYERS, bf16
+    weights (the router drawn): ``forward`` with full's traffic (batch B,
+    prompt P, gen_len new tokens), device ms a step (CUDA events around the
+    synchronised step) and the bf16 attention kernels' launches; the
+    weights dropped after. Returns {"llama4/bf16_full": launches}."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+    bf = torch.bfloat16
+    arch = "llama4-maverick-400b-a17b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_BF16_LAYERS)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, seed=0, dtype=bf, device="cuda")
+    draw_pred_a(params, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    weights_gb = _tensor_bytes(params) / 1e9
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    cache = T.init_cache(cfg, B, P + gen_len, dtype=bf, device="cuda")
+    reset_counts()
+    reset_bf16_counts()
+    ms = []
+
+    def timed_step(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = T.forward(cfg, params, *a, **kw)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        return out
+    logits, cache, _ = timed_step(tokens, cache=cache, mode="prefill")
+    for _ in range(gen_len - 1):
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        logits, cache, _ = timed_step(nxt, cache=cache, mode="decode")
+    finite = bool(torch.isfinite(logits.float()).all())
+    counts, bf16 = read_counts(), bf16_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    log({"phase": "moe_bf16_full", "config": cfg.name, "layers":
+         cfg.num_layers, "weights_gb": weights_gb, "batch": B, "prompt": P,
+         "new_tokens": gen_len, "prefill_ms": ms[0],
+         "decode_step_ms_median": statistics.median(ms[1:]),
+         "decode_step_ms": ms[1:], "launches": counts, "launches_bf16": bf16,
+         "max_memory_allocated_gib": peak_gb,
+         "seconds": time.perf_counter() - t_phase})
+    require(finite, "moe_bf16_full: non-finite logits")
+    require(bf16["flash_attention"] == counts["flash_attention"] > 0
+            and bf16["flash_decode"] == counts["flash_decode"] > 0
+            and bf16["qmatmul"] == counts["qmatmul"],
+            f"moe_bf16_full: launches {counts}, bf16 {bf16}")
+    return {"llama4/bf16_full": {**counts, **{f"{n}_bf16": c
+                                              for n, c in bf16.items()}}}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(only=None):
@@ -4961,7 +5643,11 @@ def main(only=None):
                  "steps_tiny": (phase_steps_tiny,),
                  "long_context_full": (lambda: phase_long_context_full(
                      *full_model()[1:]),),
-                 "mesh_full": (phase_mesh_full,)}
+                 "mesh_full": (phase_mesh_full,),
+                 "kernels_bf16": (phase_kernels_bf16, cfg, dev),
+                 "bf16_tiny": (phase_bf16_tiny,),
+                 "mesh_bf16_full": (phase_mesh_bf16_full,),
+                 "moe_bf16_full": (phase_moe_bf16_full, B, P, gen_len)}
         for name in only:
             timed(name, *calls[name])
         log({"phase": "timing", "seconds": seconds,
@@ -4980,6 +5666,8 @@ def main(only=None):
     kern.update(timed("kernels_audio", phase_kernels_audio,
                       torch.device("cuda")))
     kern.update(timed("kernels_long", phase_kernels_long,
+                      torch.device("cuda")))
+    kern.update(timed("kernels_bf16", phase_kernels_bf16, cfg,
                       torch.device("cuda")))
     timed("tiny", phase_tiny)
     timed("server_tiny", phase_server_tiny)
@@ -5015,6 +5703,17 @@ def main(only=None):
     for name, err in held.items():
         row = kern[LONG_ROWS[name]]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    mesh_paths, held = timed("mesh_bf16_full", phase_mesh_bf16_full)
+    paths.update(mesh_paths)
+    for name, err in held.items():
+        row = kern[BF16_MESH_ROWS[name]]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    tiny_paths, held = timed("bf16_tiny", phase_bf16_tiny)
+    paths.update(tiny_paths)
+    for name, err in held.items():
+        row = kern[BF16_TINY_ROWS[name]]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    paths.update(timed("moe_bf16_full", phase_moe_bf16_full, B, P, gen_len))
     paths.update(timed("dense_archs", phase_dense_archs, B, P, gen_len))
     paths.update(timed("moe_archs", phase_moe_archs, B, P, gen_len))
     paths.update(timed("hybrid_arch", phase_hybrid_arch, B, P, gen_len))
@@ -5043,6 +5742,7 @@ def main(only=None):
     whole_paths = ("serve_full", "divergence", "ratio_search_full",
                    f"{qwen32}/serve", f"{cmdr}/serve")
     chunk_paths = server_paths + (f"{qwen32}/server", f"{cmdr}/server")
+    bf16_tiny = tuple(f"{a}/bf16" for a in BF16_FAMILIES)
     rows = {
         "qmatmul_gemv": (c + "qmatmul.cu", k + "qmatmul.py:38",
                          "qmatmul_gemv", ("serve_full", "divergence",
@@ -5187,6 +5887,35 @@ def main(only=None):
         "atu_update_int8_fp32": (c + "atu_update.cu", k + "atu_update.py:24",
                                  "atu_update", ()),
         "mp_glu_ffn": (c + "qmatmul.cu", k + "ops.py:54", None, ()),
+        # the bf16 forms (bf16 in, fp32 inside): qwen2.5-14b's m2 long_500k
+        # step at 48 layers, the families tiny at bf16, llama4 at full width
+        "qmatmul_gemv_bf16_b1": (c + "qmatmul_bf16.cu", k + "qmatmul.py:38",
+                                 "qmatmul_gemv", ("mesh_bf16_m2",)
+                                 + bf16_tiny),
+        "qmatmul_gemv_bf16_rows": (c + "qmatmul_bf16.cu",
+                                   k + "qmatmul.py:38",
+                                   "qmatmul_gemv", ()),
+        "qmatmul_mma_bf16_m512": (c + "qmatmul_bf16.cu",
+                                  k + "qmatmul.py:38",
+                                  "qmatmul_mma", bf16_tiny),
+        "qmatmul_mma_bf16_rows": (c + "qmatmul_bf16.cu",
+                                  k + "qmatmul.py:38",
+                                  "qmatmul_mma", ()),
+        "flash_decode_bf16_ring_8k": (c + "flash_decode_bf16.cu",
+                                      k + "flash_decode.py:26",
+                                      "flash_decode", ("mesh_bf16_m2",
+                                                       "mesh_bf16_dense")),
+        "flash_decode_bf16": (c + "flash_decode_bf16.cu",
+                              k + "flash_decode.py:26",
+                              "flash_decode", bf16_tiny
+                              + ("llama4/bf16_full",)),
+        "flash_attention_bf16": (c + "flash_attention.cu",
+                                 k + "flash_attention.py:26",
+                                 "flash_attention", bf16_tiny
+                                 + ("llama4/bf16_full",)),
+        "chunk_attention_bf16": (c + "flash_attention.cu",
+                                 k + "flash_attention.py:26",
+                                 "chunk_attention", ()),
     }
     table = []
     for name, (src, replaces, counter, on) in rows.items():
@@ -5211,7 +5940,8 @@ def main(only=None):
                                         "library_max_abs_err",
                                         "dequantize_ms", "flash_decode_ms",
                                         "bound_fp32_kv_ms",
-                                        "sdpa_dequantized_ms")
+                                        "sdpa_dequantized_ms",
+                                        "fp32_form_ms", "shape")
                if key in kk}})
     print(nvidia_smi(), flush=True)
     log({"kernels": table})

@@ -153,7 +153,7 @@ def bind(lib):
     f2.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, F, I, I, I,
                   P]
     f1.restype = f2.restype = I
-    fa._fn, ca._fn = f1, f2
+    fa._fns[False], ca._fns[False] = f1, f2
 
 
 def timeline(lib, fn, nblocks: int) -> dict:
@@ -248,7 +248,8 @@ def main():
                 blocks = ((tiles + 1) // 2 if plan.pair else tiles) * 8 * x.shape[0]
                 r[f"{label}_timeline"] = timeline(
                     lib, lambda: fa.flash_attention(x, y, z), blocks)
-        fa._fn = ca._fn = None
+        fa._fns.clear()
+        ca._fns.clear()
         print(json.dumps(r), flush=True)
 
 

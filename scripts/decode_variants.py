@@ -130,7 +130,7 @@ def bind(lib):
     f.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I,
                   ctypes.c_float, ctypes.c_float, P]
     f.restype = I
-    fd._fn = f
+    fd._fns[False] = f
 
 
 def timeline(lib, fn, nblocks: int) -> dict:
@@ -202,7 +202,7 @@ def main():
                     if name == "timeline":
                         n = B * 8 * fd.ranges(S, plan.range_slots)
                         r[f"{key}_timeline"] = timeline(lib, run, n)
-        fd._fn = None
+        fd._fns.clear()
         print(json.dumps(r), flush=True)
 
 

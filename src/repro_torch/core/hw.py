@@ -38,13 +38,14 @@ HOST = HostHW()
 class H100:
     """The card the port runs on (NVIDIA H100 SXM5 80 GB, data-sheet peaks
     at 700 W): the roofline's rates (``roofline/analysis.py``) and the
-    bounds of ``chip_smoke.py``. Every product of the port runs in fp32
-    with TF32 off, so the roofline's compute term divides by
-    ``flops_fp32``."""
+    bounds of ``chip_smoke.py``. Every fp32 product of the port runs with
+    TF32 off, so the roofline's compute term divides by ``flops_fp32``; a
+    bound of work on bf16 operands divides by ``flops_bf16``."""
     name: str = "NVIDIA H100 80GB HBM3"
     hbm_bw: float = 3.35e12        # B/s
     flops_fp32: float = 67e12      # FLOP/s, CUDA cores
     flops_tf32: float = 495e12     # FLOP/s, dense tensor cores
+    flops_bf16: float = 989e12     # FLOP/s, dense tensor cores
     link_bw: float = 450e9         # B/s a direction, NVLink 4 (18 links)
 
 

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.predictor import predictor_scores, shared_topk_indices
 from repro_torch.kernels import ops
-from repro_torch.models.common import activation, each_row, on_model
+from repro_torch.models.common import (activation, each_row, off_model,
+                                       on_model)
 
 
 def tier_sizes(f: int, cfg) -> Dict[str, int]:
@@ -33,12 +34,15 @@ def tier_sizes(f: int, cfg) -> Dict[str, int]:
     return {"k": k16 + k8 + k4, "fp16": k16, "int8": k8, "int4": k4}
 
 
-def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
+def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False,
+                 whole_d: bool = False):
     """x: (B, S, d) — serving activations. banks/pred: one layer's params.
     ``rows``: each batch row takes its own active set over its own S
     positions (idx (B, k)) instead of one shared set (idx (k,)).
     On a mesh (a DTensor x) the predictor reads x with its features on
-    "model", as the reference's activations come.
+    "model", as the reference's activations come; with ``whole_d`` (a
+    remainder layer's one row, where GSPMD contracts it so) x and A whole
+    over "model", each device the whole d.
 
     Returns (y, info) where info carries the rank-sorted active indices and
     the per-step weight bytes the tiers move."""
@@ -48,8 +52,12 @@ def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False):
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
 
     def top_k(xs):                                            # rank-sorted
-        return shared_topk_indices(
-            predictor_scores(on_model(xs), pred["A"], pred["B"]), k)
+        if whole_d:
+            scores = predictor_scores(off_model(xs), off_model(pred["A"]),
+                                      pred["B"])
+        else:
+            scores = predictor_scores(on_model(xs), pred["A"], pred["B"])
+        return shared_topk_indices(scores, k)
     idx = each_row(lambda xr: top_k(xr)[None], x) if rows else top_k(x)
     y = ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act)
     bytes_moved = 3 * d * (k16 * 2 + k8 * 1 + k4 * 0.5)

@@ -24,6 +24,13 @@
 // scrubbed or restored blocks): they are never copied into shared memory
 // (the copy zero-fills them), so no key above a row's front is read into a
 // product and a NaN or Inf planted there leaves the output bit-identical.
+// bf16 (the _bf16 entry points, the reference's default precision): q, k,
+// v and out bf16; Q and the K/V tiles are widened to fp32 (exactly) as
+// they are staged, with plain loads in place of cp.async, into the same
+// fp32 tiles, and the output is rounded to bf16 (round to nearest even)
+// once, as the Pallas kernel writes q.dtype; the split's partials stay
+// fp32. q times the scale and P are not bf16, so the products keep the
+// 3-MMA split. The fp32 forms are the same code at another instance.
 //
 // What bounds it on an H100: the whole prompt at the serve path's shapes
 // (B 4, S 128, 40 query heads over 8 KV heads of 128) moves 25 MB, 7.5 us
@@ -105,8 +112,11 @@
 // 64-row tiles do not fit 16 x G = 80-row query tiles, and a TF32 wgmma
 // takes both operands K-major, so V would need a transpose in shared
 // memory (ROADMAP queue 2).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -136,11 +146,11 @@ struct Smem {
 constexpr int kMaxSmem = 232448 - 1024;
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;         // fp32 or bf16 (the kernel's T), as are k, v, out
+  const void* k;
+  const void* v;
   const int* pos0;       // nullptr: every row starts at 0
-  float* out;
+  void* out;
   float* parts;          // split: (slots, ranges, rows, D + 2) partials
   int* counts;           // split: one counter per slot, 0 between launches
   int S, Skv, Hq, Hkv, G;
@@ -183,6 +193,30 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+// four consecutive values of global memory, widened to fp32 (bf16: 8-byte
+// aligned, widened by the intrinsics, exactly); two and four fp32 values
+// stored as T (bf16: rounded to nearest even, as PyTorch's .to() rounds)
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                         __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -195,8 +229,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 // One query tile (qt) of one key range (rg) of KV head h, head group hg,
 // batch row b: the tile loop, then the normalised output, or with a split
 // this range's partial and, in the last range to finish, the combine.
-// kCap: the kept scores take the softcap.
-template <int D, bool kCap>
+// kCap: the kept scores take the softcap. T: the type of q, k, v and out
+// (fp32, or bf16 widened into the same fp32 tiles as it is staged).
+template <int D, bool kCap, typename T>
 __device__ __forceinline__ void query_tile(const Params& p, float* smem,
                                            int& is_last, int qt, int rg,
                                            int h, int hg, int b) {
@@ -238,9 +273,13 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
     const int jj = hg * p.hb + w / p.qsub;
     const int qr = q0 + (w % p.qsub) * 16 + (row & 15);
     const bool ok = jj < p.G && qr < p.S;
-    const float* src =
-        p.q + (((long long)b * p.S + qr) * p.Hq + h * p.G + jj) * D + c * 4;
-    cp_async16(Qs + row * QL + c * 4, ok ? src : p.q, ok ? 16 : 0);
+    const T* src = static_cast<const T*>(p.q) +
+                   (((long long)b * p.S + qr) * p.Hq + h * p.G + jj) * D + c * 4;
+    if constexpr (std::is_same<T, float>::value)
+      cp_async16(Qs + row * QL + c * 4, ok ? src : p.q, ok ? 16 : 0);
+    else
+      *reinterpret_cast<float4*>(Qs + row * QL + c * 4) =
+          ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const long long slot_stride = (long long)p.Hkv * D;
   const long long base = ((long long)b * p.Skv * p.Hkv + h) * D;
@@ -253,9 +292,14 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
       const int key = e2 / C4, c = e2 % C4;
       const int kp = tile * kBKV + key;
       const bool ok = kp <= front;              // zero-fill past the front
-      const float* src = (isv ? p.v : p.k) + base + kp * slot_stride + c * 4;
-      cp_async16((isv ? Vs + key * VL : Ks + key * QL) + c * 4,
-                 ok ? src : p.k, ok ? 16 : 0);
+      const T* src = static_cast<const T*>(isv ? p.v : p.k) + base +
+                     kp * slot_stride + c * 4;
+      float* dst = (isv ? Vs + key * VL : Ks + key * QL) + c * 4;
+      if constexpr (std::is_same<T, float>::value)
+        cp_async16(dst, ok ? src : p.k, ok ? 16 : 0);
+      else   // bf16: a synchronous load, widened (the tile after is in flight)
+        *reinterpret_cast<float4*>(dst) =
+            ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
 
@@ -417,16 +461,13 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
   if (r_lo == r_hi) {                    // one range: normalise and store
     if (!active) return;
     const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-    float* o0 = p.out + (((long long)b * p.S + qr0) * p.Hq + hq) * D + 2 * t;
-    float* o1 = o0 + 8LL * p.Hq * D;
+    T* o0 = static_cast<T*>(p.out) +
+            (((long long)b * p.S + qr0) * p.Hq + hq) * D + 2 * t;
+    T* o1 = o0 + 8LL * p.Hq * D;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      if (qr0 < p.S)
-        *reinterpret_cast<float2*>(o0 + n * 8) =
-            make_float2(acc[n][0] / d0, acc[n][1] / d0);
-      if (qr1 < p.S)
-        *reinterpret_cast<float2*>(o1 + n * 8) =
-            make_float2(acc[n][2] / d1, acc[n][3] / d1);
+      if (qr0 < p.S) st2(o0 + n * 8, acc[n][0] / d0, acc[n][1] / d0);
+      if (qr1 < p.S) st2(o1 + n * 8, acc[n][2] / d1, acc[n][3] / d1);
     }
     return;
   }
@@ -532,9 +573,9 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
       const int qr = q0 + (w % p.qsub) * 16 + (row & 15);
       if (jj >= p.G || qr >= p.S) continue;
       const float d = den[row];
-      *reinterpret_cast<float4*>(
-          p.out + (((long long)b * p.S + qr) * p.Hq + h * p.G + jj) * D +
-          c * 4) = make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);
+      st4(static_cast<T*>(p.out) +
+              (((long long)b * p.S + qr) * p.Hq + h * p.G + jj) * D + c * 4,
+          make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d));
     }
   }
   if (tid == 0) p.counts[slot] = 0;      // ready for the next launch
@@ -545,7 +586,7 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
 // paired block takes the k-th longest and then the k-th shortest, so that
 // every block does about the same causal work and one wave holds twice
 // the query tiles.
-template <int D, bool kCap>
+template <int D, bool kCap, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 prefill_attention(const Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -557,12 +598,12 @@ prefill_attention(const Params p) {
 #pragma unroll 1
   for (int job = 0; job < jobs; ++job) {   // one copy of the tile's code
     if (job) __syncthreads();              // Q and the ring are free again
-    query_tile<D, kCap>(p, smem, is_last, job ? xq : qt, rg, h, hg,
+    query_tile<D, kCap, T>(p, smem, is_last, job ? xq : qt, rg, h, hg,
                         blockIdx.z);
   }
 }
 
-template <int D, bool kCap>
+template <int D, bool kCap, typename T>
 int launch_d(const Params& p, int B, int warps, cudaStream_t st) {
   const int smem = Smem<D>::bytes(warps);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
@@ -572,18 +613,19 @@ int launch_d(const Params& p, int B, int warps, cudaStream_t st) {
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(ready & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention<D, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        prefill_attention<D, kCap, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
   dim3 grid(p.pair ? (p.q_tiles + 1) / 2 : p.q_tiles * p.ranges,
             p.Hkv * p.groups, B);
-  prefill_attention<D, kCap><<<grid, warps * 32, smem, st>>>(p);
+  prefill_attention<D, kCap, T><<<grid, warps * 32, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
 // parts_floats / count_ints: the capacity of the split's scratch
+template <typename T>
 int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
            cudaStream_t st) {
   if (p.Hkv < 1 || p.Hq % p.Hkv || p.hb < 1 || p.qsub < 1 ||
@@ -604,22 +646,22 @@ int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
   }
   const bool cap = p.softcap > 0.f;
   switch (D) {
-    case 32: return cap ? launch_d<32, true>(p, B, warps, st)
-                        : launch_d<32, false>(p, B, warps, st);
-    case 64: return cap ? launch_d<64, true>(p, B, warps, st)
-                        : launch_d<64, false>(p, B, warps, st);
-    case 128: return cap ? launch_d<128, true>(p, B, warps, st)
-                         : launch_d<128, false>(p, B, warps, st);
+    case 32: return cap ? launch_d<32, true, T>(p, B, warps, st)
+                        : launch_d<32, false, T>(p, B, warps, st);
+    case 64: return cap ? launch_d<64, true, T>(p, B, warps, st)
+                        : launch_d<64, false, T>(p, B, warps, st);
+    case 128: return cap ? launch_d<128, true, T>(p, B, warps, st)
+                         : launch_d<128, false, T>(p, B, warps, st);
     case 256:  // the whole-prompt form only
       if (p.split || p.pos0) return (int)cudaErrorInvalidValue;
-      return cap ? launch_d<256, true>(p, B, warps, st)
-                 : launch_d<256, false>(p, B, warps, st);
+      return cap ? launch_d<256, true, T>(p, B, warps, st)
+                 : launch_d<256, false, T>(p, B, warps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-Params make_params(const float* q, const float* k, const float* v,
-                   const int* pos0, float* out, int S, int Skv, int Hq,
+Params make_params(const void* q, const void* k, const void* v,
+                   const int* pos0, void* out, int S, int Skv, int Hq,
                    int Hkv, float scale, float softcap, int window, int hb,
                    int qsub, int split, int pair) {
   Params p = {};
@@ -655,9 +697,24 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
                                    float softcap, int window, int hb,
                                    int qsub, int pair, void* stream) {
   if (window < 0) return (int)cudaErrorInvalidValue;
-  return launch(make_params(q, k, v, nullptr, out, S, S, Hq, Hkv, scale,
-                            softcap, window, hb, qsub, 0, pair),
-                B, D, 0, 0, (cudaStream_t)stream);
+  return launch<float>(make_params(q, k, v, nullptr, out, S, S, Hq, Hkv,
+                                   scale, softcap, window, hb, qsub, 0, pair),
+                       B, D, 0, 0, (cudaStream_t)stream);
+}
+
+// The same with q, k, v and out bf16 (16-byte aligned): staged widened to
+// fp32, computed as the fp32 form, the output rounded to bf16 (q.dtype, as
+// the Pallas kernel's).
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, void* out, int B, int S,
+                                        int Hq, int Hkv, int D, float scale,
+                                        float softcap, int window, int hb,
+                                        int qsub, int pair, void* stream) {
+  if (window < 0) return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(
+      make_params(q, k, v, nullptr, out, S, S, Hq, Hkv, scale, softcap,
+                  window, hb, qsub, 0, pair),
+      B, D, 0, 0, (cudaStream_t)stream);
 }
 
 // The chunked form: q (B, S, Hq, D) at positions pos0[b] + i (pos0 an int
@@ -679,5 +736,20 @@ extern "C" int flash_attention_chunk_fwd(const float* q, const float* k,
                          0, hb, qsub, split, 0);
   p.parts = parts;
   p.counts = counts;
-  return launch(p, B, D, parts_floats, count_ints, (cudaStream_t)stream);
+  return launch<float>(p, B, D, parts_floats, count_ints, (cudaStream_t)stream);
+}
+
+// The chunked form with q, k, v and out bf16, as flash_attention_fwd_bf16
+// (the partials stay fp32).
+extern "C" int flash_attention_chunk_fwd_bf16(
+    const void* q, const void* k, const void* v, const int* pos0, void* out,
+    float* parts, long long parts_floats, int* counts, long long count_ints,
+    int B, int S, int Skv, int Hq, int Hkv, int D, float scale, float softcap,
+    int hb, int qsub, int split, void* stream) {
+  Params p = make_params(q, k, v, pos0, out, S, Skv, Hq, Hkv, scale, softcap,
+                         0, hb, qsub, split, 0);
+  p.parts = parts;
+  p.counts = counts;
+  return launch<__nv_bfloat16>(p, B, D, parts_floats, count_ints,
+                               (cudaStream_t)stream);
 }

@@ -14,6 +14,12 @@
 // acc / max(l, 1e-20); query head g of KV head h is q head h*G + g. A row
 // with no valid slot gives what the oracle's softmax over S equal scores
 // gives: the mean of V over all S slots.
+// bf16 (flash_decode_fwd_bf16, the reference's default precision): q, k and
+// v bf16, each widened to fp32 (__bfloat162float, exact) as it is read into
+// the same fp32 ring and scaled query rows; everything after, and the fp32
+// output, as the fp32 form, which is the same code at another template
+// instance. A tile's bf16 rows are read with plain 8-byte loads, all of a
+// tile's in flight, then stored widened (not cp.async: simple first).
 //
 // What bounds it on an H100: a valid slot's K and V rows (2 x D x 4 bytes)
 // serve 2 x 2 x G x D FLOP, 2.5 FLOP a byte at G = 5, which fp32 FMAs
@@ -94,7 +100,10 @@
 //    after another: slower at 145 slots); the last range taking the rest
 //    of S, so that 4 rows of 145 slots are 128 blocks, one wave (its
 //    2-tile range cost more than the doubled SMs it spared).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #include <stdint.h>
 
 namespace {
@@ -112,9 +121,9 @@ constexpr int kR = 8;                // ranges a combine step keeps in flight
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;     // fp32 or bf16 (the kernel's T), as are k and v
+  const void* k;
+  const void* v;
   const int* slot_pos;
   const int* lengths;
   float* out;
@@ -204,6 +213,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// four consecutive values of global memory, widened to fp32 (bf16: 8-byte
+// aligned, widened by the intrinsics, exactly)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 __device__ __forceinline__ void fma4(float4& a, float w, const float4& x) {
   a.x = fmaf(w, x.x, a.x);
   a.y = fmaf(w, x.y, a.y);
@@ -240,16 +261,16 @@ __device__ __forceinline__ void load_n(const float* src, float (&dst)[N]) {
 // A row with no valid slot: the oracle's softmax over S equal scores of
 // -1e30 weighs every slot 1/S, so each query head gets V's mean over the
 // whole buffer. `red` holds kThreads * 4 floats of scratch.
-template <int D>
+template <int D, typename T>
 __device__ void mean_of_v(const Params& p, int b, int h, long long bh,
                           float* red) {
   constexpr int C = D / 4, NR = kThreads / C;
   const int tid = threadIdx.x, c = tid % C, grp = tid / C;
-  const float4* vb =
-      reinterpret_cast<const float4*>(p.v + ((long long)b * p.S * p.Hkv + h) * D) + c;
-  const long long stride = (long long)p.Hkv * C;   // float4s from slot to slot
+  const T* vb = static_cast<const T*>(p.v) +
+                ((long long)b * p.S * p.Hkv + h) * D + c * 4;
+  const long long stride = (long long)p.Hkv * D;   // values from slot to slot
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = grp; s < p.S; s += NR) add4(a, __ldg(vb + s * stride));
+  for (int s = grp; s < p.S; s += NR) add4(a, ld4(vb + s * stride));
   reinterpret_cast<float4*>(red)[grp * C + c] = a;
   __syncthreads();
   if (tid < C) {
@@ -262,7 +283,7 @@ __device__ void mean_of_v(const Params& p, int b, int h, long long bh,
   }
 }
 
-template <int D, int G, bool kCap>
+template <int D, int G, bool kCap, typename T>
 __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 flash_decode_kernel(const Params p) {
   using L = Smem<D>;
@@ -315,7 +336,7 @@ flash_decode_kernel(const Params p) {
   }
   // the G query rows of this KV head, scaled
   for (int e = tid; e < G * C; e += kThreads) {
-    float4 x = __ldg(reinterpret_cast<const float4*>(p.q + bh * G * D) + e);
+    const float4 x = ld4(static_cast<const T*>(p.q) + bh * G * D + e * 4);
     reinterpret_cast<float4*>(qs)[e] =
         make_float4(x.x * p.scale, x.y * p.scale, x.z * p.scale, x.w * p.scale);
   }
@@ -339,17 +360,40 @@ flash_decode_kernel(const Params p) {
       const unsigned bits = mask_s[t];
       float* dst = ring + (j % p.stages) * L::kStageF + c * 4;
       const long long row0 = ((long long)b * p.S + s0 + t * kTile) * p.Hkv + h;
-      const float* kb = p.k + row0 * D + c * 4;
-      const float* vb = p.v + row0 * D + c * 4;
+      const T* kb = static_cast<const T*>(p.k) + row0 * D + c * 4;
+      const T* vb = static_cast<const T*>(p.v) + row0 * D + c * 4;
+      if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-      for (int n = 0; n < kCopies; ++n) {
-        const bool isv = n >= kCopies / 2;
-        const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
-        const bool ok = (bits >> slot) & 1u;
-        const long long off = (long long)slot * p.Hkv * D;
-        cp_async16(dst + (isv ? L::kTileF : 0) + slot * L::kLd,
-                   ok ? (isv ? vb : kb) + off : p.k, ok ? 16 : 0);
-        if (n == kCopies / 2 - 1) cp_async_commit();
+        for (int n = 0; n < kCopies; ++n) {
+          const bool isv = n >= kCopies / 2;
+          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
+          const bool ok = (bits >> slot) & 1u;
+          const long long off = (long long)slot * p.Hkv * D;
+          cp_async16(dst + (isv ? L::kTileF : 0) + slot * L::kLd,
+                     ok ? (isv ? vb : kb) + off : p.k, ok ? 16 : 0);
+          if (n == kCopies / 2 - 1) cp_async_commit();
+        }
+      } else {
+        // bf16: every load of the tile in flight, then widened into the
+        // same fp32 ring (masked slots zero); two empty copy groups keep
+        // the waits' counts
+        float4 val[kCopies];
+#pragma unroll
+        for (int n = 0; n < kCopies; ++n) {
+          const bool isv = n >= kCopies / 2;
+          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
+          val[n] = (bits >> slot) & 1u
+              ? ld4((isv ? vb : kb) + (long long)slot * p.Hkv * D)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int n = 0; n < kCopies; ++n) {
+          const bool isv = n >= kCopies / 2;
+          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
+          *reinterpret_cast<float4*>(dst + (isv ? L::kTileF : 0) +
+                                     slot * L::kLd) = val[n];
+        }
+        cp_async_commit();
       }
     } else {
       cp_async_commit();
@@ -456,7 +500,7 @@ flash_decode_kernel(const Params p) {
 
   if (p.ranges == 1) {                 // the whole row: normalise and store
     if (j == 0) {                      // no busy tile: no valid slot
-      mean_of_v<D>(p, b, h, bh, red);
+      mean_of_v<D, T>(p, b, h, bh, red);
       return;
     }
     for (int e = tid; e < G * C; e += kThreads) {
@@ -535,7 +579,7 @@ flash_decode_kernel(const Params p) {
   }
   __syncthreads();
   if (big_m[0] == kNegInf) {           // no valid slot in the whole row
-    mean_of_v<D>(p, b, h, bh, ring);   // over the weights, read no more
+    mean_of_v<D, T>(p, b, h, bh, ring);  // over the weights, read no more
     return;
   }
   float4 o[kE];
@@ -567,7 +611,7 @@ flash_decode_kernel(const Params p) {
   }
 }
 
-template <int D, int G, bool kCap>
+template <int D, int G, bool kCap, typename T>
 int launch(const Params& p, int B, cudaStream_t st) {
   using L = Smem<D>;
   if (p.stages > L::kStagesFit) return (int)cudaErrorInvalidValue;
@@ -577,60 +621,46 @@ int launch(const Params& p, int B, cudaStream_t st) {
   const unsigned long long bit = 1ull << (dev & 63);
   if (!(ready & bit)) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<D, G, kCap>,
+        flash_decode_kernel<D, G, kCap, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         L::bytes(L::kStagesFit));
     if (e != cudaSuccess) return (int)e;
     ready |= bit;
   }
-  flash_decode_kernel<D, G, kCap><<<dim3(p.ranges, p.Hkv * p.groups, B),
-                                    kThreads, L::bytes(p.stages), st>>>(p);
+  flash_decode_kernel<D, G, kCap, T><<<dim3(p.ranges, p.Hkv * p.groups, B),
+                                       kThreads, L::bytes(p.stages), st>>>(p);
   return (int)cudaGetLastError();
 }
 
 // G, the query heads of a block, is a compile-time constant of the kernel,
 // so that its loops over heads unroll whole
-template <int D, bool kCap>
+template <int D, bool kCap, typename T>
 int launch_g(const Params& p, int B, cudaStream_t st) {
   switch (p.G) {
-    case 1: return launch<D, 1, kCap>(p, B, st);
-    case 2: return launch<D, 2, kCap>(p, B, st);
-    case 3: return launch<D, 3, kCap>(p, B, st);
-    case 4: return launch<D, 4, kCap>(p, B, st);
-    case 5: return launch<D, 5, kCap>(p, B, st);
-    case 6: return launch<D, 6, kCap>(p, B, st);
-    case 7: return launch<D, 7, kCap>(p, B, st);
-    case 8: return launch<D, 8, kCap>(p, B, st);
+    case 1: return launch<D, 1, kCap, T>(p, B, st);
+    case 2: return launch<D, 2, kCap, T>(p, B, st);
+    case 3: return launch<D, 3, kCap, T>(p, B, st);
+    case 4: return launch<D, 4, kCap, T>(p, B, st);
+    case 5: return launch<D, 5, kCap, T>(p, B, st);
+    case 6: return launch<D, 6, kCap, T>(p, B, st);
+    case 7: return launch<D, 7, kCap, T>(p, B, st);
+    case 8: return launch<D, 8, kCap, T>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_cap(const Params& p, int B, cudaStream_t st) {
-  return p.softcap > 0.f ? launch_g<D, true>(p, B, st)
-                         : launch_g<D, false>(p, B, st);
+  return p.softcap > 0.f ? launch_g<D, true, T>(p, B, st)
+                         : launch_g<D, false, T>(p, B, st);
 }
 
-}  // namespace
-
-// q (B, Hkv, G, D), k and v (B, S, Hkv, D) fp32, 16-byte aligned;
-// slot_pos (B, S) and lengths (B,) int32; out (B, Hkv, G, D). Ranges of
-// `range` slots (a multiple of 32, at most 2048; the last one takes the
-// rest of S); a ring of `stages` tiles (1 to 6, to 3 at D = 256; 1 only
-// where a range is one tile); a KV head's G query heads in `groups` blocks
-// of G / groups <= 8 heads. With more than one range, parts holds parts_floats floats (at
-// least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least
-// B*Hkv*groups, all 0; they are 0 again when the launch ends); softcap > 0
-// caps the valid scaled scores (0: no cap). Returns a cudaError_t (0 on
-// success).
-extern "C" int flash_decode_fwd(const float* q, const float* k,
-                                const float* v, const int* slot_pos,
-                                const int* lengths, float* out, float* parts,
-                                long long parts_floats, int* counts,
-                                long long count_ints, int B, int S, int Hkv,
-                                int G, int D, int range, int stages,
-                                int groups, float scale, float softcap,
-                                void* stream) {
+template <typename T>
+int fwd(const T* q, const T* k, const T* v, const int* slot_pos,
+        const int* lengths, float* out, float* parts, long long parts_floats,
+        int* counts, long long count_ints, int B, int S, int Hkv, int G, int D,
+        int range, int stages, int groups, float scale, float softcap,
+        void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || G < 1 || groups < 1 || G % groups ||
       !(softcap >= 0.f) ||
       G / groups > kMaxG || stages < kMinStages ||
@@ -662,10 +692,58 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch_cap<32>(p, B, st);
-    case 64: return launch_cap<64>(p, B, st);
-    case 128: return launch_cap<128>(p, B, st);
-    case 256: return launch_cap<256>(p, B, st);
+    case 32: return launch_cap<32, T>(p, B, st);
+    case 64: return launch_cap<64, T>(p, B, st);
+    case 128: return launch_cap<128, T>(p, B, st);
+    case 256: return launch_cap<256, T>(p, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+}  // namespace
+
+// q (B, Hkv, G, D), k and v (B, S, Hkv, D) fp32, 16-byte aligned;
+// slot_pos (B, S) and lengths (B,) int32; out (B, Hkv, G, D). Ranges of
+// `range` slots (a multiple of 32, at most 2048; the last one takes the
+// rest of S); a ring of `stages` tiles (1 to 6, to 3 at D = 256; 1 only
+// where a range is one tile); a KV head's G query heads in `groups` blocks
+// of G / groups <= 8 heads. With more than one range, parts holds parts_floats floats (at
+// least B*Hkv*ranges*G*(D + 2)) and counts count_ints ints (at least
+// B*Hkv*groups, all 0; they are 0 again when the launch ends); softcap > 0
+// caps the valid scaled scores (0: no cap). Returns a cudaError_t (0 on
+// success).
+#ifndef FLASH_DECODE_BF16
+extern "C" int flash_decode_fwd(const float* q, const float* k,
+                                const float* v, const int* slot_pos,
+                                const int* lengths, float* out, float* parts,
+                                long long parts_floats, int* counts,
+                                long long count_ints, int B, int S, int Hkv,
+                                int G, int D, int range, int stages,
+                                int groups, float scale, float softcap,
+                                void* stream) {
+  return fwd<float>(q, k, v, slot_pos, lengths, out, parts, parts_floats,
+                    counts, count_ints, B, S, Hkv, G, D, range, stages, groups,
+                    scale, softcap, stream);
+}
+#else
+
+// The same with q, k and v bf16 (16-byte aligned), widened to fp32 as they
+// are read; everything else, the plan and the fp32 output included, as
+// flash_decode_fwd. It is built from flash_decode_bf16.cu, this file with
+// FLASH_DECODE_BF16 defined, so that the two forms' template instances
+// compile in parallel.
+extern "C" int flash_decode_fwd_bf16(const void* q, const void* k,
+                                     const void* v, const int* slot_pos,
+                                     const int* lengths, float* out,
+                                     float* parts, long long parts_floats,
+                                     int* counts, long long count_ints, int B,
+                                     int S, int Hkv, int G, int D, int range,
+                                     int stages, int groups, float scale,
+                                     float softcap, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return fwd<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), slot_pos, lengths, out, parts,
+                   parts_floats, counts, count_ints, B, S, Hkv, G, D, range,
+                   stages, groups, scale, softcap, stream);
+}
+#endif  // FLASH_DECODE_BF16

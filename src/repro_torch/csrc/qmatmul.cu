@@ -60,16 +60,47 @@
 //    the epilogue, the row form's per-contraction scale is folded into A
 //    before the split. Small outputs split K across blocks (the same
 //    fixed-order second pass).
+// bf16 (qmm_gathered_bf16, the reference's default precision): x (or h) is
+// bf16 and so is the fp tier's bank (precision 0 names it there); the int8
+// and int4 banks are the same bytes. Every value is widened to fp32 as it is
+// staged (__bfloat162float, exact) and the sums stay fp32, as _qmm_kernel
+// widens its inputs; out stays fp32. The fp32 kernels are the same code,
+// other template instances. Kernel A reads a bf16 row as 8 values a 16-byte
+// unit. In kernel B a bf16 value is exact in TF32 (8 of its 10 mantissa
+// bits), so a bf16 or int weight takes no lo part, and a bf16 x none either:
+// the col form and the fp tier's row form issue one MMA per product, the int
+// tiers' row form (h times a scale, not bf16) two. bf16 x is staged with
+// plain loads, not cp.async (simple first: a later change may stage it raw).
 // Tier widths (38, 78, 1037, 2073, ...) are not tile multiples: every edge
 // is masked (cp.async zero-fills). Rows whose bytes are not 16-byte aligned
 // (compact banks of odd width) take element-wise loads; the sums are the
 // same either way. No atomics: every result is deterministic.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-enum Precision { kFp = 0, kInt8 = 1, kInt4 = 2 };
+// kBf16: the fp tier of a bf16 model (bf16 rows), beside bf16 x only
+enum Precision { kFp = 0, kInt8 = 1, kInt4 = 2, kBf16 = 3 };
+using bf16 = __nv_bfloat16;
+
+template <int PREC>
+__host__ __device__ constexpr bool is_int() {
+  return PREC == kInt8 || PREC == kInt4;
+}
+
+// the two bf16 values of a 32-bit word (the lower address first), widened
+// to fp32 by the intrinsic, exactly
+__device__ __forceinline__ float2 bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+// an activation (x or h) widened to fp32
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
 enum Layout { kCol = 0, kRow = 1 };
 
 // signed value of byte i / nibble i of a little-endian 32-bit word
@@ -85,6 +116,7 @@ template <int PREC>
 __device__ __forceinline__ float load_elem(const char* row, int k) {
   if (PREC == kFp) return __ldg(reinterpret_cast<const float*>(row) + k);
   if (PREC == kInt8) return (float)__ldg(reinterpret_cast<const signed char*>(row) + k);
+  if (PREC == kBf16) return __bfloat162float(__ldg(reinterpret_cast<const bf16*>(row) + k));
   const int b = __ldg(reinterpret_cast<const signed char*>(row) + (k >> 1));
   return (float)((k & 1) ? (b >> 4) : ((int)((unsigned)b << 28) >> 28));
 }
@@ -123,7 +155,8 @@ static_assert(kRowBlockCols == kGemvThreads, "one reduced column per thread");
 
 template <int PREC>
 struct Unit {  // values in one 16-byte unit
-  static constexpr int kElems = PREC == kFp ? 4 : PREC == kInt8 ? 16 : 32;
+  static constexpr int kElems =
+      PREC == kFp ? 4 : PREC == kBf16 ? 8 : PREC == kInt8 ? 16 : 32;
 };
 
 // Where x[m, k] sits in a staged row: 16-byte groups of k are permuted
@@ -154,6 +187,24 @@ __device__ __forceinline__ void unit_dot(const uint4 (&v)[kNpw],
         s = fmaf(a.y, __uint_as_float(v[j].y), s);
         s = fmaf(a.z, __uint_as_float(v[j].z), s);
         s = fmaf(a.w, __uint_as_float(v[j].w), s);
+        acc[j][m] = s;
+      }
+    } else if (PREC == kBf16) {
+      const float4 a = *reinterpret_cast<const float4*>(xm + swz(k0));
+      const float4 b = *reinterpret_cast<const float4*>(xm + swz(k0 + 4));
+#pragma unroll
+      for (int j = 0; j < kNpw; ++j) {
+        const float2 w0 = bf2(v[j].x), w1 = bf2(v[j].y);
+        const float2 w2 = bf2(v[j].z), w3 = bf2(v[j].w);
+        float s = acc[j][m];
+        s = fmaf(a.x, w0.x, s);
+        s = fmaf(a.y, w0.y, s);
+        s = fmaf(a.z, w1.x, s);
+        s = fmaf(a.w, w1.y, s);
+        s = fmaf(b.x, w2.x, s);
+        s = fmaf(b.y, w2.y, s);
+        s = fmaf(b.z, w3.x, s);
+        s = fmaf(b.w, w3.y, s);
         acc[j][m] = s;
       }
     } else {
@@ -188,10 +239,11 @@ __device__ __forceinline__ void unit_dot(const uint4 (&v)[kNpw],
   }
 }
 
-// col form, one block row per x row: grid (ceil(N / 16), R)
-template <int PREC, int MAXM>
+// col form, one block row per x row: grid (ceil(N / 16), R); XT: x's type
+// (bf16 x is widened as it is staged)
+template <int PREC, int MAXM, typename XT>
 __global__ void __launch_bounds__(kGemvThreads)
-qmm_gemv_col(const float* __restrict__ x, const char* __restrict__ w,
+qmm_gemv_col(const XT* __restrict__ x, const char* __restrict__ w,
              const float* __restrict__ scale, const int* __restrict__ idx,
              int M, int N, int K, long long ldw, int kc_len, int vec_x,
              int vec_w, int accumulate, float* __restrict__ out) {
@@ -224,7 +276,12 @@ qmm_gemv_col(const float* __restrict__ x, const char* __restrict__ w,
     const int klen = min(kc_len, K - kc);
     __syncthreads();                       // the last chunk's reads are done
     // stage x[:, kc:kc+klen] with asynchronous copies, all in flight at once
-    if (vec_x) {                           // K % 4 == 0, x 16-byte aligned
+    if constexpr (!std::is_same<XT, float>::value) {   // bf16: widened
+      for (int i = threadIdx.x; i < M * klen; i += kGemvThreads) {
+        const int m = i / klen, kk = i - m * klen;
+        xs[m * kc_len + swz(kk)] = to_f(x[(long long)m * K + kc + kk]);
+      }
+    } else if (vec_x) {                    // K % 4 == 0, x 16-byte aligned
       const int q4 = klen / 4;
       for (int i = threadIdx.x; i < M * q4; i += kGemvThreads) {
         const int m = i / q4, kk = (i - m * q4) * 4;
@@ -301,7 +358,7 @@ qmm_gemv_col(const float* __restrict__ x, const char* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < kNpw; ++j) {
     if (!ok[j]) continue;
-    const float s = (PREC != kFp && scale) ? scale[rid[j]] : 1.f;
+    const float s = (is_int<PREC>() && scale) ? scale[rid[j]] : 1.f;
 #pragma unroll
     for (int m = 0; m < MAXM; ++m) {
       if (m >= M) break;
@@ -314,9 +371,9 @@ qmm_gemv_col(const float* __restrict__ x, const char* __restrict__ w,
 
 // row form: grid (ceil(N / 256), 1, R * splits); a split holds at most
 // kRowIds neurons and M * (its neurons) <= kRowHs
-template <int PREC, int MAXM>
+template <int PREC, int MAXM, typename XT>
 __global__ void __launch_bounds__(kGemvThreads)
-qmm_gemv_row(const float* __restrict__ h, const char* __restrict__ w,
+qmm_gemv_row(const XT* __restrict__ h, const char* __restrict__ w,
              const float* __restrict__ scale, const int* __restrict__ idx,
              int M, int N, int K, long long ldw, int k_split, int splits,
              int vec_w, int accumulate, float* __restrict__ out,
@@ -333,9 +390,10 @@ qmm_gemv_row(const float* __restrict__ h, const char* __restrict__ w,
   if (idx) idx += (long long)row * K;
   for (int i = threadIdx.x; i < jlen; i += kGemvThreads) {
     const int r = idx ? idx[jbeg + i] : jbeg + i;
-    const float s = (PREC != kFp && scale) ? scale[r] : 1.f;
+    const float s = (is_int<PREC>() && scale) ? scale[r] : 1.f;
     rid_s[i] = r;
-    for (int m = 0; m < M; ++m) hs[m * jlen + i] = h[(long long)m * K + jbeg + i] * s;
+    for (int m = 0; m < M; ++m)
+      hs[m * jlen + i] = to_f(h[(long long)m * K + jbeg + i]) * s;
   }
   __syncthreads();
   const int c0 = blockIdx.x * kRowBlockCols + lane * kRowCols;
@@ -358,6 +416,8 @@ qmm_gemv_row(const float* __restrict__ h, const char* __restrict__ w,
         if (PREC == kFp) {
           raw[q][0] = __ldg(reinterpret_cast<const uint4*>(p) + c0 / 4);
           raw[q][1] = __ldg(reinterpret_cast<const uint4*>(p) + c0 / 4 + 1);
+        } else if (PREC == kBf16) {
+          raw[q][0] = __ldg(reinterpret_cast<const uint4*>(p) + c0 / 8);
         } else if (PREC == kInt8) {
           const uint2 t = __ldg(reinterpret_cast<const uint2*>(p + c0));
           raw[q][0].x = t.x;
@@ -378,6 +438,11 @@ qmm_gemv_row(const float* __restrict__ h, const char* __restrict__ w,
           wv[2] = __uint_as_float(raw[q][0].z); wv[3] = __uint_as_float(raw[q][0].w);
           wv[4] = __uint_as_float(raw[q][1].x); wv[5] = __uint_as_float(raw[q][1].y);
           wv[6] = __uint_as_float(raw[q][1].z); wv[7] = __uint_as_float(raw[q][1].w);
+        } else if (PREC == kBf16) {
+          const float2 w0 = bf2(raw[q][0].x), w1 = bf2(raw[q][0].y);
+          const float2 w2 = bf2(raw[q][0].z), w3 = bf2(raw[q][0].w);
+          wv[0] = w0.x; wv[1] = w0.y; wv[2] = w1.x; wv[3] = w1.y;
+          wv[4] = w2.x; wv[5] = w2.y; wv[6] = w3.x; wv[7] = w3.y;
         } else if (PREC == kInt8) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
@@ -443,14 +508,14 @@ template <int BM, int PREC, int LAYOUT>
 struct MmaSmem {
   static constexpr int kA = BM * kALd * 4;
   static constexpr int kBRowBytes = LAYOUT == kCol
-      ? (PREC == kFp ? kALd * 4 : 48)       // B[n][k], k contiguous
-      : (PREC == kFp ? (kBN + 8) * 4 : 80);  // B[k][n], n contiguous
+      ? (PREC == kFp ? kALd * 4 : PREC == kBf16 ? 80 : 48)  // B[n][k], k contiguous
+      : (PREC == kFp ? (kBN + 8) * 4 : PREC == kBf16 ? 144 : 80);  // B[k][n]
   static constexpr int kBRows = LAYOUT == kCol ? kBN : kBK;
   static constexpr int kB = kBRows * kBRowBytes;
   static constexpr int kStage = kA + kB;
   // row form: the split's neuron ids (and int scales), staged once
   static constexpr int kRowInfo =
-      LAYOUT == kRow ? kMmaRowSpan * (PREC == kFp ? 4 : 8) : 0;
+      LAYOUT == kRow ? kMmaRowSpan * (is_int<PREC>() ? 8 : 4) : 0;
   static constexpr int kTotal = kStages * kStage + kRowInfo;
 };
 
@@ -476,6 +541,7 @@ __device__ __forceinline__ float row_b(const unsigned char* Bs, int k, int n) {
   const unsigned char* r = Bs + k * RB;
   if (PREC == kFp) return reinterpret_cast<const float*>(r)[n];
   if (PREC == kInt8) return (float)(signed char)r[n];
+  if (PREC == kBf16) return __bfloat162float(reinterpret_cast<const bf16*>(r)[n]);
   return (float)nibble_at(r[n >> 1], n & 1);
 }
 
@@ -488,6 +554,10 @@ __device__ __forceinline__ void tile_b2(const unsigned char* Bs, int k, int n,
     const unsigned char* r = Bs + n * RB;
     if (PREC == kFp) {
       const float2 v = *reinterpret_cast<const float2*>(r + 4 * k);
+      b0 = v.x;
+      b1 = v.y;
+    } else if (PREC == kBf16) {
+      const float2 v = bf2(*reinterpret_cast<const uint32_t*>(r + 2 * k));
       b0 = v.x;
       b1 = v.y;
     } else if (PREC == kInt8) {
@@ -505,10 +575,11 @@ __device__ __forceinline__ void tile_b2(const unsigned char* Bs, int k, int n,
   b1 = row_b<PREC, RB>(Bs, k + 1, n);
 }
 
-// grid (ceil(N / 64), ceil(M / BM), R * splits)
-template <int BM, int PREC, int LAYOUT>
+// grid (ceil(N / 64), ceil(M / BM), R * splits); XT: x's type (bf16 x is
+// widened as it is staged, and is then exact in TF32)
+template <int BM, int PREC, int LAYOUT, typename XT>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
-qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
+qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
                const float* __restrict__ scale, const int* __restrict__ idx,
                int M, int N, int K, long long ldw, int k_split, int splits,
                int vec_x, int vec_w, int accumulate, float* __restrict__ out,
@@ -519,7 +590,12 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
   constexpr int WARPS_N = 4 / WARPS_M;
   constexpr int WTM = BM / WARPS_M, WTN = kBN / WARPS_N;
   constexpr int MT = WTM / 16, NT = WTN / 8;
-  constexpr int BPE2 = PREC == kFp ? 8 : PREC == kInt8 ? 2 : 1;  // 2 x bytes per value
+  constexpr int BPE2 =                                  // 2 x bytes per value
+      PREC == kFp ? 8 : PREC == kBf16 ? 4 : PREC == kInt8 ? 2 : 1;
+  // A (x, or h times nothing) holds bf16 values, exact in TF32: its lo
+  // part is 0 and its MMA is skipped; h times an int tier's scale is not
+  constexpr bool kAExact = !std::is_same<XT, float>::value &&
+                           !(LAYOUT == kRow && is_int<PREC>());
   constexpr int UE = 32 / BPE2;                                  // values per 16 bytes
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int col_id[kBN];
@@ -545,7 +621,7 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
       const bool ok = i < kend - kbeg;
       const int r = ok ? (idx ? idx[kbeg + i] : kbeg + i) : 0;
       row_id[i] = r;
-      if (PREC != kFp) row_sc[i] = (ok && scale) ? scale[r] : 1.f;
+      if (is_int<PREC>()) row_sc[i] = (ok && scale) ? scale[r] : 1.f;
     }
   }
   __syncthreads();
@@ -554,7 +630,14 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
     unsigned char* base = smem + st * S::kStage;
     float* As = reinterpret_cast<float*>(base);
     unsigned char* Bs = base + S::kA;
-    if (vec_x) {                           // K % 4 == 0, x 16-byte aligned
+    if constexpr (!std::is_same<XT, float>::value) {   // bf16: widened
+      for (int e = tid; e < BM * kBK; e += kMmaThreads) {
+        const int mm = e / kBK, kk = e % kBK;
+        const int m = m0 + mm, k = k0 + kk;
+        As[mm * kALd + kk] =
+            m < M && k < kend ? to_f(x[(long long)m * K + k]) : 0.f;
+      }
+    } else if (vec_x) {                    // K % 4 == 0, x 16-byte aligned
       for (int e = tid; e < BM * (kBK / 4); e += kMmaThreads) {
         const int mm = e / (kBK / 4), kq = (e % (kBK / 4)) * 4;
         const int m = m0 + mm, k = k0 + kq;
@@ -594,6 +677,16 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
                     ok ? w + (long long)r * ldw + (long long)k * 4 : w,
                     ok ? 4 : 0);
         }
+      } else if (PREC == kBf16) {
+        for (int e = tid; e < kBN * kBK; e += kMmaThreads) {
+          const int nn = e / kBK, kk = e % kBK;
+          const int r = col_id[nn], k = k0 + kk;
+          reinterpret_cast<unsigned short*>(Bs + nn * RB)[kk] =
+              (r >= 0 && k < kend)
+                  ? __ldg(reinterpret_cast<const unsigned short*>(
+                        w + (long long)r * ldw) + k)
+                  : (unsigned short)0;
+        }
       } else {
         for (int e = tid; e < kBN * kRowBytes; e += kMmaThreads) {
           const int nn = e / kRowBytes, b = e % kRowBytes;
@@ -626,6 +719,16 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
           const long long r = ok ? row_id[j - kbeg] : 0;
           cp_async4(Bs + kk * RB + nn * 4, ok ? w + r * ldw + (long long)c * 4 : w,
                     ok ? 4 : 0);
+        }
+      } else if (PREC == kBf16) {
+        for (int e = tid; e < kBK * kBN; e += kMmaThreads) {
+          const int kk = e / kBN, nn = e % kBN;
+          const int j = k0 + kk, c = n0 + nn;
+          const bool ok = j < kend && c < N;
+          const long long r = ok ? row_id[j - kbeg] : 0;
+          reinterpret_cast<unsigned short*>(Bs + kk * RB)[nn] = ok
+              ? __ldg(reinterpret_cast<const unsigned short*>(w + r * ldw) + c)
+              : (unsigned short)0;
         }
       } else {
         for (int e = tid; e < kBK * kRowBytes; e += kMmaThreads) {
@@ -676,7 +779,7 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
         const float2 hi_row =
             *reinterpret_cast<const float2*>(As + (mr + 8) * kALd + kk + 2 * t);
         float a[4] = {lo_row.x, hi_row.x, lo_row.y, hi_row.y};
-        if (LAYOUT == kRow && PREC != kFp) {
+        if (LAYOUT == kRow && is_int<PREC>()) {
           a[0] *= rs[kk + 2 * t];
           a[1] *= rs[kk + 2 * t];
           a[2] *= rs[kk + 2 * t + 1];
@@ -694,17 +797,19 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
         if (PREC == kFp) {
           split_tf32(b0, bhi[jn][0], blo[jn][0]);
           split_tf32(b1, bhi[jn][1], blo[jn][1]);
-        } else {                            // |q| <= 127: exact in TF32
+        } else {            // |q| <= 127 and bf16: exact in TF32
           bhi[jn][0] = __float_as_uint(b0);
           bhi[jn][1] = __float_as_uint(b1);
         }
       }
       // one pass per term, small terms first: the MT * NT MMAs of a pass
       // are independent, so a sum never waits on the MMA just issued
+      if (!kAExact) {
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int jn = 0; jn < NT; ++jn) mma_tf32(part[i][jn], alo[i], bhi[jn]);
+          for (int jn = 0; jn < NT; ++jn) mma_tf32(part[i][jn], alo[i], bhi[jn]);
+      }
       if (PREC == kFp) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -754,7 +859,7 @@ qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
         const int n = n0 + nn;
         if (m >= M || n >= N) continue;
         float v = acc[i][jn][q];
-        if (LAYOUT == kCol && PREC != kFp && scale) v *= scale[col_id[nn]];
+        if (LAYOUT == kCol && is_int<PREC>() && scale) v *= scale[col_id[nn]];
         float* p = o + (long long)m * N + n;
         *p = (direct && accumulate) ? *p + v : v;
       }
@@ -776,7 +881,7 @@ __global__ void sum_splits(const float* __restrict__ parts, int splits,
 }
 
 struct Args {
-  const float* x;
+  const void* x;       // XT of the launch
   const char* w;
   const float* scale;
   const int* idx;
@@ -788,74 +893,69 @@ struct Args {
   cudaStream_t st;
 };
 
-template <int PREC, int MAXM>
+template <int PREC, int MAXM, typename XT>
 int launch_gemv(int layout, const Args& a) {
+  const XT* x = static_cast<const XT*>(a.x);
   if (layout == kCol) {
     dim3 grid((a.N + kGemvWarps * kNpw - 1) / (kGemvWarps * kNpw), a.R);
-    qmm_gemv_col<PREC, MAXM><<<grid, kGemvThreads, 0, a.st>>>(
-        a.x, a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.vec_x,
+    qmm_gemv_col<PREC, MAXM, XT><<<grid, kGemvThreads, 0, a.st>>>(
+        x, a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.vec_x,
         a.vec_w, a.accumulate, a.out);
   } else {
     dim3 grid((a.N + kRowBlockCols - 1) / kRowBlockCols, 1, a.R * a.splits);
-    qmm_gemv_row<PREC, MAXM><<<grid, kGemvThreads, 0, a.st>>>(
-        a.x, a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
+    qmm_gemv_row<PREC, MAXM, XT><<<grid, kGemvThreads, 0, a.st>>>(
+        x, a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
         a.vec_w, a.accumulate, a.out, a.parts);
   }
   return 0;
 }
 
-template <int BM, int PREC, int LAYOUT>
+template <int BM, int PREC, int LAYOUT, typename XT>
 int launch_mma(const Args& a) {
   using S = MmaSmem<BM, PREC, LAYOUT>;
   static bool ready = false;
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_mma_kernel<BM, PREC, LAYOUT>,
+        qmm_mma_kernel<BM, PREC, LAYOUT, XT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kTotal);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
   dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM, a.R * a.splits);
-  qmm_mma_kernel<BM, PREC, LAYOUT><<<grid, kMmaThreads, S::kTotal, a.st>>>(
-      a.x, a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
+  qmm_mma_kernel<BM, PREC, LAYOUT, XT><<<grid, kMmaThreads, S::kTotal, a.st>>>(
+      static_cast<const XT*>(a.x), a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
       a.vec_x, a.vec_w, a.accumulate, a.out, a.parts);
   return 0;
 }
 
-template <int PREC>
+template <int PREC, typename XT>
 int dispatch(int layout, int kernel, int tile, const Args& a) {
   if (kernel == 0) {
     switch (tile) {
-      case 1: return launch_gemv<PREC, 1>(layout, a);
-      case 4: return launch_gemv<PREC, 4>(layout, a);
-      case 8: return launch_gemv<PREC, 8>(layout, a);
-      case 16: return launch_gemv<PREC, 16>(layout, a);
+      case 1: return launch_gemv<PREC, 1, XT>(layout, a);
+      case 4: return launch_gemv<PREC, 4, XT>(layout, a);
+      case 8: return launch_gemv<PREC, 8, XT>(layout, a);
+      case 16: return launch_gemv<PREC, 16, XT>(layout, a);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (tile == 16)
-    return layout == kCol ? launch_mma<16, PREC, kCol>(a)
-                          : launch_mma<16, PREC, kRow>(a);
+    return layout == kCol ? launch_mma<16, PREC, kCol, XT>(a)
+                          : launch_mma<16, PREC, kRow, XT>(a);
   if (tile == 64)
-    return layout == kCol ? launch_mma<64, PREC, kCol>(a)
-                          : launch_mma<64, PREC, kRow>(a);
+    return layout == kCol ? launch_mma<64, PREC, kCol, XT>(a)
+                          : launch_mma<64, PREC, kRow, XT>(a);
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Returns a cudaError_t (0 on success). x is (R, M, K), idx (R, n) or null,
-// out (R, M, N). kernel 0 = kernel A (tile = MAXM: 1, 4, 8 or 16; col form:
-// k_split is the K chunk staged in shared memory, splits must be 1; row
-// form: k_split <= 1024 and M * k_split <= 4096), kernel 1 = kernel B
-// (tile = BM: 16 or 64; row form: k_split <= 2560). ldw is a bank row's stride in
-// bytes. `parts` holds R*splits*M*N floats and may be null when splits == 1.
-extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
-                            const int* idx, int R, int M, int N, int K,
-                            long long ldw, int precision, int layout,
-                            int kernel, int tile, int splits, int k_split,
-                            int vec_x, int vec_w, int accumulate, float* out,
-                            float* parts, void* stream) {
+// the checks of both entry points, the launch, then the splits' sum; XT:
+// x's type (bf16: precision 0 names the bf16 fp tier)
+template <typename XT>
+int gathered(const void* x, const void* w, const float* scale,
+             const int* idx, int R, int M, int N, int K, long long ldw,
+             int precision, int layout, int kernel, int tile, int splits,
+             int k_split, int vec_x, int vec_w, int accumulate, float* out,
+             float* parts, void* stream) {
   if ((long long)R * splits > 65535 || (kernel == 0 && layout == kCol &&
                                         splits != 1))
     return (int)cudaErrorInvalidValue;
@@ -867,9 +967,10 @@ extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
   if (splits > 1 && parts == nullptr) return (int)cudaErrorInvalidValue;
   Args a{x, (const char*)w, scale, idx, R, M, N, K, ldw, k_split, splits,
          vec_x, vec_w, accumulate, out, parts, (cudaStream_t)stream};
-  int err = precision == kFp ? dispatch<kFp>(layout, kernel, tile, a)
-          : precision == kInt8 ? dispatch<kInt8>(layout, kernel, tile, a)
-          : precision == kInt4 ? dispatch<kInt4>(layout, kernel, tile, a)
+  constexpr int kFpTier = std::is_same<XT, float>::value ? kFp : kBf16;
+  int err = precision == kFp ? dispatch<kFpTier, XT>(layout, kernel, tile, a)
+          : precision == kInt8 ? dispatch<kInt8, XT>(layout, kernel, tile, a)
+          : precision == kInt4 ? dispatch<kInt4, XT>(layout, kernel, tile, a)
           : (int)cudaErrorInvalidValue;
   if (err) return err;
   err = (int)cudaGetLastError();
@@ -883,3 +984,42 @@ extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
                                                      total, accumulate, out);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Returns a cudaError_t (0 on success). x is (R, M, K), idx (R, n) or null,
+// out (R, M, N). kernel 0 = kernel A (tile = MAXM: 1, 4, 8 or 16; col form:
+// k_split is the K chunk staged in shared memory, splits must be 1; row
+// form: k_split <= 1024 and M * k_split <= 4096), kernel 1 = kernel B
+// (tile = BM: 16 or 64; row form: k_split <= 2560). ldw is a bank row's stride in
+// bytes. `parts` holds R*splits*M*N floats and may be null when splits == 1.
+#ifndef QMATMUL_BF16
+extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
+                            const int* idx, int R, int M, int N, int K,
+                            long long ldw, int precision, int layout,
+                            int kernel, int tile, int splits, int k_split,
+                            int vec_x, int vec_w, int accumulate, float* out,
+                            float* parts, void* stream) {
+  return gathered<float>(x, w, scale, idx, R, M, N, K, ldw, precision,
+                         layout, kernel, tile, splits, k_split, vec_x, vec_w,
+                         accumulate, out, parts, stream);
+}
+#else
+
+// The same with x bf16, widened to fp32 as it is staged; precision 0 is
+// then the bf16 fp tier (w bf16 rows), 1 and 2 the int8 and int4 banks. The
+// plan's arguments mean what they mean above; out stays fp32. It is built
+// from qmatmul_bf16.cu, this file with QMATMUL_BF16 defined, so that the
+// two forms' template instances compile in parallel.
+extern "C" int qmm_gathered_bf16(const void* x, const void* w,
+                                 const float* scale, const int* idx, int R,
+                                 int M, int N, int K, long long ldw,
+                                 int precision, int layout, int kernel,
+                                 int tile, int splits, int k_split, int vec_x,
+                                 int vec_w, int accumulate, float* out,
+                                 float* parts, void* stream) {
+  return gathered<bf16>(x, w, scale, idx, R, M, N, K, ldw, precision,
+                        layout, kernel, tile, splits, k_split, vec_x, vec_w,
+                        accumulate, out, parts, stream);
+}
+#endif  // QMATMUL_BF16

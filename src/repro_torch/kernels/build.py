@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/kernels/`` at
 the repository root; the library is loaded with ``ctypes``. The first use
 of any kernel starts one ``nvcc`` per source, all at once, and waits for
-them. A library's file name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded.
+them. A library's file name carries a hash of its source and of the
+sources it includes from ``csrc`` (a ``_bf16`` source is its fp32 source
+built with a macro set, a unit of its own so that the two forms' template
+instances compile in parallel), so an edited source is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-SOURCES = ("qmatmul", "flash_decode", "flash_attention", "atu_update")
+SOURCES = ("qmatmul", "qmatmul_bf16", "flash_decode", "flash_decode_bf16",
+           "flash_attention", "atu_update")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,8 +47,19 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def _source_bytes(name: str) -> bytes:
+    """``csrc/<name>`` and every ``csrc`` file it includes by a quoted
+    name, in order."""
+    text = (CSRC / name).read_bytes()
+    out = [text]
+    for line in text.decode().splitlines():
+        if line.startswith('#include "'):
+            out.append(_source_bytes(line.split('"')[1]))
+    return b"".join(out)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256(_source_bytes(f"{name}.cu")).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

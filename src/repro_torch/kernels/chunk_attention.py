@@ -6,7 +6,9 @@ Pallas ``flash_attention`` kernel this source replaces).
 
 ``chunk_attention`` launches it on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``chunk_attention_ref`` and the device dispatch lives
-in ``kernels/ops.py``.
+in ``kernels/ops.py``. q, k and v are all fp32 or all bf16
+(``flash_attention_chunk_fwd_bf16``, the same plan); the output has q's
+dtype.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.kernels.flash_attention import _plan as _tiles
 #: softcap
 launches = 0
 launches_softcap = 0
+#: of those, the ones over bf16 q, k and v
+launches_bf16 = 0
 
 #: key slots of one range when a chunk splits its key axis (a multiple of
 #: 32; 0 never splits)
@@ -34,7 +38,7 @@ SPLIT_SLOTS = 32
 #: a longer buffer takes wider ranges)
 MAX_RANGES = 16
 
-_fn = None
+_fns = {}
 #: per device: the split's counters, all 0 between launches (each launch
 #: sets the ones it used back to 0)
 _counts: Dict[torch.device, torch.Tensor] = {}
@@ -57,17 +61,21 @@ def _plan(S: int, Skv: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
     return tiles._replace(split=split)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention").flash_attention_chunk_fwd
+def _kernel(bf16: bool = False):
+    """The chunk form's C entry point for fp32 (``flash_attention_chunk_fwd``)
+    or bf16 q, k, v and out (``flash_attention_chunk_fwd_bf16``)."""
+    fn = _fns.get(bf16)
+    if fn is None:
+        lib = build.load("flash_attention")
+        fn = (lib.flash_attention_chunk_fwd_bf16 if bf16
+              else lib.flash_attention_chunk_fwd)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, F, I,
                        I, I, P]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[bf16] = fn
+    return fn
 
 
 def _require(cond: bool, msg: str):
@@ -99,9 +107,9 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, S, Hq, D); k, v: (B, Skv, Hkv, D); pos0: (B,) int32 on the
     device, with ``pos0[b] + S <= Skv`` (unchecked: it lives on the device);
     ``softcap`` > 0 caps the scaled scores before the mask (tanh(s / c) * c).
-    Returns (B, S, Hq, D) float32; slots above a row's chunk are never
-    read."""
-    global launches, launches_softcap
+    q, k and v float32 or all bfloat16. Returns (B, S, Hq, D) in q's dtype;
+    slots above a row's chunk are never read."""
+    global launches, launches_softcap, launches_bf16
     _require(softcap >= 0, f"softcap {softcap} < 0")
     B = q.shape[0] if q.dim() == 4 else -1
     _require(pos0.dtype == torch.int32 and tuple(pos0.shape) == (B,)
@@ -113,23 +121,26 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     _require(pos0.device == q.device, f"pos0 must be on {q.device}")
-    out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out
     plan = _plan(S, Skv, Hq, Hkv, D, build.sm_count(q.device))
     parts = counts = None
     if plan.split:
         parts, counts = _scratch(plan, B, S, Skv, Hq, Hkv, D, q.device)
+    bf16 = q.dtype == torch.bfloat16
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),
-                    out.data_ptr(),
-                    None if parts is None else parts.data_ptr(),
-                    0 if parts is None else parts.numel(),
-                    None if counts is None else counts.data_ptr(),
-                    0 if counts is None else counts.numel(),
-                    B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
-                    plan.heads_per_block, plan.qsub, plan.split, stream)
+    kernel = _kernel(True) if bf16 else _kernel()
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),
+                 out.data_ptr(),
+                 None if parts is None else parts.data_ptr(),
+                 0 if parts is None else parts.numel(),
+                 None if counts is None else counts.data_ptr(),
+                 0 if counts is None else counts.numel(),
+                 B, S, Skv, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
+                 plan.heads_per_block, plan.qsub, plan.split, stream)
     build.check(err, "flash_attention_chunk_fwd")
     launches += 1
     launches_softcap += int(softcap > 0)
+    launches_bf16 += int(bf16)
     return out

@@ -5,7 +5,9 @@
 ``flash_attention`` launches it on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``flash_attention_ref`` and the device dispatch lives
 in ``kernels/ops.py``. ``_plan`` (shared with ``chunk_attention``) sets a
-block's shape from one row's shape alone.
+block's shape from one row's shape alone. q, k and v are all fp32 or all
+bf16 (the ``_bf16`` entry points: widened as they are staged, the same
+plan); the output has q's dtype, as the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from repro_torch.kernels import build
 #: the ones with a logit softcap
 launches = 0
 launches_softcap = 0
+#: of those, the ones over bf16 q, k and v
+launches_bf16 = 0
 
 #: warps of a block at most; each owns 16 query rows of one head
 MAX_WARPS = 8
@@ -32,7 +36,9 @@ CHUNK_HEAD_DIMS = (32, 64, 128)
 #: dynamic shared memory a block may use (the kernel's kMaxSmem)
 SMEM_BYTES = 232448 - 1024
 
-_fn = None
+_fns = {}
+#: the dtypes of q, k and v the kernels take
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 class Plan(NamedTuple):
@@ -72,16 +78,19 @@ def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
     return Plan(hb, qsub, 0, q_tiles > 1 and q_tiles * Hkv * groups <= sms)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention").flash_attention_fwd
+def _kernel(bf16: bool = False):
+    """The whole-prompt C entry point for fp32 (``flash_attention_fwd``) or
+    bf16 q, k, v and out (``flash_attention_fwd_bf16``)."""
+    fn = _fns.get(bf16)
+    if fn is None:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_fwd_bf16 if bf16 else lib.flash_attention_fwd
         P, I = ctypes.c_void_p, ctypes.c_int
         F = ctypes.c_float
         fn.argtypes = [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[bf16] = fn
+    return fn
 
 
 def _require(cond: bool, msg: str):
@@ -94,9 +103,11 @@ def check_inputs(q, k, v, require, head_dims=HEAD_DIMS):
     device check, so that they hold on any device), the head dim one of
     ``head_dims``; then CUDA and 16-byte alignment (the kernel copies 16
     bytes at a time)."""
+    require(q.dtype in DTYPES,
+            f"q must be float32 or bfloat16, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        require(t.dtype == torch.float32 and t.dim() == 4
-                and t.is_contiguous(), f"{name} must be contiguous 4-D float32")
+        require(t.dtype == q.dtype and t.dim() == 4 and t.is_contiguous(),
+                f"{name} must be contiguous 4-D {q.dtype}")
     B, _, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     require(tuple(k.shape) == (B, Skv, Hkv, D) and v.shape == k.shape,
@@ -116,24 +127,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal (+ optional sliding-window) attention with queries and keys
     both at positions 0..S-1. q: (B, S, Hq, D); k, v: (B, S, Hkv, D) with
     Hq % Hkv == 0; ``softcap`` > 0 caps the scaled scores before the mask
-    (tanh(s / c) * c). Returns (B, S, Hq, D) float32."""
-    global launches, launches_softcap
+    (tanh(s / c) * c). q, k and v float32 or all bfloat16. Returns (B, S,
+    Hq, D) in q's dtype."""
+    global launches, launches_softcap, launches_bf16
     _require(window >= 0, f"window {window} < 0")
     _require(softcap >= 0, f"softcap {softcap} < 0")
     check_inputs(q, k, v, _require)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     _require(k.shape[1] == S, f"k/v hold {k.shape[1]} keys for {S} queries")
-    out = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out
     plan = _plan(S, Hq, Hkv, D, build.sm_count(q.device))
+    bf16 = q.dtype == torch.bfloat16
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
-                    int(window), plan.heads_per_block, plan.qsub,
-                    int(plan.pair), stream)
+    kernel = _kernel(True) if bf16 else _kernel()
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, Hq, Hkv, D, 1.0 / math.sqrt(D), float(softcap),
+                 int(window), plan.heads_per_block, plan.qsub,
+                 int(plan.pair), stream)
     build.check(err, "flash_attention_fwd")
     launches += 1
     launches_softcap += int(softcap > 0)
+    launches_bf16 += int(bf16)
     return out

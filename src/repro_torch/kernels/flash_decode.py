@@ -4,7 +4,9 @@
 
 ``flash_decode`` launches it on CUDA tensors only, one launch a call; the
 plain version is ``kernels/ref.py``'s ``flash_decode_ref`` and the device
-dispatch lives in ``kernels/ops.py``.
+dispatch lives in ``kernels/ops.py``. q, k and v are all fp32 or all bf16
+(``flash_decode_fwd_bf16``, widened as they are read, the same plan); the
+output is fp32 either way, as the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from repro_torch.kernels import build
 #: softcap
 launches = 0
 launches_softcap = 0
+#: of those, the ones over bf16 q, k and v
+launches_bf16 = 0
 
 #: slots of a tile: one per lane of a warp
 TILE = 32
@@ -48,7 +52,9 @@ HEAD_DIMS = (32, 64, 128, 256)
 #: dynamic shared memory a block may have on the card, in bytes
 SMEM_BYTES = 232448
 
-_fn = None
+_fns = {}
+#: the dtypes of q, k and v the kernel takes
+DTYPES = (torch.float32, torch.bfloat16)
 #: per device: the ranges' partials and counters (the counters all 0
 #: between launches: each launch sets the ones it used back to 0)
 _scratch_cache: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -114,17 +120,20 @@ def ranges(S: int, range_slots: int) -> int:
     return math.ceil(S / range_slots)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_decode").flash_decode_fwd
+def _kernel(bf16: bool = False):
+    """The C entry point for fp32 (``flash_decode_fwd``) or bf16 q, k and v
+    (``flash_decode_fwd_bf16``); both take the same arguments."""
+    fn = _fns.get(bf16)
+    if fn is None:
+        fn = (build.load("flash_decode_bf16").flash_decode_fwd_bf16 if bf16
+              else build.load("flash_decode").flash_decode_fwd)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I, I,
                        F, F, P]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[bf16] = fn
+    return fn
 
 
 def _require(cond: bool, msg: str):
@@ -135,9 +144,11 @@ def _require(cond: bool, msg: str):
 def check_inputs(q, k, v, slot_positions, lengths):
     """Shape, dtype and layout checks (before the device's, so that they
     hold on any device), then :func:`_on_device`."""
+    _require(q.dtype in DTYPES,
+             f"q must be float32 or bfloat16, not {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.dtype == torch.float32 and t.dim() == 4
-                 and t.is_contiguous(), f"{name} must be contiguous 4-D float32")
+        _require(t.dtype == q.dtype and t.dim() == 4 and t.is_contiguous(),
+                 f"{name} must be contiguous 4-D {q.dtype}")
     B, Hkv, G, D = q.shape
     S = k.shape[1]
     _require(tuple(k.shape) == (B, S, Hkv, D) and v.shape == k.shape,
@@ -184,9 +195,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Hkv, G, D); k, v: (B, S, Hkv, D); slot_positions: (B, S) int32
     absolute position per cache slot (-1 = empty); lengths: (B,) int32
     current decode position (inclusive); ``softcap`` > 0 caps the scaled
-    scores before the mask (tanh(s / c) * c). Returns (B, Hkv, G, D)
-    float32."""
-    global launches, launches_softcap
+    scores before the mask (tanh(s / c) * c). q, k and v float32 or all
+    bfloat16. Returns (B, Hkv, G, D) float32."""
+    global launches, launches_softcap, launches_bf16
     _require(softcap >= 0, f"softcap {softcap} < 0")
     check_inputs(q, k, v, slot_positions, lengths)
     B, Hkv, G, D = q.shape
@@ -200,17 +211,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if n > 1:
         parts, counts = _scratch(B * Hkv * n * G * (D + 2),
                                  B * Hkv * plan.groups, q.device)
+    bf16 = q.dtype == torch.bfloat16
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    slot_positions.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(),
-                    None if parts is None else parts.data_ptr(),
-                    0 if parts is None else parts.numel(),
-                    None if counts is None else counts.data_ptr(),
-                    0 if counts is None else counts.numel(),
-                    B, S, Hkv, G, D, plan.range_slots, plan.stages,
-                    plan.groups, 1.0 / math.sqrt(D), float(softcap), stream)
+    kernel = _kernel(True) if bf16 else _kernel()
+    err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 slot_positions.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(),
+                 None if parts is None else parts.data_ptr(),
+                 0 if parts is None else parts.numel(),
+                 None if counts is None else counts.data_ptr(),
+                 0 if counts is None else counts.numel(),
+                 B, S, Hkv, G, D, plan.range_slots, plan.stages,
+                 plan.groups, 1.0 / math.sqrt(D), float(softcap), stream)
     build.check(err, "flash_decode_fwd")
     launches += 1
     launches_softcap += int(softcap > 0)
+    launches_bf16 += int(bf16)
     return out

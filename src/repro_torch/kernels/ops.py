@@ -32,12 +32,16 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
            act_name: str):
     """Sparse mixed-precision GLU FFN over the model's banks.
     x: (B, S, d); idx: (k,) rank-sorted active neurons shared by the batch,
-    or (B, k), one set per row. Returns (B, S, d).
+    or (B, k), one set per row. Returns (B, S, d) in x's dtype.
 
     On the card each tier runs gate and up through the col kernel, the
     activation in PyTorch, and down through the row kernel, which adds into
-    one output: 9 kernel launches per layer whatever the row count. The
-    kernel has no backward: an input that requires grad raises there."""
+    one fp32 output: 9 kernel launches per layer whatever the row count.
+    At bf16 the gate and up products are rounded to bf16 before the
+    activation and the product h, as the reference's einsums round them, h
+    goes to the down kernel in bf16, and the sum is rounded to bf16 once at
+    the end. The kernel has no backward: an input that requires grad
+    raises there."""
     if _on_cpu(x):
         return ref.mp_ffn_gathered_ref(x, banks, idx, sizes, act_name)
     if torch.is_grad_enabled() and (x.requires_grad or any(
@@ -67,9 +71,10 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
                                     precision=precision, layout=layout,
                                     out=out)
 
-        h = act(call("wg", x3, "col")) * call("wu", x3, "col")
+        h = act(call("wg", x3, "col").to(x.dtype)) * \
+            call("wu", x3, "col").to(x.dtype)
         call("wd", h, "row", out=y)
-    return y.reshape(B, S, d)
+    return y.reshape(B, S, d).to(x.dtype)
 
 
 def make_compact_banks(wg, wu, wd, sizes: Dict[str, int], idx) -> Dict:
@@ -132,14 +137,16 @@ def decode_attention(q, k, v, slots, lengths, *, softcap: float = 0.0):
     forward; a sliding window's ring holds only positions inside it, so
     the window needs no mask of its own). ``softcap`` > 0: the logit softcap on the scaled scores,
     before the mask (here and in the two prefill forms). Returns
-    (B, 1, Hq, D)."""
+    (B, 1, Hq, D) in q's dtype."""
     if _on_cpu(q):
         return chunked_attention(q, k, v, lengths[:, None], slots,
                                  softcap=softcap, kv_valid=slots >= 0)
     B, _, Hq, D = q.shape
     out = flash_decode(q.reshape(B, k.shape[2], Hq // k.shape[2], D), k, v,
                        slots, lengths, softcap=softcap)
-    return out.reshape(B, 1, Hq, D)
+    # the kernel writes fp32, as the Pallas kernel does; the model goes on
+    # in q's dtype, as the plain attention returns it
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 def prefill_attention(q, k, v, positions, *, window: int = 0,

@@ -5,7 +5,9 @@ on the tensor cores for larger M.
 
 ``qmatmul_gathered`` launches them on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``qmm_gathered_ref`` and the device dispatch lives in
-``kernels/ops.py``.
+``kernels/ops.py``. x is fp32 or bf16 (a bf16 model's, whose fp tier is
+bf16 too; ``qmm_gathered_bf16``, the same plan), the output fp32 either way,
+as the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ launches = 0
 launches_gemv = 0
 #: launches of kernel B (tensor cores, ``qmm_mma_kernel``)
 launches_mma = 0
+#: launches of either kernel with bf16 x (``qmm_gathered_bf16``)
+launches_bf16 = 0
 
 PRECISIONS = {"fp": 0, "int8": 1, "int4": 2}
 LAYOUTS = {"col": 0, "row": 1}
@@ -40,19 +44,22 @@ _MMA_ROW_SPAN = 2560              # kernel B row: a split's staged ids
 _BK = 32
 _BN = 64
 
-_fn = None
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("qmatmul").qmm_gathered
+def _kernel(bf16: bool = False):
+    """The C entry point for fp32 x (``qmm_gathered``) or bf16 x
+    (``qmm_gathered_bf16``); both take the same arguments."""
+    fn = _fns.get(bf16)
+    if fn is None:
+        fn = (build.load("qmatmul_bf16").qmm_gathered_bf16 if bf16
+              else build.load("qmatmul").qmm_gathered)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [P, P, P, P, I, I, I, I, L, I, I, I, I, I, I, I, I, I,
                        P, P, P]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[bf16] = fn
+    return fn
 
 
 def _require(cond: bool, msg: str):
@@ -100,18 +107,22 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
     [int4: (f, K/2)] and a per-neuron (output) scale (f,).
     row: ``x (M, len(idx)) @ dequant(w[idx, :])`` -> (M, N) with w (f, N)
     [int4: (f, N/2)] and a per-neuron (contraction) scale (f,).
+    x is float32 or bfloat16; the fp tier's ``w`` has x's dtype; the
+    output is float32.
     With ``out`` given the product is added into it in place and ``out``
     is returned. Rows: x (R, M, K) with idx (R, n) gives (R, M, N), each
     row with its own active set. ``idx=None`` takes every neuron in order.
     ``idx`` values must lie in [0, f): the kernels read them unchecked."""
-    global launches, launches_gemv, launches_mma
+    global launches, launches_gemv, launches_mma, launches_bf16
     _require(precision in PRECISIONS, f"precision {precision!r}")
     _require(layout in LAYOUTS, f"layout {layout!r}")
     _require(x.is_cuda, "x must be a CUDA tensor")
-    _require(x.dtype == torch.float32, f"x must be float32, got {x.dtype}")
+    _require(x.dtype in (torch.float32, torch.bfloat16),
+             f"x must be float32 or bfloat16, got {x.dtype}")
     _require(x.dim() in (2, 3) and x.is_contiguous(),
              "x must be contiguous (M, K) or (R, M, K)")
-    wdt = torch.float32 if precision == "fp" else torch.int8
+    bf16 = x.dtype == torch.bfloat16
+    wdt = x.dtype if precision == "fp" else torch.int8
     _require(w.device == x.device and w.dtype == wdt,
              f"{precision} weights must be {wdt} on {x.device}")
     _require(w.dim() == 2 and w.is_contiguous(), "w must be contiguous 2-D")
@@ -161,15 +172,18 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
     vec_w = w.data_ptr() % 16 == 0 and ldw % 16 == 0
     vec_x = x.data_ptr() % 16 == 0 and K % 4 == 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), w.data_ptr(),
-                    None if scale is None else scale.data_ptr(),
-                    None if idx is None else idx.data_ptr(),
-                    R, M, N, K, ldw, PRECISIONS[precision], LAYOUTS[layout],
-                    KERNELS[kern], tile, splits, k_split, int(vec_x),
-                    int(vec_w), int(accumulate), out.data_ptr(),
-                    None if parts is None else parts.data_ptr(), stream)
-    build.check(err, f"qmm_gathered({precision}, {layout}, {kern})")
+    kernel = _kernel(True) if bf16 else _kernel()
+    err = kernel(x.data_ptr(), w.data_ptr(),
+                 None if scale is None else scale.data_ptr(),
+                 None if idx is None else idx.data_ptr(),
+                 R, M, N, K, ldw, PRECISIONS[precision], LAYOUTS[layout],
+                 KERNELS[kern], tile, splits, k_split, int(vec_x),
+                 int(vec_w), int(accumulate), out.data_ptr(),
+                 None if parts is None else parts.data_ptr(), stream)
+    build.check(err,
+                f"qmm_gathered({x.dtype}, {precision}, {layout}, {kern})")
     launches += 1
+    launches_bf16 += int(bf16)
     if kern == "gemv":
         launches_gemv += 1
     else:

@@ -19,11 +19,17 @@ one card (1 x 1: its arguments stay plain fake tensors); "single" and
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       [--arch all|<id>] [--shape all|<name>] [--mesh host|single|multi|both]
-      [--variant dense|m2] [--out build/dryrun] [--no-fsdp] ...
+      [--variant dense|m2] [--dtype bf16|fp32] [--out build/dryrun]
+      [--no-fsdp] ...
+
+The CLI counts the reference's dtype, bf16, by default (its records are of
+the same step as the reference's); ``--dtype fp32`` counts the fp32 step.
+The FLOPs are the same at both.
 
 Each record keeps the reference's keys, with ``trace_s`` for its
 ``lower_s``/``compile_s`` and ``hw`` for the card the terms are priced on
-(with ``compute_peak``, the peak the compute term divides by).
+(with ``compute_peak``, the peak the compute term divides by: the bf16
+tensor peak for a bf16 step, the fp32 one for an fp32 step).
 Its memory: ``argument_gb``/``output_gb`` the local bytes of the
 arguments and outputs; ``alias_gb`` the donated arguments the step writes
 in place and returns; ``temp_gb`` the most bytes the step's own tensors
@@ -54,6 +60,8 @@ from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import (COMPUTE_PEAK, model_flops_for,
                                            roofline)
 
+#: --dtype -> the step's dtype
+DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 #: mesh name -> (shape, axis names)
 MESHES = {"host": ((1, 1), ("data", "model")),
           "single": ((16, 16), ("data", "model")),
@@ -147,10 +155,12 @@ def run_one(arch: str, shape_name: str, *, mesh="host",
             variant: str = "dense", fsdp: bool = True,
             pod_fsdp: bool = False, shard_kv_seq=None,
             expert_data_shard: bool = False, kv_quant: bool = False,
-            tiny: bool = False, verbose: bool = True) -> dict:
+            tiny: bool = False, verbose: bool = True,
+            dtype=torch.float32) -> dict:
     """One combination's record, counted by :func:`trip_weighted_cost`.
     ``mesh``: a name of :data:`MESHES` (its placeholder mesh is made and
-    torn down here) or a ``DeviceMesh`` the caller made."""
+    torn down here) or a ``DeviceMesh`` the caller made. ``dtype``: the
+    step's (``build_case``'s); the CLI passes bf16 unless asked."""
     own = isinstance(mesh, str)
     name = mesh
     if own:
@@ -159,7 +169,7 @@ def run_one(arch: str, shape_name: str, *, mesh="host",
         dm, name = mesh, "x".join(map(str, mesh.shape))
     kw = dict(variant=variant, fsdp=fsdp, pod_fsdp=pod_fsdp,
               shard_kv_seq=shard_kv_seq, expert_data_shard=expert_data_shard,
-              kv_quant=kv_quant)
+              kv_quant=kv_quant, dtype=dtype)
     try:
         cfg = get_config(arch, tiny=tiny)
         shape = INPUT_SHAPES[shape_name]
@@ -171,8 +181,9 @@ def run_one(arch: str, shape_name: str, *, mesh="host",
         if own:
             M.release_mesh()
     chips = int(dm.size())
+    peak = "flops_bf16" if dtype == torch.bfloat16 else COMPUTE_PEAK
     terms = roofline(cost, chips=chips,
-                     model_flops=model_flops_for(cfg, shape))
+                     model_flops=model_flops_for(cfg, shape), peak=peak)
     leaves = tree_flatten(case.args)[0]
     specs = op_cost._tensors(case.in_shardings, keep=SH.PartitionSpec)
     assert len(leaves) == len(specs)
@@ -203,7 +214,7 @@ def run_one(arch: str, shape_name: str, *, mesh="host",
         "roofline": terms.to_json(),
         "params_total": cfg.param_count(),
         "params_active": cfg.active_param_count(),
-        "hw": {**dataclasses.asdict(H100_SXM), "compute_peak": COMPUTE_PEAK},
+        "hw": {**dataclasses.asdict(H100_SXM), "compute_peak": peak},
     }
     if verbose:
         m = rec["memory"]
@@ -222,6 +233,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default="both",
                     choices=["host", "single", "multi", "both"])
     ap.add_argument("--variant", default="dense", choices=["dense", "m2"])
+    ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--pod-fsdp", action="store_true")
@@ -243,6 +255,7 @@ def main(argv=None):
                 fname = os.path.join(
                     args.out,
                     f"{arch}__{shape}__{mesh_tag}__{args.variant}"
+                    f"{'' if args.dtype == 'bf16' else '__' + args.dtype}"
                     f"{args.tag}.json")
                 if os.path.exists(fname) and not args.force:
                     print(f"[skip] {fname}", flush=True)
@@ -253,7 +266,8 @@ def main(argv=None):
                                   fsdp=not args.no_fsdp,
                                   pod_fsdp=args.pod_fsdp,
                                   expert_data_shard=args.expert_data_shard,
-                                  kv_quant=args.kv_quant)
+                                  kv_quant=args.kv_quant,
+                                  dtype=DTYPES[args.dtype])
                 except Exception as e:  # noqa: BLE001 — record and continue
                     failures += 1
                     rec = {"arch": arch, "shape": shape,

@@ -106,15 +106,14 @@ def build_case(arch: str, shape_name: str, mesh=None, *,
                tiny: bool = False, num_layers: Optional[int] = None) -> Case:
     """The step of ``arch`` at ``INPUT_SHAPES[shape_name]``: ``variant``
     "m2" serves with the M2Cache FFN where the config has one (training
-    always runs the dense FFN); ``kv_quant`` an int8 K/V cache. Only fp32
-    runs: the port's kernels take fp32 alone. ``mesh`` (a ``DeviceMesh``
+    always runs the dense FFN); ``kv_quant`` an int8 K/V cache. ``dtype``
+    (fp32, or bf16 as the reference's default) is the weights', the
+    prefix's and the cache's; vectors, norms, scales and the predictor stay
+    fp32, as the reference's param specs keep them. ``mesh`` (a ``DeviceMesh``
     with axes among "pod", "data", "model") and the policy's knobs give
     ``in_shardings``/``out_shardings`` (launch/steps.py:78-198);
     ``shard_kv_seq`` defaults to on for the decode shapes. ``num_layers``
     cuts the config's depth (the dry run's trip-count weighting)."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"dtype {dtype}: the port's kernels are "
-                                  "fp32 only")
     cfg = get_config(arch, tiny=tiny)
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)

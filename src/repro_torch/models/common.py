@@ -50,6 +50,31 @@ def on_model(x):
     return x.redistribute(x.device_mesh, placements)
 
 
+def data_idle(x) -> bool:
+    """``x`` is a DTensor on a mesh whose "data" dim, of more than one
+    device, its rows leave idle (replicated there: one row)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return False
+    names = x.device_mesh.mesh_dim_names or ()
+    if "data" not in names:
+        return False
+    i = names.index("data")
+    return x.device_mesh.size(i) > 1 and x.placements[i] == Replicate()
+
+
+def off_model(x):
+    """``x`` replicated over the mesh's "model" dim (its other placements
+    kept); the identity on a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or "model" not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return x
+    placements = list(x.placements)
+    placements[x.device_mesh.mesh_dim_names.index("model")] = Replicate()
+    return x.redistribute(x.device_mesh, placements)
+
+
 def reduced(x):
     """``x`` with its partial sums reduced (a DTensor's ``Partial``
     placements made ``Replicate``, its shards kept); the identity on a
@@ -140,12 +165,46 @@ def rope(x, positions, theta: float):
 # Activations
 
 
+def _rounded(c: float, dtype) -> float:
+    """The constant ``c`` as a ``dtype`` value (JAX casts a Python constant
+    to a bf16 operand's type before the product)."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``: below fp32 XLA's logistic, 1 / (1 + exp(-x)) with
+    every op rounded to x's dtype (on a mesh from x's partial sums reduced,
+    as the single op they stand for reduces them)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-reduced(x)))
+
+
+def _silu(x):
+    """``jax.nn.silu``. Below fp32 XLA computes its logistic as 1 / (1 +
+    exp(-x)) with every op rounded to x's dtype, then the product: the same
+    ops here, each rounded (bit-equal at bf16; ``F.silu`` rounds once and
+    matched 61 % of bf16 values)."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    x = reduced(x)
+    return x * sigmoid(x)
+
+
 def _gelu_tanh(x):
-    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default form
+    """``jax.nn.gelu``'s default (tanh) form. Below fp32 every op of its
+    jaxpr rounds to x's dtype, its constants first (bit-equal at bf16;
+    ``F.gelu`` rounds once and matched 57 % of bf16 values)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    k = _rounded(0.044715, x.dtype)
+    x = reduced(x)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def activation(name: str):
-    return {"silu": F.silu, "relu": F.relu, "gelu": _gelu_tanh}[name]
+    return {"silu": _silu, "relu": F.relu, "gelu": _gelu_tanh}[name]
 
 
 # ---------------------------------------------------------------------------
@@ -204,45 +263,69 @@ def _attend(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return out.reshape(B, Sq, Hq, D)
 
 
-#: the "data" axis size from which GSPMD splits a step's heads over that
-#: axis where the rows leave it idle (one row: long_500k): the reference's
-#: compiled steps split them on 8 x 16 and 16 x 16 and keep them whole on
-#: 2 x 4 and 4 x 16
-IDLE_DATA_SPLIT = 8
+def idle_data(t, hq: int, hkv: int) -> tuple:
+    """``(i, a, b)``: GSPMD splits a one-row step's heads (``hq`` query
+    heads over ``hkv`` kv heads; ``hq = hkv`` for heads without groups)
+    over the mesh's "data" dim ``i``, where the rows leave it idle (``t`` a
+    DTensor replicated there), as it splits them over "model": the kv heads
+    ``a`` ways and each group ``b`` ways (``a, b, _ = head_split(hq, hkv,
+    the "model" dim's size)``), if 1 < a * b <= the "data" dim's size, each
+    block of heads on data / (a * b) of its devices; else ``(-1, 1, 1)``.
+    It stays a placement: a no-op on plain tensors.
 
-
-def idle_data(t) -> int:
-    """The index of the mesh's "data" dim where ``t`` is a DTensor that
-    the rows leave idle there (replicated) on a mesh of at least
-    ``IDLE_DATA_SPLIT`` such devices, else -1."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(t, DTensor):
-        return -1
-    names = t.device_mesh.mesh_dim_names or ()
-    if "data" not in names:
-        return -1
+    The cases that decided it (the reference's partitioned HLO counted by
+    ``repro/roofline/hlo_cost.analyze``, one-row long_500k steps on "data"
+    x "model" meshes of placeholder CPU devices): the attention's weighted values, whose
+    keys lie on "model", split qwen2.5-14b's 40 query heads over 8 kv heads
+    (a, b = 2, 1 on "model" 2; 4, 1 on 4; 8, 1 on 8 and 16) 2 ways on 2 x
+    2 to 16 x 2, 4 ways on 4 x 4, 8 x 4 and 16 x 4, 8 ways on 8 x 8, 16 x
+    8, 8 x 16 and 16 x 16, and not on 1 x m, 2 x 4, 2 x 8, 4 x 8, 2 x 16 or
+    4 x 16; mistral-large-123b's 96 over 8 (8, 2 on "model" 16) 16 ways on
+    16 x 16 and not on 8 x 16; the SSD decode's h C splits mamba2-370m's
+    32 heads 4 ways on 4 x 4, 8 x 4 and 16 x 4, 16 ways on 16 x 16, and not
+    on 2 x 4, 4 x 16 or 8 x 16 (tests/test_torch_dryrun_parity_meshes.py
+    holds the port to the reference at each edge)."""
+    if not data_idle(t) or "model" not in t.device_mesh.mesh_dim_names:
+        return -1, 1, 1
+    names = t.device_mesh.mesh_dim_names
     i = names.index("data")
-    if t.device_mesh.size(i) < IDLE_DATA_SPLIT or \
-            t.placements[i] != Replicate():
-        return -1
-    return i
+    a, b, _ = head_split(hq, hkv, t.device_mesh.size(names.index("model")))
+    if not 1 < a * b <= t.device_mesh.size(i):
+        return -1, 1, 1
+    return i, a, b
+
+
+def _head_blocks(t, dim: int, n: int, r: int):
+    """``t``'s ``dim`` of H heads as n blocks of H / n heads, each block
+    repeated r times (size r * H, block-major): the slots of a "data" dim
+    of n * r devices, each block on r of them."""
+    lead, H, rest = t.shape[:dim], t.shape[dim], t.shape[dim + 1:]
+    t = t.reshape(*lead, n, 1, H // n, *rest)
+    t = t.expand(*lead, n, r, H // n, *rest)
+    return t.reshape(*lead, n * r * (H // n), *rest)
 
 
 def heads_on_idle_data(fn, t, dim: int = 1):
     """``fn(t)``, with ``t``'s heads (``dim``) split over the mesh's "data"
-    dim where the rows leave it idle (:func:`idle_data`) and it divides
-    them, as GSPMD splits the reference's one-row steps (the result
-    replicated there again)."""
-    i = idle_data(t)
-    if i < 0 or t.shape[dim] % t.device_mesh.size(i):
+    dim where the rows leave it idle (:func:`idle_data`), as GSPMD splits
+    the reference's one-row steps (the result replicated there again).
+    ``fn`` maps the heads dim to itself."""
+    i, n, _ = idle_data(t, t.shape[dim], t.shape[dim])
+    if i < 0:
         return fn(t)
     from torch.distributed.tensor import Replicate, Shard
+    mesh = t.device_mesh
+    r = mesh.size(i) // n
     placements = list(t.placements)
     placements[i] = Shard(dim)
-    out = fn(t.redistribute(t.device_mesh, placements))
+    out = fn(_head_blocks(t, dim, n, r).redistribute(mesh, placements))
     placements = list(out.placements)
     placements[i] = Replicate()
-    return out.redistribute(out.device_mesh, placements)
+    out = out.redistribute(mesh, placements)
+    lead, rest = out.shape[:dim], out.shape[dim + 1:]
+    H = t.shape[dim]
+    return out.reshape(*lead, n, r, H // n, *rest)[
+        (slice(None),) * dim + (slice(None), 0)].reshape(*lead, H, *rest)
 
 
 def _weighted_values(probs, v):
@@ -250,16 +333,16 @@ def _weighted_values(probs, v):
     D). On a mesh whose "data" axis the rows leave idle (:func:`idle_data`)
     the query heads split over it as GSPMD splits the reference's (the
     scores before it keep every head), under ``local_map``, each device
-    its heads' block (:func:`head_split`) over its slots of the keys."""
-    i = idle_data(v)
+    its heads' block (:func:`idle_data`) over its slots of the keys."""
+    B, Hkv, G, Sq, Skv = probs.shape
+    i, a, b = idle_data(v, Hkv * G, Hkv)
     if i < 0:
         return torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    B, Hkv, G, Sq, Skv = probs.shape
     D = v.shape[-1]
     mesh = v.device_mesh
-    a, b, r = head_split(Hkv * G, Hkv, mesh.size(i))
+    r = mesh.size(i) // (a * b)
     ps = head_slots(probs.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * G, Skv),
                     Hkv, a, b, r)                     # (B, Sq, m, hq_l, Skv)
     vs = head_slots(v, Hkv, a, 1, b * r)              # (B, Skv, m, hkv_l, D)

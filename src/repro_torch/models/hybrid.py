@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (_gelu_tanh, causal_conv1d, constrain,
-                                       each_row)
+                                       each_row, sigmoid)
 
 _C = 8.0  # recurrence-gate temperature from the Griffin paper
 
@@ -78,8 +78,8 @@ def rglru_block(cfg, p, x, state, *, rows: bool = False, policy=None):
     xb, new_conv = causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
     xb = constrain(xb, policy, ("pod", "data"), None, None)
 
-    r = torch.sigmoid(dense(p["w_a"], xb) + p["b_a"])
-    i = torch.sigmoid(dense(p["w_i"], xb) + p["b_i"])
+    r = sigmoid(dense(p["w_a"], xb) + p["b_a"])
+    i = sigmoid(dense(p["w_i"], xb) + p["b_i"])
     h0 = None if state is None else state["h"]
     h_seq, h_fin = rg_lru(xb, r.to(xb.dtype), i.to(xb.dtype), p["lam"], h0)
 

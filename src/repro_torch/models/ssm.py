@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (causal_conv1d, constrain,
+from repro_torch.models.common import (activation, causal_conv1d, constrain,
                                        heads_on_idle_data, reduced, rms_norm)
 
 
@@ -112,10 +112,15 @@ def _ssd_chunks(x, dt, A, cB, cC, CB, h0):
         h = h * chunk_decay[:, i, :, None, None] + states[:, i]
     h_prevs = torch.stack(h_prevs, dim=1)                    # (b, c, h, p, n)
 
-    # inter-chunk contribution: bcln,bchpn,bclh->bclhp
-    state_decay = torch.exp(A_cum)                           # (b, c, l, h)
-    Y_off = cC[:, :, None] @ h_prevs.transpose(-1, -2)       # (b, c, h, l, p)
-    Y_off = Y_off * state_decay.permute(0, 1, 3, 2)[..., None]
+    # inter-chunk contribution: bcln,bchpn,bclh->bclhp; below fp32 the
+    # decay on C first and then the sum over n, as the reference's einsum
+    # orders it and rounds (in fp32 the decay after, on the smaller
+    # (b, c, h, l, p) product)
+    state_decay = torch.exp(A_cum).permute(0, 1, 3, 2)[..., None]
+    if cC.dtype == torch.float32:
+        Y_off = (cC[:, :, None] @ h_prevs.transpose(-1, -2)) * state_decay
+    else:
+        Y_off = (cC[:, :, None] * state_decay) @ h_prevs.transpose(-1, -2)
 
     y = (Y_diag + Y_off).permute(0, 1, 3, 2, 4).reshape(b, s, nh, p)
     return y, h
@@ -158,7 +163,7 @@ def ssd_mix(cfg, p, zxbcdt, state, *, mode: str, policy=None):
     conv_state = None if state is None else state["conv"]
     xBC = constrain(xBC, policy, batch, None, "model")
     xBC, new_conv = causal_conv1d(xBC, p["conv_w"], p["conv_b"], conv_state)
-    xBC = F.silu(xBC)
+    xBC = activation("silu")(xBC)
     xs, Bs, Cs = torch.split(xBC, [di, n, n], dim=-1)
     xs = xs.reshape(B_, S, nh, hd)
 
@@ -199,5 +204,5 @@ def ssm_block(cfg, p, x, state, *, mode: str, policy=None):
     zxbcdt = constrain(x @ p["w_in"], policy, ("pod", "data"), None, "model")
     y, z, new_state = ssd_mix(cfg, p, zxbcdt, state, mode=mode,
                               policy=policy)
-    y = rms_norm(y * F.silu(z), p["gnorm_w"])
+    y = rms_norm(y * activation("silu")(z), p["gnorm_w"])
     return y @ p["w_out"], new_state

@@ -3,7 +3,7 @@
 Three terms per (arch x shape x mesh), from :mod:`op_cost`'s per-device
 counts:
 
-    compute term    = FLOPs / peak FLOP/s         (fp32: the port's products)
+    compute term    = FLOPs / peak FLOP/s         (the step's type's peak)
     memory term     = bytes / HBM bandwidth
     collective term = collective bytes / link bandwidth
 
@@ -20,8 +20,8 @@ from typing import Dict
 
 from repro_torch.core.hw import H100_SXM
 
-#: the peak the compute term divides by: every product of the port runs in
-#: fp32 with TF32 off
+#: the peak the compute term of an fp32 step divides by: every fp32 product
+#: of the port runs with TF32 off (a bf16 step's: ``flops_bf16``)
 COMPUTE_PEAK = "flops_fp32"
 
 _WEIGHT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
@@ -47,14 +47,15 @@ class RooflineTerms:
 
 
 def roofline(cost: dict, *, chips: int, model_flops: float,
-             hw=H100_SXM) -> RooflineTerms:
-    """``cost``: :func:`op_cost.analyze`'s dict (per device)."""
+             hw=H100_SXM, peak: str = COMPUTE_PEAK) -> RooflineTerms:
+    """``cost``: :func:`op_cost.analyze`'s dict (per device); ``peak``:
+    the field of ``hw`` the compute term divides by."""
     flops_dev = float(cost["flops"])
     bytes_dev = float(cost["bytes"])
     colls = cost["collectives"]
     coll_dev = float(sum(_WEIGHT[k] * v["bytes"] for k, v in colls.items()))
 
-    compute_s = flops_dev / hw.flops_fp32
+    compute_s = flops_dev / getattr(hw, peak)
     memory_s = bytes_dev / hw.hbm_bw
     collective_s = coll_dev / hw.link_bw
     terms = {"compute": compute_s, "memory": memory_s,

@@ -22,7 +22,9 @@ under ``FakeTensorMode``, so nothing is allocated or computed:
                    of a kernel wrapper (``KERNEL_CALLS``: on the card one
                    hand-written kernel, or one per tier) at its boundary,
                    its tensor inputs and outputs once, whatever its plain
-                   version moves inside, as hlo_cost.py counts a fusion
+                   version moves inside, as hlo_cost.py counts a fusion;
+                   of ``mp_ffn``'s banks only the rows its active sets
+                   select (:func:`_ffn_bytes`), as its kernels read them
   * collectives  — the ``_c10d_functional`` ops by kind, with the local
                    bytes of their results (all-reduce weighted x2 at the
                    roofline layer)
@@ -44,10 +46,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 aten = torch.ops.aten
-
-#: ``kernels.ops`` functions that run as hand-written kernels on the card
-KERNEL_CALLS = ("decode_attention", "prefill_attention", "chunk_attention",
-                "mp_ffn")
 
 #: (module, name) of functions that compute a contraction by elementwise
 #: products summed in a fixed order (a row's bits then do not depend on the
@@ -86,6 +84,33 @@ def _tensors(tree, keep=torch.Tensor) -> list:
 
 def _local(t: torch.Tensor) -> torch.Tensor:
     return getattr(t, "_local_tensor", t)
+
+
+def _boundary_bytes(a, kw, out) -> int:
+    """A kernel wrapper's call: its tensor inputs and outputs once each."""
+    return sum(_nbytes(t) for t in _tensors((a, kw)) + _tensors(out))
+
+
+def _ffn_bytes(a, kw, out) -> int:
+    """A call of ``kernels.ops.mp_ffn(x, banks, idx, sizes, act)`` on the
+    card: x, idx and the output once, and of each neuron-major bank the
+    share of its rows that the tier's active neurons take (a row a batch
+    row in rows mode, idx (R, k)), as its kernels read them."""
+    x, banks, idx, sizes = a[:4]
+    tier = {"_fp": sizes["fp16"], "_i8": sizes["int8"], "_i4": sizes["int4"]}
+    sets = idx.shape[0] if idx.dim() == 2 else 1
+    total = _nbytes(x) + _nbytes(idx) + sum(_nbytes(t) for t in _tensors(out))
+    for name, w in banks.items():
+        n = next(k for s, k in tier.items() if s in name)
+        total += _nbytes(w) * sets * n / w.shape[0]
+    return int(round(total))
+
+
+#: ``kernels.ops`` functions that run as hand-written kernels on the card,
+#: each with the bytes one call moves there
+KERNEL_CALLS = {"decode_attention": _boundary_bytes,
+                "prefill_attention": _boundary_bytes,
+                "chunk_attention": _boundary_bytes, "mp_ffn": _ffn_bytes}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -219,11 +244,11 @@ class CostMode(TorchDispatchMode):
     # -- kernel boundaries ----------------------------------------------------
     @contextlib.contextmanager
     def kernel_calls(self, module, names=KERNEL_CALLS):
-        """While open, each call of ``module.<name>`` counts its tensor
-        inputs and outputs once and none of the bytes its ops move."""
+        """While open, each call of ``module.<name>`` counts the bytes
+        ``names[name]`` gives it and none of the bytes its ops move."""
         saved = {n: getattr(module, n) for n in names}
 
-        def wrap(fn):
+        def wrap(fn, bytes_of):
             def call(*a, **kw):
                 self.kernel_depth += 1
                 try:
@@ -231,12 +256,11 @@ class CostMode(TorchDispatchMode):
                 finally:
                     self.kernel_depth -= 1
                 if self.kernel_depth == 0:
-                    self._add_bytes(fn.__name__, sum(
-                        _nbytes(t) for t in _tensors((a, kw)) + _tensors(out)))
+                    self._add_bytes(fn.__name__, bytes_of(a, kw, out))
                 return out
             return call
         for n, fn in saved.items():
-            setattr(module, n, wrap(fn))
+            setattr(module, n, wrap(fn, names[n]))
         try:
             yield self
         finally:

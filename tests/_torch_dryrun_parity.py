@@ -1,6 +1,7 @@
-"""The dry run's per-device FLOPs against the reference's own count: every
-tiny config x ``test_torch_dryrun.SMALL``'s four shapes x dense and m2, on
-a 2 x 4 mesh of placeholder devices and on one device.
+"""The dry run's per-device FLOPs and argument bytes against the
+reference's own count: every tiny config x ``test_torch_dryrun.SMALL``'s
+four shapes x dense and m2, on a 2 x 4 mesh of placeholder devices and on
+one device, both at bf16 (the reference's default).
 
 The reference compiles each step for the same mesh of placeholder CPU
 devices (``repro/launch/steps.build_case``) and counts its partitioned
@@ -21,6 +22,7 @@ import sys
 import textwrap
 
 import pytest
+import torch
 
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as M
@@ -66,15 +68,17 @@ _REFERENCE = textwrap.dedent("""
         mesh = meshes[mesh_name]
         case = build_case(arch, shape, mesh, tiny=True, variant=variant)
         with mesh:
-            hlo = jax.jit(case.fn, in_shardings=case.in_shardings,
-                          out_shardings=case.out_shardings,
-                          donate_argnums=case.donate_argnums).lower(
-                              *case.args).compile().as_text()
+            compiled = jax.jit(case.fn, in_shardings=case.in_shardings,
+                               out_shardings=case.out_shardings,
+                               donate_argnums=case.donate_argnums).lower(
+                                   *case.args).compile()
+        hlo = compiled.as_text()
         dots = sorted({m.group(1) for m in re.finditer(
             r"=\\s+(\\S+\\[[\\d,]*\\])\\S*\\s+dot\\(", hlo)})
-        print(json.dumps({"key": key,
-                          "flops": hlo_cost.analyze(hlo)["flops"],
-                          "dots": dots[:12]}), flush=True)
+        print(json.dumps({
+            "key": key, "flops": hlo_cost.analyze(hlo)["flops"],
+            "arg_bytes": compiled.memory_analysis().argument_size_in_bytes,
+            "dots": dots[:12]}), flush=True)
 """)
 
 
@@ -123,17 +127,48 @@ class Reference:
         self.proc.stderr.close()
 
 
+def arg_gap(arch, shape, variant) -> int:
+    """The reference's argument bytes a device less the port's, at bf16
+    (``memory_analysis().argument_size_in_bytes`` against ``run_one``'s
+    ``argument_gb``), where they differ, with the causes: 4 for a decode
+    step, the cache's position, an int32 argument in the reference and a
+    host int in the port; less the bytes of an MoE layer's predictor
+    (``pred_A``, ``pred_B``, replicated) for the m2 variant's serving
+    steps (training runs the dense FFN and has none), leaves the
+    step never reads, which the reference's ``jax.jit`` drops from its
+    arguments (``keep_unused=False``). Every other combination's bytes are
+    equal."""
+    import math
+    from repro_torch.models import transformer as T
+    cfg = D.get_config(arch, tiny=True)
+    kind = SMALL[shape].kind
+    gap = 4 if kind == "decode" else 0
+    if variant == "m2" and cfg.num_experts and kind != "train":
+        specs = T.model_param_specs(cfg, dtype=torch.bfloat16, m2=True)
+        gap -= sum(math.prod(shape_) * dt.itemsize
+                   for layer in specs["layers"]
+                   for name, (shape_, dt, _) in layer.get("ffn", {}).items()
+                   if name.startswith("pred_"))
+    return gap
+
+
 def check(reference, arch, shape, variant, mesh):
-    """The port's ``run_one`` count against the reference's."""
+    """The port's ``run_one`` count against the reference's, both at bf16
+    (the reference's default): FLOPs equal but for ``KEPT_GAPS``, argument
+    bytes equal but for :func:`arg_gap`."""
     dm = M.make_placeholder_mesh(*MESHES[mesh])
     try:
         rec = D.run_one(arch, shape, mesh=dm, variant=variant, tiny=True,
-                        verbose=False)
+                        verbose=False, dtype=torch.bfloat16)
     finally:
         M.release_mesh()
     assert rec["status"] == "ok"
     port = rec["roofline"]["flops_per_device"]
     want = reference.count(_key(arch, shape, variant, mesh))
+    args = rec["memory"]["argument_gb"] * 2 ** 30
+    assert want["arg_bytes"] - args == arg_gap(arch, shape, variant), (
+        f"{arch} {shape} {variant} on {mesh}: arguments {args:,.0f} bytes "
+        f"a device, the reference's {want['arg_bytes']:,}")
     gap = KEPT_GAPS.get((arch, shape))
     ok = (port == want["flops"] if gap is None
           else 0 <= (want["flops"] - port) / want["flops"] <= gap)

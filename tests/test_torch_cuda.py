@@ -1177,3 +1177,231 @@ def test_tiny_search_on_cuda_equals_cpu(dev):
             tiers = sum(1 for t in ("fp16", "int8", "int4") if sizes[t])
             expected += 3 * tiers * cfg.num_layers * (1 + 6)
     assert qmatmul.launches - before == expected
+
+
+# ---------------------------------------------------------------------------
+# bf16 forms: bf16 inputs widened to fp32 inside, fp32 sums; qmatmul and
+# flash_decode write fp32 (held within 1e-5 of the plain version), the
+# attention forms write bf16 (held to one bf16 rounding of the plain
+# version's fp32 result, plus 1e-5)
+
+
+def _close_rounded(got, want_f32, tol_rel=1e-5):
+    """A bf16 result against the fp32 one it rounds: within half a bf16
+    unit of it (at most 2^-8 of the value: bf16 keeps 8 significant bits),
+    plus ``tol_rel`` for the fp32 sums' order."""
+    assert got.dtype == torch.bfloat16
+    tol = tol_rel * max(1.0, float(want_f32.abs().max()))
+    excess = (got.float() - want_f32).abs() - want_f32.abs() * 2.0 ** -8
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(excess.max()) <= tol, (float(excess.max()), tol)
+
+
+@pytest.mark.parametrize("prec", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("M", [1, 4, 16, 130])
+@pytest.mark.parametrize("layout", ["col", "row"])
+def test_qmatmul_bf16_matches_plain(dev, prec, M, layout):
+    from repro_torch.core.quantize import quantize_int4, quantize_int8
+    from repro_torch.kernels import qmatmul as qm
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(M)
+    f, K, n = 300, 256, 78
+    w = torch.randn(f, K, generator=g, device=dev) / 16
+    w, s = ((w.to(torch.bfloat16), None) if prec == "fp" else
+            quantize_int8(w, 1) if prec == "int8" else quantize_int4(w, 1))
+    idx = torch.randperm(f, device=dev)[:n].to(torch.int32)
+    x = torch.randn(M, K if layout == "col" else n, generator=g,
+                    device=dev).to(torch.bfloat16)
+    before = qm.launches_bf16
+    got = qm.qmatmul_gathered(x, w, s, idx, precision=prec, layout=layout)
+    assert qm.launches_bf16 == before + 1 and got.dtype == torch.float32
+    _close(got, ref.qmm_gathered_ref(x, w, s, idx, precision=prec,
+                                     layout=layout))
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,D,ring,cap", [
+    (4, 145, 8, 5, 128, False, 0.0), (1, 8192, 8, 5, 128, True, 0.0),
+    (4, 145, 2, 7, 64, False, 0.0), (2, 300, 1, 10, 256, True, 0.0),
+    (4, 145, 8, 6, 128, False, 30.0), (4, 209, 32, 1, 64, False, 0.0)])
+def test_flash_decode_bf16_matches_plain(dev, B, S, Hkv, G, D, ring, cap):
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(S)
+    bf = torch.bfloat16
+    q = torch.randn(B, Hkv, G, D, generator=g, device=dev).to(bf)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(bf)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(bf)
+    slots = torch.arange(S, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    lengths = torch.full((B,), S - 1, device=dev, dtype=torch.int32)
+    if ring:                              # wrapped: slot i holds S + i - 3
+        slots = (slots + S - 3).contiguous()
+        slots[:, 3:] -= S
+        lengths += S - 3
+    before = fd.launches_bf16
+    got = fd.flash_decode(q, k, v, slots, lengths, softcap=cap)
+    assert fd.launches_bf16 == before + 1 and got.dtype == torch.float32
+    _close(got, ref.flash_decode_ref(q, k, v, slots, lengths, softcap=cap))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,cap", [
+    (4, 128, 40, 8, 128, 0, 0.0), (2, 300, 14, 2, 64, 64, 0.0),
+    (2, 200, 10, 1, 256, 0, 0.0), (4, 128, 48, 8, 128, 0, 30.0)])
+def test_flash_attention_bf16_matches_plain(dev, B, S, Hq, Hkv, D, window,
+                                            cap):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(S)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(
+        torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    before = fa.launches_bf16
+    got = fa.flash_attention(q, k, v, window=window, softcap=cap)
+    assert fa.launches_bf16 == before + 1
+    _close_rounded(got, ref.flash_attention_ref(
+        q.float(), k.float(), v.float(), window=window, softcap=cap))
+
+
+@pytest.mark.parametrize("pos0,Sbuf,Hq,Hkv,D,cap", [
+    ([0, 48, 96, 112], 256, 40, 8, 128, 0.0),
+    ([0, 100, 200, 240], 256, 14, 2, 64, 0.0),
+    ([0, 48, 96, 112], 256, 48, 8, 128, 30.0)])
+def test_chunk_attention_bf16_matches_plain(dev, pos0, Sbuf, Hq, Hkv, D, cap):
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(Sbuf)
+    B = len(pos0)
+    q = torch.randn(B, 16, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Sbuf, Hkv, D, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    before = ca.launches_bf16
+    got = ca.chunk_attention(q, k, v, p0, softcap=cap)
+    assert ca.launches_bf16 == before + 1
+    _close_rounded(got, ref.chunk_attention_ref(
+        q.float(), k.float(), v.float(), p0, softcap=cap))
+
+
+#: each C entry point's arguments that carry the shape and the plan (the
+#: rest are addresses, sizes in bytes and scratch)
+_PLAN_ARGS = {"repro_torch.kernels.qmatmul": slice(4, 8),
+              "repro_torch.kernels.flash_decode": slice(10, 20),
+              "repro_torch.kernels.flash_attention": slice(4, 15),
+              "repro_torch.kernels.chunk_attention": slice(9, 20)}
+_QMM_PLAN = slice(9, 15)       # qmm_gathered: precision .. k_split
+
+
+def test_fp32_forms_keep_their_entry_points_and_plans(dev, monkeypatch):
+    """An fp32 call goes to the fp32 C entry point (``qmm_gathered``,
+    ``flash_decode_fwd``, ``flash_attention_fwd``, ``..._chunk_fwd``) and a
+    bf16 call to its ``_bf16`` twin, with the same shape and plan
+    arguments: the plan does not depend on the dtype."""
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import qmatmul as qm
+    calls = []
+
+    def recording(mod, bf16):
+        fn = mod._kernel(bf16)
+
+        def call(*args):
+            calls.append((mod.__name__, bf16, fn.__name__, args))
+            return fn(*args)
+        return call
+    for mod in (qm, fd, fa, ca):
+        for bf16 in (False, True):
+            monkeypatch.setitem(mod._fns, bf16, recording(mod, bf16))
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(4, 256, device=dev).to(dt)
+        w = torch.randn(300, 256, device=dev).to(dt)
+        qm.qmatmul_gathered(x, w, None, torch.arange(38, device=dev,
+                                                     dtype=torch.int32))
+        q = torch.randn(2, 2, 5, 128, device=dev).to(dt)
+        kv = torch.randn(2, 145, 2, 128, device=dev).to(dt)
+        slots = torch.arange(145, device=dev, dtype=torch.int32)[None].repeat(
+            2, 1)
+        fd.flash_decode(q, kv, kv, slots, torch.full((2,), 144, device=dev,
+                                                     dtype=torch.int32))
+        qp = torch.randn(2, 64, 10, 128, device=dev).to(dt)
+        kp = torch.randn(2, 64, 2, 128, device=dev).to(dt)
+        fa.flash_attention(qp, kp, kp)
+        kb = torch.randn(2, 128, 2, 128, device=dev).to(dt)
+        ca.chunk_attention(qp[:, :16].contiguous(), kb, kb,
+                           torch.tensor([0, 64], device=dev,
+                                        dtype=torch.int32))
+    assert len(calls) == 8
+    fp32, bf16 = calls[:4], calls[4:]
+    want = {"repro_torch.kernels.qmatmul": "qmm_gathered",
+            "repro_torch.kernels.flash_decode": "flash_decode_fwd",
+            "repro_torch.kernels.flash_attention": "flash_attention_fwd",
+            "repro_torch.kernels.chunk_attention":
+                "flash_attention_chunk_fwd"}
+    def plan(m, args):
+        extra = args[_QMM_PLAN] if m.endswith("qmatmul") else ()
+        return list(args[_PLAN_ARGS[m]]) + list(extra)
+    for (m, b, name, args), (m2, b2, name2, args2) in zip(fp32, bf16):
+        assert (b, name) == (False, want[m])
+        assert (m2, b2, name2) == (m, True, want[m] + "_bf16")
+        assert len(args) == len(args2) and plan(m, args) == plan(m, args2)
+
+
+#: test_tiny_forward_bf16_on_cuda_equals_cpu's limits, as a share of
+#: max(1, max|cpu logits|): about 3x the largest reading with the sets
+#: replayed (H100 80GB HBM3, 700 W: qwen2.5-14b 0.0105, mamba2-370m 0.0324
+#: at the prefill, where no port kernel runs: CUDA's bf16 ops round at
+#: other places than the CPU's). The control the qwen2.5-14b limit must
+#: fail: the sets left free, 0.158
+BF16_CUDA_TOL = {"qwen2.5-14b": 0.03, "mamba2-370m": 0.1}
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "mamba2-370m"])
+def test_tiny_forward_bf16_on_cuda_equals_cpu(dev, arch, monkeypatch):
+    """A tiny config at bf16 through ``forward`` (prefill, then 4 decode
+    steps fed the CPU's tokens) on the card against the CPU, same weights,
+    the card replaying the CPU's active sets (a predictor score that ties
+    within a bf16 unit may swap a neuron otherwise): the logits within
+    BF16_CUDA_TOL x max(1, max|cpu|) (the card's kernels sum in fp32 and
+    round once where the CPU's plain ops round every bf16 op), greedy
+    tokens equal where the CPU's top-2 margin is wider."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import mp_ffn
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    sets, topk = [], mp_ffn.shared_topk_indices
+    cfg = get_config(arch, tiny=True)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    for i, layer in enumerate(params["layers"]):
+        pred = layer.get("ffn", {}).get("pred")
+        if pred is not None:
+            pred["A"] = torch.from_numpy(np.random.default_rng(21 + i)
+                                         .standard_normal(pred["A"].shape)
+                                         .astype(np.float32) / 4)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int64))
+    out = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        replay = iter(list(sets))
+
+        def chosen(scores, k, replay=replay, cpu=name == "cpu"):
+            if cpu:
+                sets.append(topk(scores, k))
+                return sets[-1]
+            return next(replay).to(scores.device)
+        monkeypatch.setattr(mp_ffn, "shared_topk_indices", chosen)
+        p = tree_map(lambda t: t.to(device), params)
+        cache = T.init_cache(cfg, 2, 32, dtype=torch.bfloat16, device=device)
+        logits, cache, _ = T.forward(cfg, p, tokens.to(device), cache=cache,
+                                     mode="prefill")
+        steps = [logits[:, -1].float().cpu()]
+        for step in range(4):
+            nxt = (out["cpu"][step] if name == "cuda" else steps[-1]).argmax(
+                -1)[:, None]
+            logits, cache, _ = T.forward(cfg, p, nxt.to(device), cache=cache,
+                                         mode="decode")
+            steps.append(logits[:, -1].float().cpu())
+        out[name] = steps
+    for c, g in zip(out["cpu"], out["cuda"]):
+        tol = BF16_CUDA_TOL[arch] * max(1.0, float(c.abs().max()))
+        assert float((c - g).abs().max()) <= tol
+        top2 = c.topk(2, -1).values
+        sure = top2[:, 0] - top2[:, 1] > tol
+        assert torch.equal(c.argmax(-1)[sure], g.argmax(-1)[sure])

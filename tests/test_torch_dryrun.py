@@ -7,7 +7,8 @@ FFN's mesh policy, on the CPU.
   under the same counter (the fake trace misses no work); on a fake 2 x 4
   mesh a column- then row-parallel block at 1/8 of one device's FLOPs,
   with one all-reduce of the output's local bytes; the trip-count
-  weighting equal to a trace of every layer.
+  weighting equal to a trace of every layer; a call of ``mp_ffn`` at
+  the bytes of the bank rows its active sets select.
 - ``main()`` resumes, ``--force`` rewrites, a failure is recorded and
   exits 1 (``run_one`` on every tiny config: test_torch_dryrun_archs.py).
 - Meshes: each one replaces the process group the module made, and
@@ -154,6 +155,38 @@ def test_masked_write_counts_the_masked_region():
         assert cost["bytes_by_op"]["index_put_"] == 2 * 4 * 6 * 8 * 4
 
 
+@pytest.mark.parametrize("rows", (1, 3), ids=("one_set", "per_row_sets"))
+def test_mp_ffn_counts_the_rows_its_sets_select(rows):
+    """A call of ``ops.mp_ffn`` counts x, the active sets and the output
+    once, and of each tier's three banks (and their scales) only the rows
+    its neurons take, a set a batch row where each row has its own: the
+    bytes its kernels read on the card, not the whole banks."""
+    from repro_torch.core.mp_ffn import tier_sizes
+    from repro_torch.core.quantize import (build_neuron_banks,
+                                           to_neuron_major)
+    from repro_torch.kernels import ops
+    cfg = get_config("qwen2.5-14b", tiny=True)
+    d, f = cfg.d_model, cfg.d_ff
+    g = torch.Generator().manual_seed(0)
+    banks = to_neuron_major(build_neuron_banks(*(
+        torch.randn(s, generator=g).to(torch.bfloat16)
+        for s in ((d, f), (d, f), (f, d)))))
+    sizes = tier_sizes(f, cfg)
+    x = torch.randn(rows, 2, d, generator=g).to(torch.bfloat16)
+    sets = torch.stack([torch.randperm(f, generator=g)[:sizes["k"]]
+                        for _ in range(rows)])
+    idx = sets if rows > 1 else sets[0]
+    cost = op_cost.analyze(
+        lambda x: ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act), x,
+        fake=False)
+    row_bytes = {"fp16": 3 * d * 2, "int8": 3 * (d + 4),
+                 "int4": 3 * (d // 2 + 4)}
+    want = 2 * x.numel() * 2 + idx.numel() * idx.element_size() + rows * sum(
+        sizes[t] * n for t, n in row_bytes.items())
+    assert cost["bytes_by_op"]["mp_ffn"] == want
+    assert want < sum(w.numel() * w.element_size() for w in banks.values())
+
+
 @pytest.mark.parametrize("fault", ("renamed", "never_seen"))
 def test_unrecognised_propagation_fails_loudly(fault, mesh_2x4,
                                                monkeypatch):
@@ -235,6 +268,9 @@ def test_roofline_terms_on_the_h100():
     assert t.collective_s == pytest.approx(3.0)      # all-reduce x 2
     assert t.bottleneck == "collective"
     assert t.useful_flops_ratio == pytest.approx(0.5)
+    bf16 = A.roofline(cost, chips=4, model_flops=1.34e13, peak="flops_bf16")
+    assert bf16.compute_s == pytest.approx(6.7e12 / 989e12)
+    assert bf16.memory_s == t.memory_s
 
 
 # --- main --------------------------------------------------------------------

@@ -135,11 +135,11 @@ def _ffn_scores(monkeypatch, store):
     scores summed over the call's tokens, in float64."""
     from repro_torch.core import mp_ffn
 
-    def scored(cfg, banks, pred, x, rows=False, _run=mp_ffn.mp_ffn_apply):
+    def scored(cfg, banks, pred, x, _run=mp_ffn.mp_ffn_apply, **kw):
         x64 = x.reshape(-1, x.shape[-1]).double()
         store.append((x64 @ pred["A"].double() @ pred["B"].double())
                      .sum(0).numpy())
-        return _run(cfg, banks, pred, x, rows=rows)
+        return _run(cfg, banks, pred, x, **kw)
     monkeypatch.setattr(T.mp, "mp_ffn_apply", scored)
 
 

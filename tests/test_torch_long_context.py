@@ -556,11 +556,6 @@ def test_build_case_matches_every_shape(arch, mesh):
                             w[n].dtype)
 
 
-def test_build_case_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="fp32"):
-        S.build_case(ARCH, "decode_32k", dtype=torch.bfloat16)
-
-
 def _small_long_500k(monkeypatch, kind: str, seq_len: int):
     """long_500k cut to 2 rows of ``seq_len`` positions, of ``kind``, over a
     window of 16 (decode) or 5 (train), in both packages."""
