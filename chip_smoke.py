@@ -233,7 +233,10 @@ kernel B (M = 512, and 4 rows of a 16-token chunk), every call held;
 flash_decode over long_500k's wrapped 8192-slot ring and at the serve step;
 the whole prompt and the chunk form; beside each, its plain version, one
 library call at bf16 (torch.matmul on the gathered weights, SDPA) and the
-fp32 form of the same kernel, and its bound at bf16 bytes. qmatmul
+fp32 form of the same kernel, and its bound at bf16 bytes; the kernels on
+the bf16 tensor cores (kernel B, both attention forms) also beside the
+bound of the operations their MMAs issue; and two measurement rows, kernel
+B at x (8704, 5120) and the whole prompt at 2048 tokens. qmatmul
 has two kernels (A for small
 M, B on the tensor cores): every qmatmul row is held and profiled through
 each kernel that takes its M, beside a second bound at the TF32 peak, and
@@ -437,7 +440,7 @@ def tf32_bound(nbytes: float, M: int, d: int, k16: int, k8: int,
 
 def kernel_row(run, plain, lib, nbytes: float, flops: float, *,
                peak: float = None, tf32_products: int = 3, fp32_form=None,
-               plain_reps: int = 20) -> dict:
+               plain_reps: int = 20, issued_bf16: float = None) -> dict:
     """Times of one kernel call beside its plain version and the library
     call (and the fp32 form of the same kernel on the same values, where
     ``fp32_form`` is given), device profiles of the kernel and the library,
@@ -445,11 +448,20 @@ def kernel_row(run, plain, lib, nbytes: float, flops: float, *,
     cores unless given; work on bf16 operands at the bf16 tensor peak), and
     the ``tf32_products`` TF32 products the kernel issues per product at
     the TF32 peak (3 where both operands are split, 1 where both are bf16
-    or integers, exact in TF32; None for a kernel on the CUDA cores)."""
+    or integers, exact in TF32; None for a kernel on the CUDA cores), or
+    for a kernel on the bf16 tensor cores the ``issued_bf16`` operations
+    its MMAs issue (whole tiles, split terms each a product) at the bf16
+    peak."""
     b_ms, b_by = bound(nbytes, flops, peak)
     row = {"ms": time_ms(run), "plain_ms": time_ms(plain, reps=plain_reps),
            "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
-    if tf32_products:
+    if issued_bf16:
+        from repro_torch.core.hw import H100_SXM
+        i_ms, i_by = bound(nbytes, issued_bf16, H100_SXM.flops_bf16)
+        row.update(bound_issued_ms=i_ms, bound_issued_by=i_by,
+                   bound_issued_note="bf16 dense peak x the operations the "
+                                     "kernel's MMAs issue")
+    elif tf32_products:
         from repro_torch.core.hw import H100_SXM
         t_ms, t_by = bound(nbytes, tf32_products * flops,
                            H100_SXM.flops_tf32)
@@ -5073,6 +5085,45 @@ def reset_bf16_counts():
         mod.launches_bf16 = 0
 
 
+def ffn_bf16_issued(R: int, M: int, d: int, k16: int, k8: int, k4: int,
+                    dev) -> float:
+    """Operations the bf16 kernel B's MMAs issue for one layer's FFN over R
+    rows of M, tiles as its plan gives them (``qmatmul._plan``: 16 or 64
+    rows by 64 outputs, 64 deep, each split's last tile whole), gate and up
+    (col) and down (row) for each tier, the int tiers' down products in
+    as many terms as the kernel splits h times the scale into
+    (``qmatmul.bf16_row_terms``)."""
+    from repro_torch.kernels import qmatmul as qm
+
+    def up(n, m):
+        return -(-n // m) * m
+
+    def one(N, K, layout):
+        _, tile, splits, k_split = qm._plan(M, N, K, layout, dev)
+        deep = sum(up(min(k_split, K - s * k_split), 64)
+                   for s in range(splits))
+        return up(M, tile) * up(N, 64) * deep
+    total = 0
+    row_terms = qm.bf16_row_terms()
+    for n, terms in ((k16, 1), (k8, row_terms), (k4, row_terms)):
+        total += 2 * one(n, d, "col") + terms * one(d, n, "row")
+    return 2.0 * R * total
+
+
+def attention_bf16_issued(B: int, S: int, Hq: int, D: int,
+                          pos0=None) -> float:
+    """Operations the bf16 attention kernels' MMAs issue: each (row, query
+    head, 16-row sub-tile) multiplies whole 32-key tiles up to its last
+    query's position, S = Q K^T once and P V in as many bf16 terms as the
+    kernel splits P into (``flash_attention.bf16_p_terms``: 2)."""
+    from repro_torch.kernels import flash_attention as fa
+    keys = 0
+    for p in pos0 or [0] * B:
+        for r0 in range(0, S, 16):
+            keys += 32 * ((p + min(r0 + 16, S) - 1) // 32 + 1)
+    return 2.0 * 16 * keys * Hq * D * (1 + fa.bf16_p_terms())
+
+
 def phase_kernels_bf16(cfg, dev) -> dict:
     """Each bf16 form at the shapes the bf16 paths give it, held against its
     plain version (qmatmul's and flash_decode's fp32 outputs within 1e-5 x
@@ -5085,7 +5136,11 @@ def phase_kernels_bf16(cfg, dev) -> dict:
     three products by torch.matmul on the gathered, dequantized bf16
     weights); flash_decode over long_500k's wrapped 8192-slot ring and at
     the serve step; flash_attention on a 128-token prompt and its chunk form
-    at 16 tokens over 256 slots (library call: SDPA at bf16)."""
+    at 16 tokens over 256 slots (library call: SDPA at bf16). Two
+    measurement rows no path runs, each against its library call: kernel B
+    at long_500k's prefill, x (8704, 5120), and the whole prompt at 2048
+    tokens. The kernels on the bf16 tensor cores (kernel B, the attention
+    forms) take a second bound: the operations their MMAs issue."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.hw import H100_SXM
@@ -5120,13 +5175,14 @@ def phase_kernels_bf16(cfg, dev) -> dict:
         return one("wg").t().contiguous(), one("wu").t().contiguous(), \
             one("wd").contiguous()
     ffn_bytes = 3 * d * (2 * k16 + k8 + k4 / 2) + 3 * 4 * (k8 + k4)
-    # kernel A on the CUDA cores; kernel B one TF32 product per product
-    # (bf16 and integer operands are exact in TF32)
-    for name, R, M, products in (("qmatmul_gemv_bf16_b1", 1, 1, None),
-                                 ("qmatmul_gemv_bf16_rows", 4, 1, None),
-                                 ("qmatmul_mma_bf16_m512", 1, 512, 1),
-                                 ("qmatmul_mma_bf16_rows", 4, 16, 1)):
+    # kernel A on the CUDA cores; kernel B on the bf16 tensor cores
+    for name, R, M, mma in (("qmatmul_gemv_bf16_b1", 1, 1, False),
+                            ("qmatmul_gemv_bf16_rows", 4, 1, False),
+                            ("qmatmul_mma_bf16_m512", 1, 512, True),
+                            ("qmatmul_mma_bf16_rows", 4, 16, True),
+                            ("qmatmul_mma_bf16_m8704", 1, 8704, True)):
         per_row = R > 1
+        measure = M > 512       # a measurement row: no fp32 form
         x = torch.randn(R, M, d, generator=g, device=dev).to(bf)
         sets = torch.stack([torch.randperm(f, generator=g, device=dev)[:k]
                             for _ in range(R)]).to(torch.int32)
@@ -5141,19 +5197,25 @@ def phase_kernels_bf16(cfg, dev) -> dict:
         def lib():
             for r, (wg, wu, wd) in enumerate(ws):
                 (act(x[r] @ wg) * (x[r] @ wu)) @ wd
-        xf = x.float()
-        fp32_banks = {n: (t.float() if t.dtype == bf else t)
-                      for n, t in banks.items()}
+        fp32_form = None
+        if not measure:
+            xf = x.float()
+            fp32_banks = {n: (t.float() if t.dtype == bf else t)
+                          for n, t in banks.items()}
+
+            def fp32_form():
+                return ops.mp_ffn(xf, fp32_banks, idx, sizes, cfg.ffn_act)
         row = kernel_row(
             lambda: ops.mp_ffn(x, banks, idx, sizes, cfg.ffn_act),
             lambda: ref.mp_ffn_gathered_ref(x, banks, idx, sizes,
                                             cfg.ffn_act),
             lib, R * (ffn_bytes + 2 * M * d * 2), R * 2 * M * d * 3 * k,
-            peak=H100_SXM.flops_bf16, tf32_products=products,
-            fp32_form=lambda: ops.mp_ffn(xf, fp32_banks, idx, sizes,
-                                         cfg.ffn_act), plain_reps=10)
-        del fp32_banks
-        kernel = "qmatmul_gemv" if products is None else "qmatmul_mma"
+            peak=H100_SXM.flops_bf16, tf32_products=None,
+            issued_bf16=ffn_bf16_issued(R, M, d, k16, k8, k4, dev) if mma
+            else None,
+            fp32_form=fp32_form, plain_reps=3 if measure else 10)
+        fp32_form = xf = fp32_banks = ws = None      # free them
+        kernel = "qmatmul_mma" if mma else "qmatmul_gemv"
         require(set(held) == {kernel}, f"{name}: kernels held {set(held)}")
         row.update(max_abs_err=max(e["max_abs_err"] for e in
                                    held[kernel].values()),
@@ -5211,7 +5273,9 @@ def phase_kernels_bf16(cfg, dev) -> dict:
     for name, B, S, sbuf, pos0 in (("flash_attention_bf16", 4, 128, 128,
                                     None),
                                    ("chunk_attention_bf16", 4, 16, 256,
-                                    [0, 48, 96, 112])):
+                                    [0, 48, 96, 112]),
+                                   ("flash_attention_bf16_2k", 1, 2048, 2048,
+                                    None)):
         q = torch.randn(B, S, hq, D, generator=g, device=dev).to(bf)
         kk = torch.randn(B, sbuf, hkv, D, generator=g, device=dev).to(bf)
         vv = torch.randn(B, sbuf, hkv, D, generator=g, device=dev).to(bf)
@@ -5247,8 +5311,9 @@ def phase_kernels_bf16(cfg, dev) -> dict:
             run()
         kernel = "flash_attention" if pos0 is None else "chunk_attention"
         row = kernel_row(run, plain, lib, nbytes, 4 * pairs * hq * D,
-                         peak=H100_SXM.flops_bf16, fp32_form=fp32,
-                         plain_reps=10)
+                         peak=H100_SXM.flops_bf16, tf32_products=None,
+                         issued_bf16=attention_bf16_issued(B, S, hq, D, pos0),
+                         fp32_form=None if S > 128 else fp32, plain_reps=10)
         row.update(max_abs_err=held[kernel][next(iter(held[kernel]))][
             "max_abs_err"], shape=f"q {tuple(q.shape)}, kv "
             f"{tuple(kk.shape)} bf16" + ("" if pos0 is None else
@@ -5901,6 +5966,11 @@ def main(only=None):
         "qmatmul_mma_bf16_rows": (c + "qmatmul_bf16.cu",
                                   k + "qmatmul.py:38",
                                   "qmatmul_mma", ()),
+        # measurement: kernel B at long_500k's prefill M (its launches are
+        # those of the M = 512 row)
+        "qmatmul_mma_bf16_m8704": (c + "qmatmul_bf16.cu",
+                                   k + "qmatmul.py:38",
+                                   "qmatmul_mma", bf16_tiny),
         "flash_decode_bf16_ring_8k": (c + "flash_decode_bf16.cu",
                                       k + "flash_decode.py:26",
                                       "flash_decode", ("mesh_bf16_m2",
@@ -5909,13 +5979,19 @@ def main(only=None):
                               k + "flash_decode.py:26",
                               "flash_decode", bf16_tiny
                               + ("llama4/bf16_full",)),
-        "flash_attention_bf16": (c + "flash_attention.cu",
+        "flash_attention_bf16": (c + "flash_attention_bf16.cu",
                                  k + "flash_attention.py:26",
                                  "flash_attention", bf16_tiny
                                  + ("llama4/bf16_full",)),
-        "chunk_attention_bf16": (c + "flash_attention.cu",
+        "chunk_attention_bf16": (c + "flash_attention_bf16.cu",
                                  k + "flash_attention.py:26",
                                  "chunk_attention", ()),
+        # measurement: the whole prompt at 2048 tokens (the launches are
+        # those of the row above)
+        "flash_attention_bf16_2k": (c + "flash_attention_bf16.cu",
+                                    k + "flash_attention.py:26",
+                                    "flash_attention", bf16_tiny
+                                    + ("llama4/bf16_full",)),
     }
     table = []
     for name, (src, replaces, counter, on) in rows.items():
@@ -5935,6 +6011,7 @@ def main(only=None):
                if "library_graph_ms" in kk else {}),
             **{key: kk[key] for key in ("gemv_device_ms", "mma_device_ms",
                                         "bound_tf32_ms", "bound_tf32_by",
+                                        "bound_issued_ms", "bound_issued_by",
                                         "uncapped_device_ms",
                                         "sdpa_uncapped_ms",
                                         "library_max_abs_err",

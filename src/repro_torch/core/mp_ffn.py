@@ -21,8 +21,12 @@ import torch
 
 from repro_torch.core.predictor import predictor_scores, shared_topk_indices
 from repro_torch.kernels import ops
-from repro_torch.models.common import (activation, each_row, off_model,
-                                       on_model)
+from repro_torch.models.common import (activation, data_idle, each_row,
+                                       model_idle_data, off_model, on_model,
+                                       shard_on)
+
+#: a layer's places in the model's layer pattern (``mp_ffn_apply``'s ``place``)
+PLACES = ("scan", "carry", "remainder")
 
 
 def tier_sizes(f: int, cfg) -> Dict[str, int]:
@@ -35,14 +39,22 @@ def tier_sizes(f: int, cfg) -> Dict[str, int]:
 
 
 def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False,
-                 whole_d: bool = False):
+                 place: str = "carry"):
     """x: (B, S, d) — serving activations. banks/pred: one layer's params.
     ``rows``: each batch row takes its own active set over its own S
     positions (idx (B, k)) instead of one shared set (idx (k,)).
-    On a mesh (a DTensor x) the predictor reads x with its features on
-    "model", as the reference's activations come; with ``whole_d`` (a
-    remainder layer's one row, where GSPMD contracts it so) x and A whole
-    over "model", each device the whole d.
+    ``place``: the layer's place in the model's layer pattern (one of
+    ``PLACES``), which sets where GSPMD puts its products on a mesh:
+    "scan", a pattern repeat's layer whose output stays inside the repeat;
+    "carry", a repeat's last layer, whose output is the reference's scan
+    carry (the default: a layer alone); "remainder", a layer past the
+    repeats. On a mesh (a DTensor x) the predictor reads x with its
+    features on "model", as the reference's activations come; a remainder
+    layer's one row (its rows leave "data" idle) contracts the whole d,
+    x and A whole over "model". On a mesh whose "model" dim is one device
+    (``models.common.model_idle_data``) x's d lies on the idle "data" dim
+    for the predictor and the gate and up products instead, and but for
+    "carry" the down banks' d too, so the down product writes its d there.
 
     Returns (y, info) where info carries the rank-sorted active indices and
     the per-step weight bytes the tiers move."""
@@ -50,9 +62,19 @@ def mp_ffn_apply(cfg, banks, pred, x, *, rows: bool = False,
     f = banks["wg_i8_s"].shape[-1]
     sizes = tier_sizes(f, cfg)
     k, k16, k8, k4 = sizes["k"], sizes["fp16"], sizes["int8"], sizes["int4"]
+    if place not in PLACES:
+        raise ValueError(f"mp_ffn_apply: place {place!r} not in {PLACES}")
+    i = model_idle_data(x)
+    whole_d = i < 0 and place == "remainder" and data_idle(x)
+    x = shard_on(x, i, -1)
+    if i >= 0 and place != "carry":
+        banks = {n: shard_on(t, i, 1) if n.startswith("wd_") and t.dim() == 2
+                 else t for n, t in banks.items()}
 
     def top_k(xs):                                            # rank-sorted
-        if whole_d:
+        if i >= 0:
+            scores = predictor_scores(xs, pred["A"], pred["B"])
+        elif whole_d:
             scores = predictor_scores(off_model(xs), off_model(pred["A"]),
                                       pred["B"])
         else:

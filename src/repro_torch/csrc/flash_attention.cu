@@ -24,13 +24,10 @@
 // scrubbed or restored blocks): they are never copied into shared memory
 // (the copy zero-fills them), so no key above a row's front is read into a
 // product and a NaN or Inf planted there leaves the output bit-identical.
-// bf16 (the _bf16 entry points, the reference's default precision): q, k,
-// v and out bf16; Q and the K/V tiles are widened to fp32 (exactly) as
-// they are staged, with plain loads in place of cp.async, into the same
-// fp32 tiles, and the output is rounded to bf16 (round to nearest even)
-// once, as the Pallas kernel writes q.dtype; the split's partials stay
-// fp32. q times the scale and P are not bf16, so the products keep the
-// 3-MMA split. The fp32 forms are the same code at another instance.
+// bf16 (the _bf16 entry points, the reference's default precision) is
+// flash_attention_bf16.cu, a kernel of its own on the bf16 tensor cores;
+// the two share the plan, the Params and the epilogue
+// (flash_attention_common.cuh).
 //
 // What bounds it on an H100: the whole prompt at the serve path's shapes
 // (B 4, S 128, 40 query heads over 8 KV heads of 128) moves 25 MB, 7.5 us
@@ -112,20 +109,11 @@
 // 64-row tiles do not fit 16 x G = 80-row query tiles, and a TF32 wgmma
 // takes both operands K-major, so V would need a transpose in shared
 // memory (ROADMAP queue 2).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kBKV = 32;          // keys per tile: one 32-deep slice of P V
 constexpr int kStages = 2;        // cp.async ring depth
-constexpr int kMaxWarps = 8;      // warps per block: (head, sub-tile) pairs
-constexpr int kMaxRanges = 32;    // key ranges of a split: their (m, l) fit
-                                  // the shared memory freed for the combine
-constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct Smem {
@@ -139,28 +127,6 @@ struct Smem {
   static constexpr int bytes(int warps) {
     return (warps * 16 * kQLd + kStages * kStage) * 4;
   }
-};
-
-// dynamic shared memory a block may use (the card's 232,448 bytes less
-// this kernel's static flag, with room to spare)
-constexpr int kMaxSmem = 232448 - 1024;
-
-struct Params {
-  const void* q;         // fp32 or bf16 (the kernel's T), as are k, v, out
-  const void* k;
-  const void* v;
-  const int* pos0;       // nullptr: every row starts at 0
-  void* out;
-  float* parts;          // split: (slots, ranges, rows, D + 2) partials
-  int* counts;           // split: one counter per slot, 0 between launches
-  int S, Skv, Hq, Hkv, G;
-  int hb, qsub;          // heads per block, 16-row sub-tiles per head
-  int groups, q_tiles;   // head groups per KV head, query tiles per row
-  int split, ranges;     // key slots per range (0: one range), ranges
-  int pair;              // no split: a block takes two query tiles
-  int window;
-  float scale;
-  float softcap;         // > 0: tanh(s / softcap) * softcap on kept scores
 };
 
 // v = hi + lo: hi is v rounded to TF32's 10 mantissa bits (half away from
@@ -178,52 +144,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// four consecutive values of global memory, widened to fp32 (bf16: 8-byte
-// aligned, widened by the intrinsics, exactly); two and four fp32 values
-// stored as T (bf16: rounded to nearest even, as PyTorch's .to() rounds)
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                         __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // One query tile (qt) of one key range (rg) of KV head h, head group hg,
@@ -244,28 +164,9 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
   float* Qs = smem;
   float* ring = smem + rows * QL;
 
-  const int q0 = qt * 16 * p.qsub;
-  const int p0 = p.pos0 ? p.pos0[b] : 0;       // position of query 0
-  // the tile's last query position is the front: no key above it is read
-  const int front = min(p0 + min(q0 + 16 * p.qsub, p.S) - 1, p.Skv - 1);
-  const int lo = p.window > 0 ? max(0, p0 + q0 - p.window + 1) : 0;
-  int k_lo = lo, k_hi = front, r_lo = 0, r_hi = 0;
-  if (p.split) {
-    r_lo = lo / p.split;
-    r_hi = front / p.split;
-    if (rg < r_lo || rg > r_hi) return;        // the whole block: no keys
-    k_lo = max(lo, rg * p.split);
-    k_hi = min(front, rg * p.split + p.split - 1);
-  }
-
-  // this warp's (head, 16-row sub-tile) and the keys its rows can see
-  const int j = hg * p.hb + warp / p.qsub;
-  const int r0 = q0 + (warp % p.qsub) * 16;
-  const bool active = j < p.G && r0 < p.S;
-  const int hq = h * p.G + j;
-  const int w_hi = min(p0 + min(r0 + 16, p.S) - 1, k_hi);
-  const int w_lo = p.window > 0 ? max(k_lo, p0 + r0 - p.window + 1) : k_lo;
-  const int wt_lo = w_lo / kBKV, wt_hi = w_lo <= w_hi ? w_hi / kBKV : -1;
+  TileKeys tk;
+  if (!tile_keys(p, qt, rg, h, hg, b, warp, tk)) return;
+  const int q0 = tk.q0, front = tk.front;
 
   // Q of every pair (rows past S or heads past G zero-fill): first group
   for (int e = tid; e < rows * C4; e += blockDim.x) {
@@ -309,25 +210,11 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  const int qp0 = p0 + r0 + g, qp1 = qp0 + 8;   // positions of rows g, g+8
+  const int qp0 = tk.p0 + tk.r0 + g;            // position of row g
   const float* Qw = Qs + (warp * 16 + g) * QL + 2 * t;
 
-  const int t_lo = k_lo / kBKV;
-  const int ntiles = k_lo <= k_hi ? k_hi / kBKV - t_lo + 1 : 0;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ntiles) load_tile(s, t_lo + s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();                     // tile i landed; tile i-1 is free
-    const int nx = i + kStages - 1;
-    if (nx < ntiles) load_tile(nx % kStages, t_lo + nx);
-    cp_async_commit();
-    const int tile = t_lo + i;
-    if (!active || tile < wt_lo || tile > wt_hi) continue;   // warp-uniform
-    const float* Ks = ring + (i % kStages) * L::kStage;
+  key_loop<kStages>(tk, load_tile, [&](int st, int tile) {
+    const float* Ks = ring + st * L::kStage;
     const float* Vs = Ks + L::kK;
     const int kt0 = tile * kBKV;
 
@@ -377,45 +264,7 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
     }
 
     // mask, then the online softmax of rows g (c = 0, 1) and g + 8 (2, 3)
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kp = kt0 + 8 * jn + 2 * t + (c & 1);
-        const int qp = c < 2 ? qp0 : qp1;
-        bool ok = kp <= qp;
-        if (p.window > 0) ok = ok && kp > qp - p.window;
-        float x = s[jn][c] * p.scale;
-        if constexpr (kCap) x = tanhf(x / p.softcap) * p.softcap;
-        s[jn][c] = ok ? x : kNegInf;
-        if (c < 2) mx0 = fmaxf(mx0, s[jn][c]);
-        else mx1 = fmaxf(mx1, s[jn][c]);
-      }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = expf(s[jn][c] - (c < 2 ? mn0 : mn1));
-        s[jn][c] = e;
-        if (c < 2) ps0 += e;
-        else ps1 += e;
-      }
-    l0 = l0 * al0 + quad_sum(ps0);
-    l1 = l1 * al1 + quad_sum(ps1);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
-    }
+    softmax_step<NT, kCap>(p, s, acc, kt0, qp0, t, m0, l0, m1, l1);
 
     // O += P V: P's k slots t, t + 4 are keys 2t, 2t + 1 of each group
     uint32_t phi[4][4], plo[4][4];
@@ -454,131 +303,10 @@ __device__ __forceinline__ void query_tile(const Params& p, float* smem,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[dg + n][c] += part[n][c];
     }
-  }
-  cp_async_wait<0>();
+  });
 
-  const int qr0 = r0 + g, qr1 = qr0 + 8;
-  if (r_lo == r_hi) {                    // one range: normalise and store
-    if (!active) return;
-    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-    T* o0 = static_cast<T*>(p.out) +
-            (((long long)b * p.S + qr0) * p.Hq + hq) * D + 2 * t;
-    T* o1 = o0 + 8LL * p.Hq * D;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (qr0 < p.S) st2(o0 + n * 8, acc[n][0] / d0, acc[n][1] / d0);
-      if (qr1 < p.S) st2(o1 + n * 8, acc[n][2] / d1, acc[n][3] / d1);
-    }
-    return;
-  }
-
-  // split: this range's (m, l, acc) to scratch; the last range to finish
-  // combines all of them in ascending order
-  const long long slot =
-      (((long long)b * p.Hkv + h) * p.groups + hg) * p.q_tiles + qt;
-  const long long range_floats = (long long)rows * (D + 2);
-  float* slot_parts = p.parts + slot * p.ranges * range_floats;
-  {
-    float* po = slot_parts + rg * range_floats;
-    const int row0 = warp * 16 + g;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<float2*>(po + row0 * D + n * 8 + 2 * t) =
-          make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(po + (row0 + 8) * D + n * 8 + 2 * t) =
-          make_float2(acc[n][2], acc[n][3]);
-    }
-    if (t == 0) {
-      float* ml = po + rows * D;
-      ml[2 * row0] = m0;
-      ml[2 * row0 + 1] = l0;
-      ml[2 * row0 + 16] = m1;
-      ml[2 * row0 + 17] = l1;
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(p.counts + slot, 1) == r_hi - r_lo;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // every range's (m, l) into shared memory at once (Q and the ring are
-  // free now), each row's weights exp(m_r - M) and denominator, then the
-  // elements; sums run over the ranges in ascending order. Loads are
-  // unconditional (a range past the last reads the last with weight 0), so
-  // that all of a step's loads are in flight together.
-  const int nr = r_hi - r_lo + 1;             // <= kMaxRanges
-  constexpr int kE = 8, kR = 4;               // elements, ranges a step
-  const int nr_pad = (nr + kR - 1) / kR * kR;
-  const float* first = slot_parts + r_lo * range_floats;
-  float* wts = smem;                          // (rows, nr_pad) m, weights
-  float* ls = smem + rows * nr_pad;           // (rows, nr_pad) l
-  float* den = ls + rows * nr_pad;            // (rows,)
-  for (int e = tid; e < rows * nr_pad; e += blockDim.x) {
-    const int row = e / nr_pad, r = e % nr_pad;
-    const float* ml = first + min(r, nr - 1) * range_floats + rows * D + 2 * row;
-    const float m = __ldcg(ml), l = __ldcg(ml + 1);
-    wts[e] = r < nr ? m : kNegInf;
-    ls[e] = r < nr ? l : 0.f;
-  }
-  __syncthreads();
-  for (int row = tid; row < rows; row += blockDim.x) {
-    float M = kNegInf;
-    for (int r = 0; r < nr; ++r) M = fmaxf(M, wts[row * nr_pad + r]);
-    float lsum = 0.f;
-    for (int r = 0; r < nr_pad; ++r) {
-      const float w = r < nr ? expf(wts[row * nr_pad + r] - M) : 0.f;
-      wts[row * nr_pad + r] = w;
-      lsum += w * ls[row * nr_pad + r];
-    }
-    den[row] = fmaxf(lsum, 1e-20f);
-  }
-  __syncthreads();
-  for (int e0 = tid; e0 < rows * C4; e0 += kE * blockDim.x) {
-    float4 o[kE];
-    int rowe[kE];
-    const float* src[kE];
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int e = min(e0 + i * (int)blockDim.x, rows * C4 - 1);
-      rowe[i] = e / C4;
-      src[i] = first + rowe[i] * D + (e % C4) * 4;
-    }
-    for (int r0 = 0; r0 < nr_pad; r0 += kR) {
-      float4 x[kR][kE];
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-#pragma unroll
-        for (int i = 0; i < kE; ++i)
-          x[j][i] = __ldcg(reinterpret_cast<const float4*>(
-              src[i] + min(r0 + j, nr - 1) * range_floats));
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-#pragma unroll
-        for (int i = 0; i < kE; ++i) {
-          const float wr = wts[rowe[i] * nr_pad + r0 + j];
-          o[i].x += wr * x[j][i].x;
-          o[i].y += wr * x[j][i].y;
-          o[i].z += wr * x[j][i].z;
-          o[i].w += wr * x[j][i].w;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      const int e = e0 + i * (int)blockDim.x;
-      if (e >= rows * C4) break;
-      const int row = rowe[i], c = e % C4, w = row >> 4;
-      const int jj = hg * p.hb + w / p.qsub;
-      const int qr = q0 + (w % p.qsub) * 16 + (row & 15);
-      if (jj >= p.G || qr >= p.S) continue;
-      const float d = den[row];
-      st4(static_cast<T*>(p.out) +
-              (((long long)b * p.S + qr) * p.Hq + h * p.G + jj) * D + c * 4,
-          make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d));
-    }
-  }
-  if (tid == 0) p.counts[slot] = 0;      // ready for the next launch
+  finish_tile<D, T>(p, smem, is_last, acc, m0, l0, m1, l1, tk.active, qt,
+                    rg, h, hg, b, q0, tk.r0, tk.hq, tk.r_lo, tk.r_hi);
 }
 
 // grid (q_tiles * ranges, or ceil(q_tiles / 2) when paired; Hkv * groups;
@@ -628,22 +356,9 @@ int launch_d(const Params& p, int B, int warps, cudaStream_t st) {
 template <typename T>
 int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
            cudaStream_t st) {
-  if (p.Hkv < 1 || p.Hq % p.Hkv || p.hb < 1 || p.qsub < 1 ||
-      p.hb * p.qsub > kMaxWarps || p.split < 0 || p.split % kBKV ||
-      (p.pair && p.split) || !(p.softcap >= 0.f))
-    return (int)cudaErrorInvalidValue;
-  p.G = p.Hq / p.Hkv;
-  p.groups = (p.G + p.hb - 1) / p.hb;
-  p.q_tiles = (p.S + 16 * p.qsub - 1) / (16 * p.qsub);
-  p.ranges = p.split ? (p.Skv + p.split - 1) / p.split : 1;
+  const int err = prepare(p, B, D, parts_floats, count_ints);
+  if (err) return err;
   const int warps = p.hb * p.qsub;
-  if (p.ranges > kMaxRanges) return (int)cudaErrorInvalidValue;
-  if (p.split) {
-    const long long slots = (long long)B * p.Hkv * p.groups * p.q_tiles;
-    if (!p.parts || !p.counts || count_ints < slots ||
-        parts_floats < slots * p.ranges * warps * 16 * (D + 2))
-      return (int)cudaErrorInvalidValue;
-  }
   const bool cap = p.softcap > 0.f;
   switch (D) {
     case 32: return cap ? launch_d<32, true, T>(p, B, warps, st)
@@ -658,30 +373,6 @@ int launch(Params p, int B, int D, long long parts_floats, long long count_ints,
                  : launch_d<256, false, T>(p, B, warps, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-Params make_params(const void* q, const void* k, const void* v,
-                   const int* pos0, void* out, int S, int Skv, int Hq,
-                   int Hkv, float scale, float softcap, int window, int hb,
-                   int qsub, int split, int pair) {
-  Params p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.pos0 = pos0;
-  p.out = out;
-  p.S = S;
-  p.Skv = Skv;
-  p.Hq = Hq;
-  p.Hkv = Hkv;
-  p.scale = scale;
-  p.softcap = softcap;
-  p.window = window;
-  p.hb = hb;
-  p.qsub = qsub;
-  p.split = split;
-  p.pair = pair;
-  return p;
 }
 
 }  // namespace
@@ -700,21 +391,6 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
   return launch<float>(make_params(q, k, v, nullptr, out, S, S, Hq, Hkv,
                                    scale, softcap, window, hb, qsub, 0, pair),
                        B, D, 0, 0, (cudaStream_t)stream);
-}
-
-// The same with q, k, v and out bf16 (16-byte aligned): staged widened to
-// fp32, computed as the fp32 form, the output rounded to bf16 (q.dtype, as
-// the Pallas kernel's).
-extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* out, int B, int S,
-                                        int Hq, int Hkv, int D, float scale,
-                                        float softcap, int window, int hb,
-                                        int qsub, int pair, void* stream) {
-  if (window < 0) return (int)cudaErrorInvalidValue;
-  return launch<__nv_bfloat16>(
-      make_params(q, k, v, nullptr, out, S, S, Hq, Hkv, scale, softcap,
-                  window, hb, qsub, 0, pair),
-      B, D, 0, 0, (cudaStream_t)stream);
 }
 
 // The chunked form: q (B, S, Hq, D) at positions pos0[b] + i (pos0 an int
@@ -737,19 +413,4 @@ extern "C" int flash_attention_chunk_fwd(const float* q, const float* k,
   p.parts = parts;
   p.counts = counts;
   return launch<float>(p, B, D, parts_floats, count_ints, (cudaStream_t)stream);
-}
-
-// The chunked form with q, k, v and out bf16, as flash_attention_fwd_bf16
-// (the partials stay fp32).
-extern "C" int flash_attention_chunk_fwd_bf16(
-    const void* q, const void* k, const void* v, const int* pos0, void* out,
-    float* parts, long long parts_floats, int* counts, long long count_ints,
-    int B, int S, int Skv, int Hq, int Hkv, int D, float scale, float softcap,
-    int hb, int qsub, int split, void* stream) {
-  Params p = make_params(q, k, v, pos0, out, S, Skv, Hq, Hkv, scale, softcap,
-                         0, hb, qsub, split, 0);
-  p.parts = parts;
-  p.counts = counts;
-  return launch<__nv_bfloat16>(p, B, D, parts_floats, count_ints,
-                               (cudaStream_t)stream);
 }

@@ -60,17 +60,13 @@
 //    the epilogue, the row form's per-contraction scale is folded into A
 //    before the split. Small outputs split K across blocks (the same
 //    fixed-order second pass).
-// bf16 (qmm_gathered_bf16, the reference's default precision): x (or h) is
-// bf16 and so is the fp tier's bank (precision 0 names it there); the int8
-// and int4 banks are the same bytes. Every value is widened to fp32 as it is
-// staged (__bfloat162float, exact) and the sums stay fp32, as _qmm_kernel
-// widens its inputs; out stays fp32. The fp32 kernels are the same code,
-// other template instances. Kernel A reads a bf16 row as 8 values a 16-byte
-// unit. In kernel B a bf16 value is exact in TF32 (8 of its 10 mantissa
-// bits), so a bf16 or int weight takes no lo part, and a bf16 x none either:
-// the col form and the fp tier's row form issue one MMA per product, the int
-// tiers' row form (h times a scale, not bf16) two. bf16 x is staged with
-// plain loads, not cp.async (simple first: a later change may stage it raw).
+// bf16 (qmm_gathered_bf16 in qmatmul_bf16.cu, the reference's default
+// precision): x (or h) is bf16 and so is the fp tier's bank (precision 0
+// names it there); the int8 and int4 banks are the same bytes. Kernel A's
+// bf16 form is this file's, another template instance: every value widened
+// to fp32 as it is staged (__bfloat162float, exact), fp32 sums, a bf16 row
+// read as 8 values a 16-byte unit. Kernel B's bf16 form is a kernel of its
+// own on the bf16 tensor cores (qmatmul_bf16.cu).
 // Tier widths (38, 78, 1037, 2073, ...) are not tile multiples: every edge
 // is masked (cp.async zero-fills). Rows whose bytes are not 16-byte aligned
 // (compact banks of odd width) take element-wise loads; the sums are the
@@ -1003,23 +999,5 @@ extern "C" int qmm_gathered(const float* x, const void* w, const float* scale,
   return gathered<float>(x, w, scale, idx, R, M, N, K, ldw, precision,
                          layout, kernel, tile, splits, k_split, vec_x, vec_w,
                          accumulate, out, parts, stream);
-}
-#else
-
-// The same with x bf16, widened to fp32 as it is staged; precision 0 is
-// then the bf16 fp tier (w bf16 rows), 1 and 2 the int8 and int4 banks. The
-// plan's arguments mean what they mean above; out stays fp32. It is built
-// from qmatmul_bf16.cu, this file with QMATMUL_BF16 defined, so that the
-// two forms' template instances compile in parallel.
-extern "C" int qmm_gathered_bf16(const void* x, const void* w,
-                                 const float* scale, const int* idx, int R,
-                                 int M, int N, int K, long long ldw,
-                                 int precision, int layout, int kernel,
-                                 int tile, int splits, int k_split, int vec_x,
-                                 int vec_w, int accumulate, float* out,
-                                 float* parts, void* stream) {
-  return gathered<bf16>(x, w, scale, idx, R, M, N, K, ldw, precision,
-                        layout, kernel, tile, splits, k_split, vec_x, vec_w,
-                        accumulate, out, parts, stream);
 }
 #endif  // QMATMUL_BF16

@@ -5,10 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 the repository root; the library is loaded with ``ctypes``. The first use
 of any kernel starts one ``nvcc`` per source, all at once, and waits for
 them. A library's file name carries a hash of its source and of the
-sources it includes from ``csrc`` (a ``_bf16`` source is its fp32 source
-built with a macro set, a unit of its own so that the two forms' template
-instances compile in parallel), so an edited source is rebuilt and a stale
-library is never loaded.
+sources it includes from ``csrc`` (a ``_bf16`` source includes its fp32
+source, or a header the two share, and is a unit of its own so that the two
+forms' instances compile in parallel), so an edited source is rebuilt and a
+stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict
 
 SOURCES = ("qmatmul", "qmatmul_bf16", "flash_decode", "flash_decode_bf16",
-           "flash_attention", "atu_update")
+           "flash_attention", "flash_attention_bf16", "atu_update")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

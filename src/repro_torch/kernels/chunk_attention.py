@@ -1,14 +1,15 @@
-"""Chunked-prefill attention at an offset — the CUDA kernel of the server's
-prefill (``csrc/flash_attention.cu``'s ``flash_attention_chunk_fwd``; the
-reference computes it in jnp with ``chunked_attention`` in
-``repro/models/transformer.py``'s ``prefill_resume`` mode, beside the
-Pallas ``flash_attention`` kernel this source replaces).
+"""Chunked-prefill attention at an offset — the CUDA kernels of the
+server's prefill (``csrc/flash_attention.cu``'s ``flash_attention_chunk_fwd``
+and, for bf16, ``csrc/flash_attention_bf16.cu``'s
+``flash_attention_chunk_fwd_bf16``; the reference computes it in jnp with
+``chunked_attention`` in ``repro/models/transformer.py``'s
+``prefill_resume`` mode, beside the Pallas ``flash_attention`` kernel these
+sources replace).
 
-``chunk_attention`` launches it on CUDA tensors only; the plain version is
-``kernels/ref.py``'s ``chunk_attention_ref`` and the device dispatch lives
-in ``kernels/ops.py``. q, k and v are all fp32 or all bf16
-(``flash_attention_chunk_fwd_bf16``, the same plan); the output has q's
-dtype.
+``chunk_attention`` launches them on CUDA tensors only; the plain version
+is ``kernels/ref.py``'s ``chunk_attention_ref`` and the device dispatch
+lives in ``kernels/ops.py``. q, k and v are all fp32 or all bf16
+(:func:`_plan_bf16`); the output has q's dtype.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (CHUNK_HEAD_DIMS, Plan,
                                                  check_inputs)
 from repro_torch.kernels.flash_attention import _plan as _tiles
+from repro_torch.kernels.flash_attention import _plan_bf16 as _tiles_bf16
 
 #: launches of the kernel since the count was last set to 0 (a split's
 #: combine runs inside the same launch), and of those the ones with a logit
@@ -51,7 +53,18 @@ def _plan(S: int, Skv: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
     longer than ``SPLIT_SLOTS``, the key axis split into ranges of a fixed
     number of absolute slots: ``SPLIT_SLOTS``, or as many 32-slot tiles
     more as keep the ranges to ``MAX_RANGES``."""
-    tiles = _tiles(S, Hq, Hkv, D, sms)._replace(pair=False)
+    return _split(_tiles(S, Hq, Hkv, D, sms), S, Skv, Hq, Hkv, sms)
+
+
+def _plan_bf16(S: int, Skv: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
+    """:func:`_plan` over the bf16 kernel's heads and sub-tiles
+    (``flash_attention._plan_bf16``), with the same key split."""
+    return _split(_tiles_bf16(S, Hq, Hkv, D, sms), S, Skv, Hq, Hkv, sms)
+
+
+def _split(tiles: Plan, S: int, Skv: int, Hq: int, Hkv: int, sms: int
+           ) -> Plan:
+    tiles = tiles._replace(pair=False)
     G = Hq // Hkv
     blocks = (math.ceil(S / (16 * tiles.qsub)) * Hkv
               * math.ceil(G / tiles.heads_per_block))
@@ -66,9 +79,9 @@ def _kernel(bf16: bool = False):
     or bf16 q, k, v and out (``flash_attention_chunk_fwd_bf16``)."""
     fn = _fns.get(bf16)
     if fn is None:
-        lib = build.load("flash_attention")
-        fn = (lib.flash_attention_chunk_fwd_bf16 if bf16
-              else lib.flash_attention_chunk_fwd)
+        fn = (build.load("flash_attention_bf16").flash_attention_chunk_fwd_bf16
+              if bf16
+              else build.load("flash_attention").flash_attention_chunk_fwd)
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         F = ctypes.c_float
         fn.argtypes = [P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, F, F, I,
@@ -124,11 +137,12 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out
-    plan = _plan(S, Skv, Hq, Hkv, D, build.sm_count(q.device))
+    bf16 = q.dtype == torch.bfloat16
+    plan = (_plan_bf16 if bf16 else _plan)(S, Skv, Hq, Hkv, D,
+                                           build.sm_count(q.device))
     parts = counts = None
     if plan.split:
         parts, counts = _scratch(plan, B, S, Skv, Hq, Hkv, D, q.device)
-    bf16 = q.dtype == torch.bfloat16
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = _kernel(True) if bf16 else _kernel()
     err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos0.data_ptr(),

@@ -1,13 +1,14 @@
-"""Causal flash attention — the CUDA kernel of prefill
-(``csrc/flash_attention.cu``; it replaces ``repro/kernels/flash_attention.py``'s
-``_kernel``).
+"""Causal flash attention — the CUDA kernels of prefill
+(``csrc/flash_attention.cu`` for fp32, ``csrc/flash_attention_bf16.cu`` for
+bf16 on the bf16 tensor cores; they replace
+``repro/kernels/flash_attention.py``'s ``_kernel``).
 
-``flash_attention`` launches it on CUDA tensors only; the plain version is
+``flash_attention`` launches them on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``flash_attention_ref`` and the device dispatch lives
-in ``kernels/ops.py``. ``_plan`` (shared with ``chunk_attention``) sets a
-block's shape from one row's shape alone. q, k and v are all fp32 or all
-bf16 (the ``_bf16`` entry points: widened as they are staged, the same
-plan); the output has q's dtype, as the Pallas kernel's.
+in ``kernels/ops.py``. ``_plan`` and ``_plan_bf16`` (shared with
+``chunk_attention``) set a block's shape from one row's shape alone. q, k
+and v are all fp32 or all bf16; the output has q's dtype, as the Pallas
+kernel's.
 """
 from __future__ import annotations
 
@@ -48,13 +49,29 @@ class Plan(NamedTuple):
     pair: bool = False    # a block takes two query tiles (long and short)
 
 
-def max_warps(D: int) -> int:
+#: key ranges of a split the kernels' combine takes at most (kMaxRanges)
+KERNEL_MAX_RANGES = 32
+
+
+def smem_bytes(D: int, warps: int, bf16: bool = False) -> int:
+    """A block's dynamic shared memory, as the kernels reckon it: fp32, a
+    warp's 16 Q rows of D + 8 floats beside two stages of a 32-key K tile
+    of D + 8 and V tile of D + 4 floats; bf16, the Q rows and three stages
+    of K and V tiles of D + 8 bf16, or the split's combine (each row's (m,
+    weight) and l of every range, and its denominator) where that is
+    more."""
+    if not bf16:
+        return (warps * 16 * (D + 8) + 2 * BKV * ((D + 8) + (D + 4))) * 4
+    tiles = (warps * 16 + 3 * 2 * BKV) * (D + 8) * 2
+    return max(tiles, warps * 16 * (2 * KERNEL_MAX_RANGES + 1) * 4)
+
+
+def max_warps(D: int, bf16: bool = False) -> int:
     """Warps a block may take at head dim D: ``MAX_WARPS``, or as many as
-    the shared memory holds (a warp's 16 Q rows of D + 8 floats beside two
-    stages of a 32-key K tile of D + 8 and V tile of D + 4): 5 at D =
-    256."""
-    ring = 2 * BKV * ((D + 8) + (D + 4))
-    return min(MAX_WARPS, (SMEM_BYTES // 4 - ring) // (16 * (D + 8)))
+    the shared memory holds (:func:`smem_bytes`): 5 at D = 256 in fp32;
+    ``MAX_WARPS`` at every D in bf16."""
+    return max(w for w in range(1, MAX_WARPS + 1)
+               if smem_bytes(D, w, bf16) <= SMEM_BYTES)
 
 
 def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
@@ -69,7 +86,17 @@ def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
     B = 4, and slower at S = 2048, where a row fills the card 8 times).
     D changes the plan only through :func:`max_warps` (G = 10 takes two
     blocks of 5 heads at every D)."""
-    warps = max_warps(D)
+    return _blocks(S, Hq, Hkv, sms, max_warps(D))
+
+
+def _plan_bf16(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
+    """:func:`_plan` of the bf16 kernel, whose smaller tiles leave room for
+    ``MAX_WARPS`` warps at every D: the same plan but at D = 256 with G > 5
+    (one row's shape and the SM count only)."""
+    return _blocks(S, Hq, Hkv, sms, max_warps(D, bf16=True))
+
+
+def _blocks(S: int, Hq: int, Hkv: int, sms: int, warps: int) -> Plan:
     G = Hq // Hkv
     groups = math.ceil(G / warps)
     hb = math.ceil(G / groups)
@@ -80,17 +107,25 @@ def _plan(S: int, Hq: int, Hkv: int, D: int, sms: int) -> Plan:
 
 def _kernel(bf16: bool = False):
     """The whole-prompt C entry point for fp32 (``flash_attention_fwd``) or
-    bf16 q, k, v and out (``flash_attention_fwd_bf16``)."""
+    bf16 q, k, v and out (``flash_attention_fwd_bf16``, a library of its
+    own)."""
     fn = _fns.get(bf16)
     if fn is None:
-        lib = build.load("flash_attention")
-        fn = lib.flash_attention_fwd_bf16 if bf16 else lib.flash_attention_fwd
+        fn = (build.load("flash_attention_bf16").flash_attention_fwd_bf16
+              if bf16 else build.load("flash_attention").flash_attention_fwd)
         P, I = ctypes.c_void_p, ctypes.c_int
         F = ctypes.c_float
         fn.argtypes = [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P]
         fn.restype = ctypes.c_int
         _fns[bf16] = fn
     return fn
+
+
+def bf16_p_terms() -> int:
+    """The bf16 terms P takes in the bf16 kernels' O += P V, as their
+    source sets it: a key tile issues (1 + this) x one product's MMAs."""
+    return int(build.load("flash_attention_bf16")
+               .flash_attention_bf16_p_terms())
 
 
 def _require(cond: bool, msg: str):
@@ -139,8 +174,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or S == 0:
         return out
-    plan = _plan(S, Hq, Hkv, D, build.sm_count(q.device))
     bf16 = q.dtype == torch.bfloat16
+    plan = (_plan_bf16 if bf16 else _plan)(S, Hq, Hkv, D,
+                                           build.sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     kernel = _kernel(True) if bf16 else _kernel()
     err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

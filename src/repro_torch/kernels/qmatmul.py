@@ -6,7 +6,8 @@ on the tensor cores for larger M.
 ``qmatmul_gathered`` launches them on CUDA tensors only; the plain version is
 ``kernels/ref.py``'s ``qmm_gathered_ref`` and the device dispatch lives in
 ``kernels/ops.py``. x is fp32 or bf16 (a bf16 model's, whose fp tier is
-bf16 too; ``qmm_gathered_bf16``, the same plan), the output fp32 either way,
+bf16 too; ``qmm_gathered_bf16`` in ``csrc/qmatmul_bf16.cu``, whose kernel B
+runs on the bf16 tensor cores, the same plan), the output fp32 either way,
 as the Pallas kernel's.
 """
 from __future__ import annotations
@@ -60,6 +61,12 @@ def _kernel(bf16: bool = False):
         fn.restype = ctypes.c_int
         _fns[bf16] = fn
     return fn
+
+
+def bf16_row_terms() -> int:
+    """The bf16 terms h x scale takes in bf16 kernel B's int tiers' row
+    form, as its source sets it: those products issue this many MMAs."""
+    return int(build.load("qmatmul_bf16").qmm_bf16_row_terms())
 
 
 def _require(cond: bool, msg: str):
@@ -164,6 +171,8 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
     if K == 0:
         return out if accumulate else out.zero_()
     kern, tile, splits, k_split = _plan(M, N, K, layout, x.device)
+    if bf16 and kern == "mma" and x.data_ptr() % 16:
+        x = x.clone()           # kernel B's bf16 rows copy from an aligned base
     parts = None
     if splits > 1:
         parts = torch.empty((R, splits, M, N), dtype=torch.float32,

@@ -63,6 +63,35 @@ def data_idle(x) -> bool:
     return x.device_mesh.size(i) > 1 and x.placements[i] == Replicate()
 
 
+def model_idle_data(x) -> int:
+    """The mesh's "data" dim where ``x`` is a DTensor on a mesh whose
+    "model" dim is one device and whose "data" dim its rows leave idle
+    (:func:`data_idle`: a one-row step), else -1. There GSPMD spreads the
+    reference's work over "data" where the weights leave it free: the
+    M2Cache FFN's gate and up products and the predictor's first contract
+    their d over it, the RG-LRU conv takes its channels there, and a down
+    product whose layer's output stays inside a pattern repeat writes its d
+    there (one-row long_500k m2 steps of qwen2.5-14b and recurrentgemma-2b
+    on 2 x 1 and 4 x 1, the reference's partitioned HLO)."""
+    if not data_idle(x):
+        return -1
+    names = x.device_mesh.mesh_dim_names
+    if "model" not in names or x.device_mesh.size(names.index("model")) > 1:
+        return -1
+    return names.index("data")
+
+
+def shard_on(x, i: int, dim: int):
+    """``x`` with its ``dim`` sharded over mesh dim ``i`` (its other
+    placements kept); the identity where ``i`` < 0 or on a plain tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    if i < 0 or not isinstance(x, DTensor):
+        return x
+    placements = list(x.placements)
+    placements[i] = Shard(dim % x.dim())
+    return x.redistribute(x.device_mesh, placements)
+
+
 def off_model(x):
     """``x`` replicated over the mesh's "model" dim (its other placements
     kept); the identity on a plain tensor."""

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (_gelu_tanh, causal_conv1d, constrain,
-                                       each_row, sigmoid)
+                                       each_row, model_idle_data, shard_on,
+                                       sigmoid)
 
 _C = 8.0  # recurrence-gate temperature from the Griffin paper
 
@@ -75,6 +76,9 @@ def rglru_block(cfg, p, x, state, *, rows: bool = False, policy=None):
     y_branch = _gelu_tanh(dense(p["w_y"], x))
     xb = dense(p["w_x"], x)
     conv_state = None if state is None else state["conv"]
+    # a one-row step on a one-device "model" dim: the conv's channels on
+    # the idle "data" dim, as GSPMD places them
+    xb = shard_on(xb, model_idle_data(x), -1)
     xb, new_conv = causal_conv1d(xb, p["conv_w"], p["conv_b"], conv_state)
     xb = constrain(xb, policy, ("pod", "data"), None, None)
 

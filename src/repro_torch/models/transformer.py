@@ -56,8 +56,7 @@ from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
 from repro_torch.kernels import ops
 from repro_torch.models import hybrid, moe, ssm
 from repro_torch.models.common import (apply_norm, chunked_attention,
-                                       constrain, data_idle, each_row,
-                                       glu_down,
+                                       constrain, each_row, glu_down,
                                        glu_ffn, glu_hidden, head_slots,
                                        head_split, placed_product, rope,
                                        sharded_on)
@@ -673,7 +672,7 @@ def _cached_attention(q, k, v, kv, positions, *, mode: str, window: int,
 
 def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
                slots=None, m2: bool = True, window: int = 0, policy=None,
-               remat: bool = False, remainder: bool = False):
+               remat: bool = False, place: str = "carry"):
     """x: (B, S, d). kv: this layer's {'k', 'v'} cache views (and
     {'k_s', 'v_s'} with an int8 cache), updated in place (None in "train").
     pos0: (B,) int64 start positions on x's device (all 0 for "prefill"
@@ -699,9 +698,9 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
     decode step's q and buffer) where the reference does
     (transformer.py:493-494, 513-531), a no-op on plain tensors.
     ``remat`` (train, a parallel block with the dense GLU only): the layer
-    checkpoints itself (``forward``'s ``remat``). ``remainder``: a layer
-    past the pattern's repeats (its predictor placed as
-    :func:`_ffn_apply` says).
+    checkpoints itself (``forward``'s ``remat``). ``place``: the layer's
+    place in the layer pattern, which places its M2Cache FFN on a mesh
+    (``core.mp_ffn.mp_ffn_apply``).
     Returns (y, active ids: (k,) or (B, k) with ``rows``, the MoE router's
     load-balance loss: 0.0 for another FFN, a (B,) tensor with
     ``rows``)."""
@@ -734,7 +733,7 @@ def attn_layer(cfg, p, x, kv, pos0, *, mode: str, rows: bool = False,
 
     def ffn(t):
         return _ffn_apply(cfg, p["ffn"], t, m2=m2, rows=rows, policy=policy,
-                          remainder=remainder)
+                          place=place)
     if cfg.parallel_block:
         ffn_out, idx, lb = ffn(h)
         y = x + attn_out + ffn_out
@@ -798,11 +797,11 @@ def _attention(cfg, p, x, kv, pos0, *, mode, rows, slots, window, policy):
 
 
 def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool, policy=None,
-               remainder: bool = False):
+               place: str = "carry"):
     """A layer's FFN (the reference's ``_ffn_apply``, transformer.py:
     414-432): the MoE experts, the M2Cache FFN where ``m2`` and the layer
-    has banks, else the dense GLU; ``rows`` and ``policy`` (the MoE
-    dispatch's batch shards) as in :func:`attn_layer`.
+    has banks, else the dense GLU; ``rows``, ``policy`` (the MoE
+    dispatch's batch shards) and ``place`` as in :func:`attn_layer`.
     Returns (y, active ids (empty but for the M2Cache FFN), the MoE
     load-balance loss or 0.0)."""
     def dense(fn, t):
@@ -814,12 +813,8 @@ def _ffn_apply(cfg, p_ffn, x, *, m2: bool, rows: bool, policy=None,
         y, lb = dense(lambda t: _moe_apply(cfg, p_ffn, t, policy), x)
         return y, empty, lb if rows else lb[0]
     if m2 and "banks" in p_ffn:
-        # a remainder layer's one row: GSPMD contracts the predictor's
-        # whole d there (its rows leave "data" idle), the scanned layers'
-        # features on "model"
         y, info = mp.mp_ffn_apply(cfg, p_ffn["banks"], p_ffn["pred"], x,
-                                  whole_d=remainder and data_idle(x),
-                                  rows=rows)
+                                  rows=rows, place=place)
         return y, info["active_idx"], 0.0
     y = dense(lambda t: glu_ffn(t, p_ffn["wg"], p_ffn["wu"], p_ffn["wd"],
                                 cfg.ffn_act), x)
@@ -842,11 +837,11 @@ def _moe_apply(cfg, p_ffn, x, policy=None):
 
 
 def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True,
-                policy=None, remainder: bool = False):
+                policy=None, place: str = "carry"):
     """An RG-LRU layer (transformer.py:636-643): x: (B, S, d); state: this
     layer's {'h', 'conv'} cache views, updated in place (None: no cache).
-    ``rows``, ``m2`` and ``remainder`` as in :func:`attn_layer`. Returns
-    (y, active ids, 0.0)."""
+    ``rows``, ``m2`` and ``place`` as in :func:`attn_layer`.
+    Returns (y, active ids, 0.0)."""
     def dense(fn, t):
         return each_row(fn, t) if rows else fn(t)
     h = dense(lambda t: _norm(cfg, t, p["norm1"], policy), x)
@@ -858,7 +853,7 @@ def rglru_layer(cfg, p, x, state, *, rows: bool = False, m2: bool = True,
     x = x + mix
     h2 = dense(lambda t: _norm(cfg, t, p["norm2"], policy), x)
     y, idx, lb = _ffn_apply(cfg, p["ffn"], h2, m2=m2, rows=rows,
-                            policy=policy, remainder=remainder)
+                            policy=policy, place=place)
     return x + y, idx, lb
 
 
@@ -1031,15 +1026,16 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
         if mode == "decode" and sbuf is not None:
             slots = decode_slots(pos0, sbuf, bool(w_eff))
 
-    def layer(l, kind, p, x, remainder=False):
+    def layer(l, place, x):
         c = None if cache is None else layer_cache(cfg, cache, l)
+        kind, p = cfg.layer_kinds[l], params["layers"][l]
         if kind == "attn":
             return attn_layer(cfg, p, x, c, pos0, mode=mode, rows=rows,
                               slots=slots, m2=m2, window=window,
-                              policy=policy, remainder=remainder)
+                              policy=policy, place=place)
         if kind == "rglru":
             return rglru_layer(cfg, p, x, c, rows=rows, m2=m2, policy=policy,
-                               remainder=remainder)
+                               place=place)
         return ssm_layer(cfg, p, x, c, mode=mode, rows=rows, policy=policy)
 
     n = len(pat)
@@ -1050,7 +1046,8 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
         layer)."""
         outs = []
         for l in range(first, first + n):
-            x, idx, lb = layer(l, cfg.layer_kinds[l], params["layers"][l], x)
+            x, idx, lb = layer(l, "carry" if l == first + n - 1 else "scan",
+                               x)
             outs.append((idx, lb))
         return constrain(x, policy, *act), outs
 
@@ -1073,8 +1070,7 @@ def _forward(cfg, params, tokens, prefix, cache, mode, m2, rows, remat,
             idxs.append(idx)
             lb_acc = lb_acc + lb
     for l in range(F * n, len(cfg.layer_kinds)):
-        x, idx, lb = layer(l, cfg.layer_kinds[l], params["layers"][l], x,
-                           remainder=True)
+        x, idx, lb = layer(l, "remainder", x)
         idxs.append(idx)
         lb_acc = lb_acc + lb
 

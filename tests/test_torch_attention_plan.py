@@ -75,7 +75,7 @@ def _record_launches(monkeypatch, module):
     def fake(*args):
         calls.append(args[:-1])             # all but the stream
         return 0
-    monkeypatch.setattr(module, "_kernel", lambda: fake)
+    monkeypatch.setattr(module, "_kernel", lambda bf16=False: fake)
     monkeypatch.setattr(module, "check_inputs", lambda *a: None)
     monkeypatch.setattr(build, "sm_count", lambda device: 132)
 
@@ -186,3 +186,64 @@ def test_head_dim_256_plans_two_blocks_of_five_heads():
     with pytest.raises(ValueError, match="CUDA"):
         _whole(q=torch.zeros(2, 16, 10, 256), k=torch.zeros(2, 16, 1, 256),
                v=torch.zeros(2, 16, 1, 256))
+
+
+def test_bf16_plans_take_one_rows_shape_only():
+    assert list(inspect.signature(fa._plan_bf16).parameters) == [
+        "S", "Hq", "Hkv", "D", "sms"]
+    assert list(inspect.signature(ca._plan_bf16).parameters) == [
+        "S", "Skv", "Hq", "Hkv", "D", "sms"]
+
+
+def test_bf16_plans_are_the_same_for_any_batch_and_any_pos0(monkeypatch):
+    """The bf16 wrappers run up to the launch with bf16 tensors: B and pos0
+    never reach the plan."""
+    bf = torch.bfloat16
+    calls = _record_launches(monkeypatch, ca)
+    monkeypatch.setattr(ca, "_counts", {})
+    for B, pos0 in ((1, [0]), (1, [240]), (4, [0, 48, 96, 112]),
+                    (4, [240, 0, 7, 100])):
+        q = torch.zeros(B, 16, 40, 128, dtype=bf)
+        kv = torch.zeros(B, 256, 8, 128, dtype=bf)
+        ca.chunk_attention(q, kv, kv, torch.tensor(pos0, dtype=torch.int32))
+    assert [c[-3:] for c in calls] == [(5, 1, 32)] * 4   # hb, qsub, split
+    calls = _record_launches(monkeypatch, fa)
+    for B in (1, 4, 7):
+        q = torch.zeros(B, 128, 10, 256, dtype=bf)
+        kv = torch.zeros(B, 128, 1, 256, dtype=bf)
+        fa.flash_attention(q, kv, kv)
+    assert [c[-3:] for c in calls] == [(5, 1, 1)] * 3    # hb, qsub, pair
+
+
+@pytest.mark.parametrize("G", range(1, 17))
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_bf16_plans_cover_every_head_and_fit_shared_memory(D, G):
+    """The bf16 kernel's plans (whole prompt; the chunk form at D <= 128)
+    for G = 1..16 query heads a KV head: every head in one block of its KV
+    head, at most MAX_WARPS warps, and the block's shared memory as the
+    kernel reckons it (``smem_bytes``: the bf16 tiles, or the split's
+    combine) within the card's 227 KB."""
+    Hkv = 2
+    plans = [fa._plan_bf16(S, G * Hkv, Hkv, D, 132) for S in (16, 128, 2048)]
+    if D in fa.CHUNK_HEAD_DIMS:
+        plans += [ca._plan_bf16(S, Skv, G * Hkv, Hkv, D, 132)
+                  for S, Skv in ((16, 256), (16, 2048), (512, 4096))]
+    for plan in plans:
+        hb, qsub = plan.heads_per_block, plan.qsub
+        warps = hb * qsub
+        assert 1 <= warps <= fa.max_warps(D, bf16=True) <= fa.MAX_WARPS
+        groups = math.ceil(G / hb)
+        assert (groups - 1) * hb < G <= groups * hb
+        assert fa.smem_bytes(D, warps, bf16=True) <= fa.SMEM_BYTES < 232448
+
+
+def test_head_dim_256_bf16_plan_takes_eight_warps():
+    """The bf16 tiles leave room for 8 warps at D = 256, where the fp32
+    form takes 5: G = 8 runs in one block of 8 heads at bf16 and in two of
+    4 at fp32; G = 10 plans the same at both (two blocks of 5)."""
+    assert [fa.max_warps(D, bf16=True) for D in fa.HEAD_DIMS] == [8] * 4
+    assert fa._plan_bf16(128, 8, 1, 256, 132)[:2] == (8, 1)
+    assert fa._plan(128, 8, 1, 256, 132)[:2] == (4, 1)
+    for S in (128, 2176):
+        assert fa._plan_bf16(S, 10, 1, 256, 132) == fa._plan(S, 10, 1, 256,
+                                                              132)

@@ -1280,6 +1280,102 @@ def test_chunk_attention_bf16_matches_plain(dev, pos0, Sbuf, Hq, Hkv, D, cap):
         q.float(), k.float(), v.float(), p0, softcap=cap))
 
 
+@pytest.mark.parametrize("prec", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["col", "row"])
+@pytest.mark.parametrize("M,d", [(16, 512), (64, 196), (512, 512)])
+def test_qmatmul_bf16_kernel_b_rows_match_plain(dev, monkeypatch, prec,
+                                                layout, M, d):
+    """Kernel B's bf16 form over R = 4 rows, each with its own active set
+    of 1037 neurons (no tile multiple; the row form's h rows are then not
+    16-byte aligned), against the plain version (the row form into an
+    output it adds to); K is split (the plan's deterministic second pass)
+    at every shape here; d = 196 leaves x's rows (col) and the weight rows
+    (int8: 196 bytes, int4: 98) unaligned. A row alone gives its bits in
+    the group."""
+    from repro_torch.core.quantize import quantize_int4, quantize_int8
+    from repro_torch.kernels import qmatmul as qm
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(qm, "GEMV_MAX_M", 0)
+    g = torch.Generator(device=dev).manual_seed(M + d)
+    f, n, R = 2100, 1037, 4
+    w = torch.randn(f, d, generator=g, device=dev) / 16
+    w, s = ((w.to(torch.bfloat16), None) if prec == "fp" else
+            quantize_int8(w, 1) if prec == "int8" else quantize_int4(w, 1))
+    idx = torch.stack([torch.randperm(f, generator=g, device=dev)[:n]
+                       for _ in range(R)]).to(torch.int32)
+    x = torch.randn(R, M, d if layout == "col" else n, generator=g,
+                    device=dev).to(torch.bfloat16)
+    N = n if layout == "col" else d
+    assert qm._plan(M, N, x.shape[-1], layout, dev)[2] > 1
+    y = (torch.randn(R, M, N, generator=g, device=dev) if layout == "row"
+         else None)
+
+    def out(rows=slice(None)):
+        return None if y is None else y[rows].clone()
+    kw = dict(precision=prec, layout=layout)
+    before = qm.launches_mma
+    got = qm.qmatmul_gathered(x, w, s, idx, out=out(), **kw)
+    assert qm.launches_mma == before + 1
+    _close(got, ref.qmm_gathered_ref(x, w, s, idx, out=out(), **kw))
+    r = R - 1
+    alone = qm.qmatmul_gathered(x[r:].contiguous(), w, s, idx[r:].contiguous(),
+                                out=out(slice(r, None)), **kw)
+    assert torch.equal(alone[0], got[r])
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (2, 77, 4, 4, 32),        # G = 1, S no multiple of the 16-row tile
+    (3, 45, 12, 1, 32),       # G = 12 over one KV head
+    (2, 150, 96, 8, 64),      # G = 12 in two blocks of 6 heads
+    (2, 200, 10, 1, 256)])    # D = 256: one block of 8 warps at bf16
+def test_flash_attention_bf16_ragged_and_row_alone(dev, B, S, Hq, Hkv, D):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(S + Hq)
+    q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(
+        torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    got = fa.flash_attention(q, k, v)
+    _close_rounded(got, ref.flash_attention_ref(q.float(), k.float(),
+                                                v.float()))
+    r = B - 1
+    alone = fa.flash_attention(q[r:].contiguous(), k[r:].contiguous(),
+                               v[r:].contiguous())
+    assert torch.equal(alone[0], got[r])
+
+
+@pytest.mark.parametrize("split", [0, 32, 64])
+@pytest.mark.parametrize("pos0,Sbuf,S,Hq,Hkv,D", [
+    ((0, 37, 100), 160, 13, 12, 1, 32),        # G = 12, D = 32, S = 13
+    ((5, 61), 77, 16, 4, 4, 32),               # G = 1, fronts inside tiles
+    ((0, 48, 96, 112), 256, 16, 40, 8, 128)])  # the server's chunk
+def test_chunk_attention_bf16_ignores_garbage_and_row_alone(
+        dev, monkeypatch, split, pos0, Sbuf, S, Hq, Hkv, D):
+    """The bf16 chunk form against the plain version with the key axis
+    whole or split; NaN and Inf planted above each row's front change no
+    bit; a row alone gives its bits in the group."""
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(ca, "SPLIT_SLOTS", split)
+    B = len(pos0)
+    g = torch.Generator(device=dev).manual_seed(Sbuf + Hq)
+    bf = torch.bfloat16
+    q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(bf)
+    k, v = (torch.randn(B, Sbuf, Hkv, D, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    got = ca.chunk_attention(q, k, v, p0)
+    _close_rounded(got, ref.chunk_attention_ref(q.float(), k.float(),
+                                                v.float(), p0))
+    for b, p in enumerate(pos0):
+        k[b, p + S:] = float("nan")
+        v[b, p + S:] = float("inf")
+    assert torch.equal(ca.chunk_attention(q, k, v, p0), got)
+    r = B - 1
+    alone = ca.chunk_attention(q[r:].contiguous(), k[r:].contiguous(),
+                               v[r:].contiguous(), p0[r:].contiguous())
+    assert torch.equal(alone[0], got[r])
+
+
 #: each C entry point's arguments that carry the shape and the plan (the
 #: rest are addresses, sizes in bytes and scratch)
 _PLAN_ARGS = {"repro_torch.kernels.qmatmul": slice(4, 8),
@@ -1292,8 +1388,10 @@ _QMM_PLAN = slice(9, 15)       # qmm_gathered: precision .. k_split
 def test_fp32_forms_keep_their_entry_points_and_plans(dev, monkeypatch):
     """An fp32 call goes to the fp32 C entry point (``qmm_gathered``,
     ``flash_decode_fwd``, ``flash_attention_fwd``, ``..._chunk_fwd``) and a
-    bf16 call to its ``_bf16`` twin, with the same shape and plan
-    arguments: the plan does not depend on the dtype."""
+    bf16 call to its ``_bf16`` twin, with the same shape arguments and the
+    plan of the form's own plan function (the attention forms'
+    ``_plan_bf16``, the others' ``_plan``)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
@@ -1338,10 +1436,24 @@ def test_fp32_forms_keep_their_entry_points_and_plans(dev, monkeypatch):
     def plan(m, args):
         extra = args[_QMM_PLAN] if m.endswith("qmatmul") else ()
         return list(args[_PLAN_ARGS[m]]) + list(extra)
+
+    def bf16_plan(m, args):
+        """plan(m, args) of the fp32 call with the bf16 plan function's
+        heads, sub-tiles and pairing or split in place of its own"""
+        want = plan(m, args)
+        sms = build.sm_count(dev)
+        if m.endswith("flash_attention"):            # B S Hq Hkv D .. hb qsub pair
+            p = fa._plan_bf16(*want[1:5], sms)
+            want[8:11] = [p.heads_per_block, p.qsub, int(p.pair)]
+        elif m.endswith("chunk_attention"):          # B S Skv Hq Hkv D .. hb qsub split
+            p = ca._plan_bf16(*want[1:6], sms)
+            want[8:11] = [p.heads_per_block, p.qsub, p.split]
+        return want
     for (m, b, name, args), (m2, b2, name2, args2) in zip(fp32, bf16):
         assert (b, name) == (False, want[m])
         assert (m2, b2, name2) == (m, True, want[m] + "_bf16")
-        assert len(args) == len(args2) and plan(m, args) == plan(m, args2)
+        assert len(args) == len(args2) and plan(m, args2) == bf16_plan(m,
+                                                                       args)
 
 
 #: test_tiny_forward_bf16_on_cuda_equals_cpu's limits, as a share of

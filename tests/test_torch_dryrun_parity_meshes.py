@@ -2,7 +2,8 @@
 own count, at full size, on a grid of "data" x "model" meshes of
 placeholder devices: where GSPMD splits a one-row step's heads over an idle
 "data" axis (``models/common.idle_data``) and where it contracts a
-remainder layer's predictor whole (``transformer._ffn_apply``).
+remainder layer's predictor whole (``core/mp_ffn.mp_ffn_apply``'s
+``place``).
 
 The reference compiles each step for the same mesh of placeholder CPU
 devices and counts its partitioned HLO's dots (``repro/roofline/
@@ -29,12 +30,14 @@ GRID = [(2, 4), (4, 4), (8, 4), (16, 4), (4, 16), (8, 16), (16, 16)]
 #: m2 step (the same attention, the M2Cache FFN) where its split begins;
 #: mistral-large-123b (96 over 8: its groups split too) and recurrentgemma-
 #: 2b's m2 step (10 over 1; two remainder layers) where their rules' edges
-#: lie
+#: lie; both m2 steps also on 2 x 1, where "model" is one device and
+#: GSPMD runs the M2Cache FFN's products on the idle "data" dim
+#: (``models/common.model_idle_data``)
 STEPS = [("qwen2.5-14b", "dense", GRID + [(2, 8), (8, 8)]),
-         ("qwen2.5-14b", "m2", [(2, 4), (4, 4), (16, 16)]),
+         ("qwen2.5-14b", "m2", [(2, 1), (2, 4), (4, 4), (16, 16)]),
          ("mamba2-370m", "dense", GRID),
          ("mistral-large-123b", "dense", [(8, 16), (16, 16)]),
-         ("recurrentgemma-2b", "m2", [(2, 4), (4, 16), (16, 16)])]
+         ("recurrentgemma-2b", "m2", [(2, 1), (2, 4), (4, 16), (16, 16)])]
 SHAPE = "long_500k"
 
 _REFERENCE = textwrap.dedent("""
