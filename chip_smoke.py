@@ -185,7 +185,8 @@ Phases, each printing one JSON line:
                 full width (about 45 GB: the bf16 fp tier, int8 and int4
                 banks), then the dense bf16 step (about 30 GB), each 16
                 steps over the seeded ring: the bf16 launches a step
-                (qmatmul 432 for m2, flash_decode 48), the first step's
+                (m2: the fused GLU 48 and qmatmul's down products 144;
+                flash_decode 48, its device ms a launch), the first step's
                 kernel calls held against their plain versions and its
                 logits against the same step through the plain versions
                 on the card (MESH_BF16_TOL), the bf16 dry-run record's
@@ -228,9 +229,14 @@ wrapped 8192-slot ring, one layer's FFN at M = 1 and 8704, and a decode
 step's attention over int8 K/V at 8 x 32768 slots against the bound of
 the int8 bytes (dequantize and flash_decode timed apart); and
 (``kernels_bf16``) each kernel's bf16 form at the bf16 paths' shapes: one
-layer's FFN at d = 5120 through kernel A (M = 1, and 4 rows of M = 1) and
-kernel B (M = 512, and 4 rows of a 16-token chunk), every call held;
-flash_decode over long_500k's wrapped 8192-slot ring and at the serve step;
+layer's FFN at d = 5120 through kernel A (M = 1, and 4 rows of M = 1: the
+fused GLU, the down products and their one sum) and kernel B (M = 512, and
+4 rows of a 16-token chunk), every call held; the fused GLU's launch alone
+(row ``qmm_glu_bf16``), and its h bit-equal to the
+PyTorch composition over its own products for silu, gelu and relu at d =
+5120 and 2560 (``glu_bits``); flash_decode over long_500k's wrapped
+8192-slot ring and at the serve step, each also within 1e-5 of the fp32
+form on the widened inputs;
 the whole prompt and the chunk form; beside each, its plain version, one
 library call at bf16 (torch.matmul on the gathered weights, SDPA) and the
 fp32 form of the same kernel, and its bound at bf16 bytes; the kernels on
@@ -361,11 +367,12 @@ def open_session():
         torch.cuda._sleep(1000)
 
 
-def device_profile(fn, reps: int = 5) -> dict:
+def device_profile(fn, reps: int = 5, sum_of: tuple = ()) -> dict:
     """Device time per call from torch.profiler (CUDA kernel events only,
     the session's sentinels left out), the share of the wall the device was
-    busy, and the kernels that took the most. Where the profiler sees no
-    device time, says so."""
+    busy, and the kernels that took the most; with ``sum_of``, the device
+    time per call of the kernels whose names hold each of those strings.
+    Where the profiler sees no device time, says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,15 +399,18 @@ def device_profile(fn, reps: int = 5) -> dict:
             t = getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))
             if t > 0:
-                per[ev.key[:80]] = t / 1e3 / reps
+                per[ev.key] = per.get(ev.key, 0.0) + t / 1e3 / reps
         if per:
             break
     if not per:
         return {"device_ms": "not measured", "why": "no CUDA kernel events "
                 "in four profiler sessions"}
     dev_ms = sum(per.values())
-    top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:8])
-    return {"device_ms": dev_ms, "profiled_wall_ms": wall_ms,
+    top = {n[:80]: t for n, t in sorted(per.items(), key=lambda kv: -kv[1])[:8]}
+    sums = {part: sum(t for n, t in per.items() if part in n)
+            for part in sum_of}
+    return {"device_ms": dev_ms, **({"sum_ms": sums} if sum_of else {}),
+            "profiled_wall_ms": wall_ms,
             "busy_share": dev_ms / wall_ms, "top_kernels_ms": top,
             "kernels_per_call": sum(
                 1 for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1692,12 +1702,14 @@ def path_of(cfg, kind: str) -> str:
 
 def counters():
     """name -> (module, counter attribute); "qmatmul" counts both of its
-    kernels."""
+    kernels (at bf16 and small M, kernel A's down products), "qmm_glu" the
+    fused bf16 GLU."""
     from repro_torch.kernels import (atu_update, chunk_attention,
                                      flash_attention, flash_decode, qmatmul)
     return {"qmatmul": (qmatmul, "launches"),
             "qmatmul_gemv": (qmatmul, "launches_gemv"),
             "qmatmul_mma": (qmatmul, "launches_mma"),
+            "qmm_glu": (qmatmul, "launches_glu"),
             "flash_decode": (flash_decode, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "chunk_attention": (chunk_attention, "launches"),
@@ -3642,7 +3654,10 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
     """Inside the block every kernel call that ``kernels.ops`` makes returns
     its kernel's result after holding it against the plain version on the
     same inputs, within tol_rel x max(1, max|plain|): each ``qmatmul``
-    product (of ``ops.mp_ffn``: gate, up and down a tier), ``flash_decode``
+    product (of ``ops.mp_ffn``: gate, up and down a tier; at bf16 and small
+    M the fused GLU's gate and up products, with its h bit-equal to the
+    PyTorch composition over them, and the down products' bf16 sum),
+    ``flash_decode``
     and both attention forms (``flash_attention``, ``chunk_kernel``), the
     attention forms against the plain version's fp32 result; a whole prompt
     longer than 2 x SLICE tokens on its first and last SLICE queries
@@ -3656,12 +3671,12 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
     the counts stay the path's own."""
     import torch
     from repro_torch.kernels import ops, qmatmul, ref
-    names = ("mp_ffn", "qmatmul_gathered", "flash_attention", "chunk_kernel",
-             "flash_decode")
+    names = ("mp_ffn", "qmatmul_gathered", "glu_bf16", "ffn_down_bf16",
+             "flash_attention", "chunk_kernel", "flash_decode")
     saved = {n: getattr(ops, n) for n in names}
     split = []
 
-    def hold(kernel, key, got, want):
+    def hold(kernel, key, got, want, calls=1):
         want = want.float()
         diff = (got.float() - want).abs()
         if got.dtype == torch.bfloat16:
@@ -3672,7 +3687,7 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
                 f"{label}: {kernel} {key}: max|d|={err:.3g} > tol {tol:.3g}")
         e = held.setdefault(kernel, {}).setdefault(
             key, {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0})
-        e["calls"] += 1
+        e["calls"] += calls
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["worst_err_over_tol"] = max(e["worst_err_over_tol"], err / tol)
         return got
@@ -3696,6 +3711,35 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
                else f"x={tuple(x.shape)} {precision} {layout}")
         return hold(kernel, key, got, ref.qmm_gathered_ref(
             x, w, scale, idx, precision=precision, layout=layout, out=before))
+
+    def glu_bf16(x, tiers, *, act="silu", products=False):
+        outs = saved["glu_bf16"](x, tiers, act=act, products=True)
+        key = (f"M={x.shape[-2]} {split[-1]}" if split
+               else f"x={tuple(x.shape)} {[t[0] for t in tiers]}")
+        for i, ((h, gate, up), (precision, wg, wu, sg, su, idx)) in \
+                enumerate(zip(outs, tiers)):
+            hold("qmm_glu", key, gate, ref.qmm_gathered_ref(
+                x, wg, sg, idx, precision=precision), calls=0)
+            hold("qmm_glu", key, up, ref.qmm_gathered_ref(
+                x, wu, su, idx, precision=precision), calls=int(i == 0))
+            want = ref.glu_bf16_ref(gate, up, act)
+            differ = int((h.view(torch.int16) != want.view(torch.int16)).sum())
+            require(differ == 0, f"{label}: qmm_glu {key} {precision} {act}: "
+                                 f"h differs from the PyTorch composition "
+                                 f"over its products at {differ} of "
+                                 f"{h.numel()} values")
+        return outs if products else [o[0] for o in outs]
+
+    def ffn_down_bf16(terms):
+        got = saved["ffn_down_bf16"](terms)
+        key = (f"M={terms[0][0].shape[-2]} {split[-1]} down" if split
+               else f"h={tuple(terms[0][0].shape)} down")
+        want = 0.0                     # the plain sum before its rounding
+        for h, w, scale, idx, precision in terms:
+            want = want + ref.qmm_gathered_ref(h, w, scale, idx,
+                                               precision=precision,
+                                               layout="row")
+        return hold("qmatmul_gemv", key, got, want, calls=len(terms))
 
     def flash_attention(q, k, v, *, window=0, softcap=0.0):
         got = saved["flash_attention"](q, k, v, window=window,
@@ -3728,6 +3772,7 @@ def held_to_plain(label: str, held: dict, tol_rel: float = 1e-5):
                     f"kv={tuple(k.shape)}", got, ref.flash_decode_ref(
                         q, k, v, slots, lengths, softcap=softcap))
     for n, fn in (("mp_ffn", mp_ffn), ("qmatmul_gathered", qmatmul_gathered),
+                  ("glu_bf16", glu_bf16), ("ffn_down_bf16", ffn_down_bf16),
                   ("flash_attention", flash_attention),
                   ("chunk_kernel", chunk_kernel),
                   ("flash_decode", flash_decode)):
@@ -5026,8 +5071,10 @@ MOE_BF16_LAYERS = 1
 #: mesh_bf16_full's and bf16_tiny's held kernels -> their rows of the
 #: kernel table
 BF16_MESH_ROWS = {"qmatmul_gemv": "qmatmul_gemv_bf16_b1",
+                  "qmm_glu": "qmm_glu_bf16",
                   "flash_decode": "flash_decode_bf16_ring_8k"}
 BF16_TINY_ROWS = {"qmatmul_gemv": "qmatmul_gemv_bf16_b1",
+                  "qmm_glu": "qmm_glu_bf16",
                   "qmatmul_mma": "qmatmul_mma_bf16_m512",
                   "flash_decode": "flash_decode_bf16",
                   "flash_attention": "flash_attention_bf16"}
@@ -5073,6 +5120,7 @@ def bf16_counts() -> dict:
     from repro_torch.kernels import (chunk_attention, flash_attention,
                                      flash_decode, qmatmul)
     return {"qmatmul": qmatmul.launches_bf16,
+            "qmm_glu": qmatmul.launches_glu,
             "flash_decode": flash_decode.launches_bf16,
             "flash_attention": flash_attention.launches_bf16,
             "chunk_attention": chunk_attention.launches_bf16}
@@ -5083,6 +5131,7 @@ def reset_bf16_counts():
                                      flash_decode, qmatmul)
     for mod in (qmatmul, flash_decode, flash_attention, chunk_attention):
         mod.launches_bf16 = 0
+    qmatmul.launches_glu = 0
 
 
 def ffn_bf16_issued(R: int, M: int, d: int, k16: int, k8: int, k4: int,
@@ -5124,6 +5173,59 @@ def attention_bf16_issued(B: int, S: int, Hq: int, D: int,
     return 2.0 * 16 * keys * Hq * D * (1 + fa.bf16_p_terms())
 
 
+def glu_tiers(banks, idx, sizes) -> list:
+    """(precision, wg, wu, sg, su, idx) of each non-empty tier of a layer's
+    neuron-major banks over active sets idx (R, k), as ``ops.mp_ffn`` hands
+    them to the fused GLU."""
+    out, start = [], 0
+    for precision, tier, sfx in (("fp", "fp16", "_fp"), ("int8", "int8", "_i8"),
+                                 ("int4", "int4", "_i4")):
+        n = sizes[tier]
+        if n == 0:
+            continue
+        t_idx = idx[:, start:start + n].contiguous()
+        start += n
+        sg, su = ((None, None) if precision == "fp" else
+                  (banks[f"wg{sfx}_s"], banks[f"wu{sfx}_s"]))
+        out.append((precision, banks[f"wg{sfx}"], banks[f"wu{sfx}"], sg, su,
+                    t_idx if idx.shape[0] > 1 else t_idx[0]))
+    return out
+
+
+def glu_check(label: str, x, tiers, act: str) -> dict:
+    """The fused GLU of each tier on x (R, 1, d) bf16 with its products:
+    gate and up held within 1e-5 x max(1, max|plain|) of the plain
+    products and equal bit for bit to kernel A's col form's (the same sums
+    in the same order); h against ``activation(gate.to(bf16)) *
+    up.to(bf16)`` computed by PyTorch on the card over those products,
+    values that differ counted (the caller requires none)."""
+    import torch
+    from repro_torch.kernels import qmatmul, ref
+    xs = x if x.shape[0] > 1 else x[0]
+    out = {"values": 0, "h_differs": 0, "products_differ_from_col": 0,
+           "max_abs_err": 0.0}
+    for precision, wg, wu, sg, su, idx in tiers:
+        (h, gate, up), = qmatmul.glu_bf16(
+            xs, [(precision, wg, wu, sg, su, idx)], act=act, products=True)
+        for got, w, s in ((gate, wg, sg), (up, wu, su)):
+            want = ref.qmm_gathered_ref(xs, w, s, idx, precision=precision)
+            err = max_err(got, want)
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            require(err <= tol, f"{label} {precision}: a product {err:.3g} "
+                                f"from the plain one, tol {tol:.3g}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            col = qmatmul.qmatmul_gathered(xs, w, s, idx,
+                                           precision=precision)
+            out["products_differ_from_col"] += int((col != got).sum())
+        want = ref.glu_bf16_ref(gate, up, act)
+        out["values"] += h.numel()
+        out["h_differs"] += int((h.view(torch.int16)
+                                 != want.view(torch.int16)).sum())
+    require(out["products_differ_from_col"] == 0,
+            f"{label}: the fused products differ from the col form's: {out}")
+    return out
+
+
 def phase_kernels_bf16(cfg, dev) -> dict:
     """Each bf16 form at the shapes the bf16 paths give it, held against its
     plain version (qmatmul's and flash_decode's fp32 outputs within 1e-5 x
@@ -5143,11 +5245,12 @@ def phase_kernels_bf16(cfg, dev) -> dict:
     forms) take a second bound: the operations their MMAs issue."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
     from repro_torch.core.hw import H100_SXM
     from repro_torch.core.mp_ffn import tier_sizes
     from repro_torch.core.quantize import (build_neuron_banks,
                                            to_neuron_major, unpack_int4)
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, qmatmul, ref
     from repro_torch.models.common import activation
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(26)
@@ -5215,17 +5318,63 @@ def phase_kernels_bf16(cfg, dev) -> dict:
             else None,
             fp32_form=fp32_form, plain_reps=3 if measure else 10)
         fp32_form = xf = fp32_banks = ws = None      # free them
-        kernel = "qmatmul_mma" if mma else "qmatmul_gemv"
-        require(set(held) == {kernel}, f"{name}: kernels held {set(held)}")
-        row.update(max_abs_err=max(e["max_abs_err"] for e in
-                                   held[kernel].values()),
-                   calls_held=sum(e["calls"] for e in
-                                  held[kernel].values()),
+        # kernel A's rows: the fused GLU, then the down products
+        kernels = {"qmatmul_mma"} if mma else {"qmm_glu", "qmatmul_gemv"}
+        require(set(held) == kernels, f"{name}: kernels held {set(held)}")
+        row.update(max_abs_err=max(e["max_abs_err"] for kernel in kernels
+                                   for e in held[kernel].values()),
+                   calls_held=sum(e["calls"] for kernel in kernels
+                                  for e in held[kernel].values()),
                    shape=f"x ({R}, {M}, {d}) bf16, tiers "
                          f"{k16}/{k8}/{k4} of {f}")
         rows[name] = row
         log({"phase": "kernels_bf16", "row": name, **row})
-    del banks
+
+    # the fused GLU alone: one layer's launch (its three tiers) at M = 1
+    x = torch.randn(1, 1, d, generator=g, device=dev).to(bf)
+    idx = torch.randperm(f, generator=g, device=dev)[:k].to(torch.int32)
+    tiers = glu_tiers(banks, idx[None], sizes)
+    wg, wu, _ = gathered(idx)
+
+    def glu_run():
+        return qmatmul.glu_bf16(x[0], tiers, act=cfg.ffn_act)
+    glu_bits = glu_check("qmm_glu_bf16", x, tiers, cfg.ffn_act)
+    row = kernel_row(
+        glu_run,
+        lambda: ref.qmm_glu_ref(x[0], tiers, act_name=cfg.ffn_act),
+        lambda: act(x[0] @ wg) * (x[0] @ wu),
+        2 * d * (2 * k16 + k8 + k4 / 2) + 2 * 4 * (k8 + k4) + 2 * d + 6 * k,
+        2 * 2 * d * k, peak=H100_SXM.flops_bf16, tf32_products=None,
+        plain_reps=10)
+    row.update(max_abs_err=glu_bits["max_abs_err"], bits=glu_bits,
+               shape=f"x (1, 1, {d}) bf16, gate and up of tiers "
+                     f"{k16}/{k8}/{k4} of {f}, {cfg.ffn_act}")
+    rows["qmm_glu_bf16"] = row
+    log({"phase": "kernels_bf16", "row": "qmm_glu_bf16", **row})
+    del wg, wu
+    # h bit-equal to the PyTorch composition for every activation, here
+    # and at recurrentgemma-2b's widths (d = 2560, f = 7680)
+    glu_acts = {d: {a: glu_check(f"glu_bits d={d} {a}", x, tiers, a)
+                    for a in qmatmul.GLU_ACTS}}
+    del banks, tiers
+    torch.cuda.empty_cache()
+    cfg2 = get_config("recurrentgemma-2b")
+    d2, f2 = cfg2.d_model, cfg2.d_ff
+    sizes2 = tier_sizes(f2, cfg2)
+    banks2 = to_neuron_major(build_neuron_banks(
+        *(torch.randn(s, generator=g, device=dev).mul_(s[0] ** -0.5).to(bf)
+          for s in ((d2, f2), (d2, f2), (f2, d2)))))
+    x2 = torch.randn(4, 1, d2, generator=g, device=dev).to(bf)
+    idx2 = torch.stack([torch.randperm(f2, generator=g, device=dev)[
+        :sizes2["k"]] for _ in range(4)]).to(torch.int32)
+    tiers2 = glu_tiers(banks2, idx2, sizes2)
+    glu_acts[d2] = {a: glu_check(f"glu_bits d={d2} {a}", x2, tiers2, a)
+                    for a in qmatmul.GLU_ACTS}
+    log({"phase": "kernels_bf16", "glu_bits": glu_acts})
+    for dd, by_act in glu_acts.items():
+        for a, r in by_act.items():
+            require(r["h_differs"] == 0, f"glu_bits d={dd} {a}: {r}")
+    del banks2, tiers2
     torch.cuda.empty_cache()
 
     def decode(name, B, S, lengths, ring):
@@ -5260,8 +5409,16 @@ def phase_kernels_bf16(cfg, dev) -> dict:
             peak=H100_SXM.flops_bf16, tf32_products=None,
             fp32_form=lambda: ops.flash_decode(qf, kf, vf, slots, ln),
             plain_reps=10)
+        # the fp32 form on the widened inputs: the same function, its sums
+        # in another order (the bf16 form's products are MMAs)
+        fp32_out = ops.flash_decode(qf, kf, vf, slots, ln)
+        fp32_err = max_err(ops.flash_decode(q, kk, vv, slots, ln), fp32_out)
+        fp32_tol = 1e-5 * max(1.0, float(fp32_out.abs().max()))
+        require(fp32_err <= fp32_tol, f"{name}: {fp32_err:.3g} from the fp32 "
+                                      f"form on the widened inputs")
         row.update(max_abs_err=held["flash_decode"][next(iter(
             held["flash_decode"]))]["max_abs_err"],
+                   max_abs_err_fp32_form=fp32_err,
                    shape=f"q {tuple(q.shape)}, kv {tuple(kk.shape)} bf16"
                          + (", wrapped ring" if ring else ""))
         rows[name] = row
@@ -5388,17 +5545,19 @@ def phase_bf16_tiny() -> tuple:
         if cfg.family != "ssm":
             want |= {"flash_attention", "flash_decode"}
         if any("banks" in layer.get("ffn", {}) for layer in params["layers"]):
-            want.add("qmatmul")
-        ran = {n for n in ("qmatmul", "flash_decode", "flash_attention",
-                           "chunk_attention") if counts[n]}
+            # the decode steps' FFN: the fused GLU and the down products
+            want |= {"qmatmul", "qmm_glu"}
+        ran = {n for n in ("qmatmul", "qmm_glu", "flash_decode",
+                           "flash_attention", "chunk_attention") if counts[n]}
         log({"phase": "bf16_tiny", "arch": arch,
              "tol_rel": BF16_TINY_TOL[arch], "max_abs_err_by_step": errs,
              "tol_by_step": tols, "greedy_equal_where_sure": sure_eq,
              "held_to_plain": held, "kernel_tol_rel": 1e-5,
              "launches": counts, "launches_bf16": bf16})
         calls = {n: sum(e["calls"] for e in held.get(n, {}).values())
-                 for n in ("qmatmul_gemv", "qmatmul_mma", "flash_decode",
-                           "flash_attention", "chunk_attention")}
+                 for n in ("qmatmul_gemv", "qmatmul_mma", "qmm_glu",
+                           "flash_decode", "flash_attention",
+                           "chunk_attention")}
         if any(calls[n] != counts[n] for n in calls):
             failed.append(f"{arch}: calls held {calls}, launches {counts}")
         for n, by_key in held.items():
@@ -5424,7 +5583,9 @@ def phase_mesh_bf16_full() -> dict:
     GB: the bf16 fp tier, int8 and int4 banks, the predictor drawn) and then
     "dense" (about 30 GB): the window's 8192-slot ring at MESH_START, its
     K/V seeded normal values, MESH_STEPS serve steps. Per step the bf16
-    launches of qmatmul (m2: 9 a layer) and flash_decode (48); the first
+    launches of qmatmul (m2: the 3 down products a layer), the fused GLU
+    (m2: 1 a layer) and flash_decode (48), and flash_decode's device ms a
+    launch; the first
     step's kernel calls held against their plain versions (held_to_plain),
     and its logits against the same step through the plain versions on the
     card within MESH_BF16_TOL x max(1, max|plain|); the bf16 dry-run
@@ -5522,6 +5683,7 @@ def phase_mesh_bf16_full() -> dict:
                     del after
                 counts, bf16 = read_counts(), bf16_counts()
                 per_step.append({"qmatmul": bf16["qmatmul"],
+                                 "qmm_glu": bf16["qmm_glu"],
                                  "flash_decode": bf16["flash_decode"]})
                 require(all(bf16[n] == counts[n] for n in bf16),
                         f"mesh_bf16_full: fp32 launches in a bf16 step "
@@ -5541,10 +5703,17 @@ def phase_mesh_bf16_full() -> dict:
             def step():
                 cache["pos"] = MESH_START
                 case.fn(params, cache, {"tokens": tok})
-            profiles = [device_profile(step, reps=1) for _ in range(5)]
+            profiles = [device_profile(step, reps=1,
+                                       sum_of=("flash_decode",))
+                        for _ in range(5)]
             dev = [p["device_ms"] for p in profiles
                    if isinstance(p.get("device_ms"), float)]
             dev_ms = statistics.median(dev) if dev else "not measured"
+            # flash_decode's device ms a launch: its kernels' time in each
+            # session over the step's launches, the median
+            decode_ms = statistics.median(
+                p["sum_ms"]["flash_decode"] / cfg.num_layers
+                for p in profiles if "sum_ms" in p) if dev else "not measured"
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             del params, cache, logits, plain_logits, free_logits, first
         finally:
@@ -5567,6 +5736,7 @@ def phase_mesh_bf16_full() -> dict:
              "busy_share": [p.get("busy_share") for p in profiles],
              "kernels_per_step": profiles[-1].get("kernels_per_call"),
              "top_kernels_ms": profiles[-1].get("top_kernels_ms"),
+             "flash_decode_ms_per_launch": decode_ms,
              "roofline_bound_ms": bound_ms,
              "roofline_bottleneck": r["bottleneck"],
              "device_ms_over_bound": ratio,
@@ -5575,7 +5745,9 @@ def phase_mesh_bf16_full() -> dict:
              "launches": launches,
              "seconds": time.perf_counter() - t_phase})
         require(finite, f"{label}: non-finite logits")
-        want = {"qmatmul": 9 * cfg.num_layers if variant == "m2" else 0,
+        # m2 a layer: one fused GLU and the tiers' down products
+        want = {"qmatmul": 3 * cfg.num_layers if variant == "m2" else 0,
+                "qmm_glu": cfg.num_layers if variant == "m2" else 0,
                 "flash_decode": cfg.num_layers}
         require(all(s == want for s in per_step),
                 f"{label}: bf16 launches by step {per_step}, want {want}")
@@ -5957,6 +6129,10 @@ def main(only=None):
         "qmatmul_gemv_bf16_b1": (c + "qmatmul_bf16.cu", k + "qmatmul.py:38",
                                  "qmatmul_gemv", ("mesh_bf16_m2",)
                                  + bf16_tiny),
+        # the fused GLU of the bf16 FFN at small M (its down products count
+        # in the row above, kernel A's row form)
+        "qmm_glu_bf16": (c + "qmatmul_bf16.cu", k + "qmatmul.py:38",
+                         "qmm_glu", ("mesh_bf16_m2",) + bf16_tiny),
         "qmatmul_gemv_bf16_rows": (c + "qmatmul_bf16.cu",
                                    k + "qmatmul.py:38",
                                    "qmatmul_gemv", ()),

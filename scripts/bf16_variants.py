@@ -4,7 +4,8 @@
   python3 scripts/bf16_variants.py [VARIANT ...]   # default: all
 
 Builds text variants of ``src/repro_torch/csrc/qmatmul_bf16.cu`` (kernel B,
-``qmm:`` variants) and ``flash_attention_bf16.cu`` (``attn:`` variants),
+``qmm:`` variants; the small-M FFN's fused GLU, ``glu:`` variants) and
+``flash_attention_bf16.cu`` (``attn:`` variants),
 one nvcc each, in parallel, into ``build/variants/``, swaps each into its
 wrapper (``repro_torch.kernels.qmatmul``, ``.flash_attention``,
 ``.chunk_attention``) and prints one JSON line per variant: device time per
@@ -19,7 +20,10 @@ whole prompt at q (4, 128, 40, 128) and (1, 2048, 40, 128), the chunk at q
 (4, 16, 40, 128) over 256 slots. Variants that drop work give wrong results
 on purpose: they show what that work costs. The fp32 form of the FFN is
 profiled too (``fp32_form``), kernel by kernel: its int tiers' row form
-issues two TF32 MMAs per 8 deep, the alternative to the bf16 terms.
+issues two TF32 MMAs per 8 deep, the alternative to the bf16 terms. The
+fused GLU: one layer's FFN at x (1, 5120) (the m2 long_500k step's M = 1)
+and R = 4 rows of M = 1, each kernel's time by name, and the error of the
+FFN's output against the base build's, as a share of the tolerance.
 """
 from __future__ import annotations
 
@@ -66,6 +70,19 @@ VARIANTS = {
     # the int tiers' row form in two bf16 terms (hi + mid)
     "qmm:two_terms": ("qmatmul_bf16", [("constexpr int kRowTerms = 3;",
                                         "constexpr int kRowTerms = 2;")]),
+    "glu:base": ("qmatmul_bf16", []),
+    # 1, 2, 3 or 4 units of each row in flight a lane (the base: 2)
+    **{f"glu:unroll{n}": ("qmatmul_bf16", [(
+        "constexpr int kGluUnroll = 2;", f"constexpr int kGluUnroll = {n};")])
+       for n in (1, 3, 4)},
+    # the int values' conversion dropped (wrong results): the word's bits
+    "glu:no_convert": ("qmatmul_bf16", [
+        ("  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - bias;",
+         "  return __uint_as_float(u + i);")]),
+    # no weight byte read (wrong results): every unit zero
+    "glu:no_weights": ("qmatmul_bf16", [
+        ("                ? __ldg(reinterpret_cast<const uint4*>(wr[j]) + u0 + uu)",
+         "                ? make_uint4(uu, u0, 0u, 0u)")]),
     "attn:base": ("flash_attention_bf16", []),
     # P V in three bf16 terms (hi + mid + lo: fp32's 24 bits), and in one
     # (hi: wrong past ~2^-9 of each weight)
@@ -122,6 +139,15 @@ def bind(name, lib):
         fn.argtypes = qm._kernel(True).argtypes
         fn.restype = ctypes.c_int
         qm._fns[True] = fn
+        return
+    if name.startswith("glu:"):
+        fns = []
+        for sym, base in zip(("qmm_glu_bf16", "qmm_down_parts_bf16",
+                              "qmm_down_sum_bf16"), qm._ffn_kernels()):
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = base.argtypes, ctypes.c_int
+            fns.append(fn)
+        qm._fns["ffn"] = tuple(fns)
         return
     for mod, sym in ((fa, "flash_attention_fwd_bf16"),
                      (ca, "flash_attention_chunk_fwd_bf16")):
@@ -188,6 +214,12 @@ def main():
         return p.get("device_ms"), {n[:60]: v for n, v in
                                     p.get("top_kernels_ms", {}).items()}
     print(json.dumps({"nvidia_smi": nvidia_smi()}), flush=True)
+    x1, xr1 = rn(1, 1, d), rn(4, 1, d)
+    glu_ffn = {"m1": lambda: ops.mp_ffn(x1, banks, idx512, sizes,
+                                        cfg.ffn_act),
+               "rows_m1": lambda: ops.mp_ffn(xr1, banks, idxrows, sizes,
+                                             cfg.ffn_act)}
+    glu_want = {label: fn().float() for label, fn in glu_ffn.items()}
     ffn = {"m512": lambda: ops.mp_ffn(x512[None], banks, idx512, sizes,
                                       cfg.ffn_act),
            "rows": lambda: ops.mp_ffn(xrows, banks, idxrows, sizes,
@@ -214,6 +246,11 @@ def main():
             for label, fn in ffn.items():
                 r[f"{label}_ms"], r[f"{label}_kernels_ms"] = kernels(fn)
             qm._fns.pop(True)
+        elif name.startswith("glu:"):
+            for label, fn in glu_ffn.items():
+                r[f"{label}_error_share"] = share(fn(), glu_want[label])
+                r[f"{label}_ms"], r[f"{label}_kernels_ms"] = kernels(fn)
+            qm._fns.pop("ffn")
         else:
             r.update(
                 whole_error_share=share(fa.flash_attention(q, kk, vv), want,

@@ -2,6 +2,7 @@
 """Where flash decoding's time goes, on one NVIDIA GPU.
 
   python3 scripts/decode_variants.py [VARIANT ...]   # default: all
+  python3 scripts/decode_variants.py --bf16 [VARIANT ...]   # the bf16 form
 
 Builds text variants of ``src/repro_torch/csrc/flash_decode.cu`` (one nvcc
 each, in parallel, into ``build/kernels/``), swaps each into
@@ -14,7 +15,11 @@ Variants that drop work give wrong results on purpose: they show what
 that work costs. ``timeline`` stamps each block's phases with the global
 timer (start, slot mask and busy tiles ready, first tile landed, tile loop
 done, partial and counter done, the last block's weights and its
-elements) and prints their medians and spread.
+elements) and prints their medians and spread. ``--bf16`` builds the
+variants of ``BF16_VARIANTS`` as the bf16 form (the source with
+FLASH_DECODE_BF16 defined, as ``flash_decode_bf16.cu`` builds it) and
+times them at the bf16 rows ``BF16_ROWS`` (long_500k's 8192-slot ring and
+the serve step), each at the ring depths ``BF16_STAGES``.
 """
 from __future__ import annotations
 
@@ -94,22 +99,82 @@ VARIANTS = {
 }
 
 
-def build(names):
+#: the bf16 form's variants (flash_decode_mma: each warp its own 16-slot
+#: steps, Q K^T and P V as bf16 MMAs)
+BF16_VARIANTS = {
+    "base": [],
+    "fast_exp": VARIANTS["fast_exp"],
+    # no K/V byte read: every copy zero-fills (wrong results)
+    "no_copies": [("                     ok ? 16 : 0);\n",
+                   "                     0);\n")],
+    # the MMAs of Q K^T, or of P V, dropped (wrong results)
+    "no_s_mma": [("      mma_bf16(s[0], qa, r[0], r[1]);\n"
+                  "      mma_bf16(s[1], qa, r[2], r[3]);\n", "")],
+    "no_pv_mma": [("        mma_bf16(f0, pa, r[0], r[1]);\n"
+                   "        mma_bf16(f1, pa, r[2], r[3]);\n", "")],
+    # one block an SM whatever the ring (registers uncapped)
+    "min_blocks_1": [("__launch_bounds__(kThreads, SmemB<D>::kMinBlocks)",
+                      "__launch_bounds__(kThreads, 1)")],
+    # P in one bf16 term (2^-9 of it lost) or two (2^-18)
+    "p_terms_1": [("constexpr int kPTerms = 3;", "constexpr int kPTerms = 1;")],
+    "p_terms_2": [("constexpr int kPTerms = 3;", "constexpr int kPTerms = 2;")],
+    "timeline": [
+        ("constexpr float kNegInf = -1e30f;\n",
+         "constexpr float kNegInf = -1e30f;\n" + _TIMER),
+        ("  const int nsteps = 2 * ntiles;\n",
+         "  const int nsteps = 2 * ntiles;\n"
+         "  if (tid == 0) for (int i = 0; i < 8; ++i) g_t[" + _BID + "][i] = 0;\n"
+         + _stamp(0)),
+        ("  bool busy = false;                   // a valid slot in the range\n",
+         _stamp(1) + "  bool busy = false;                   // a valid slot in the range\n"),
+        ("    __syncwarp();                      // step k landed, for every lane\n",
+         "    __syncwarp();                      // step k landed, for every lane\n"
+         "    if (k == 0) " + _stamp(2).lstrip()),
+        ("  __syncthreads();                     // every warp's ring is free\n",
+         "  __syncthreads();                     // every warp's ring is free\n"
+         + _stamp(3)),
+        ("  if (tid == 0) last_s = atomic_add_acq_rel(p.counts + bh, 1) == p.ranges - 1;\n"
+         "  __syncthreads();\n",
+         "  if (tid == 0) last_s = atomic_add_acq_rel(p.counts + bh, 1) == p.ranges - 1;\n"
+         "  __syncthreads();\n" + _stamp(4)),
+        ("      big_m[g] = mx;\n    }\n  }\n  __syncthreads();\n",
+         "      big_m[g] = mx;\n    }\n  }\n  __syncthreads();\n" + _stamp(5)),
+        ("        make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);\n  }\n}\n",
+         "        make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);\n  }\n"
+         "  __syncthreads();\n" + _stamp(7) + "}\n"),
+        ('extern "C" int flash_decode_fwd_bf16(',
+         'extern "C" int read_timeline(unsigned long long* h, int n) {\n'
+         '  return (int)cudaMemcpyFromSymbol(h, g_t, n * 64);\n}\n\n'
+         'extern "C" int flash_decode_fwd_bf16(')],
+}
+#: the bf16 rows: (B, S, lengths, a wrapped ring)
+BF16_ROWS = {"ring_8k": (8192, [8719], True),
+             "serve": (145, [128, 133, 138, 143], False)}
+#: bf16 ring depths (each warp's) timed per row beside the plan's (0)
+BF16_STAGES = (0, 1, 2)
+
+
+def build(names, bf16=False):
     from repro_torch.kernels import build as kb
     src = (kb.CSRC / "flash_decode.cu").read_text()
+    if bf16:
+        src = "#define FLASH_DECODE_BF16\n" + src
+    table = BF16_VARIANTS if bf16 else VARIANTS
     kb.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in table[name]:
             if old not in text:
                 sys.exit(f"decode_variants: {name}: {old!r} not in the source")
             text = text.replace(old, new)
-        cu = kb.BUILD_DIR / f"decode_{name}.cu"
+        tag = f"{name}_bf16" if bf16 else name
+        cu = kb.BUILD_DIR / f"decode_{tag}.cu"
         cu.write_text(text)
-        so = kb.BUILD_DIR / f"libdecode_{name}.so"
+        so = kb.BUILD_DIR / f"libdecode_{tag}.so"
         procs[name] = (so, subprocess.Popen(
-            [kb._nvcc(), *kb.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [kb._nvcc(), *kb.NVCC_FLAGS, "-I", str(kb.CSRC), "-o", str(so),
+             str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
     for name, (so, proc) in procs.items():
@@ -118,19 +183,21 @@ def build(names):
             sys.exit(f"decode_variants: nvcc {name}:\n{log}")
         regs = [int(l.split("Used ")[1].split()[0]) for l in log.splitlines()
                 if "registers" in l]
-        out[name] = (ctypes.CDLL(str(so)), regs)
+        spills = max([int(l.split(" bytes spill stores")[0].split()[-1])
+                      for l in log.splitlines() if "spill stores" in l] or [0])
+        out[name] = (ctypes.CDLL(str(so)), regs + [f"spill stores {spills}"])
     return out
 
 
-def bind(lib):
+def bind(lib, bf16=False):
     """Point the wrapper at a variant's library."""
     from repro_torch.kernels import flash_decode as fd
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    f = lib.flash_decode_fwd
-    f.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I,
+    f = lib.flash_decode_fwd_bf16 if bf16 else lib.flash_decode_fwd
+    f.argtypes = [P, P, P, P, P, P, P, L, P, L, I, I, I, I, I, I, I, I,
                   ctypes.c_float, ctypes.c_float, P]
     f.restype = I
-    fd._fns[False] = f
+    fd._fns[bf16] = f
 
 
 def timeline(lib, fn, nblocks: int) -> dict:
@@ -165,6 +232,54 @@ def timeline(lib, fn, nblocks: int) -> dict:
     return out
 
 
+def main_bf16(names):
+    """The bf16 variants at BF16_ROWS: device ms at the plan's ring and at
+    BF16_STAGES, the error against the plain version, whether the output
+    equals the fp32 form on the widened inputs bit for bit."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    libs = build(names, bf16=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    rows = {name: cs.decode_inputs(randn, dev, S, 8, 5, 128, lengths,
+                                   ring=ring)
+            for name, (S, lengths, ring) in BF16_ROWS.items()}
+    fp32 = {name: fd.flash_decode(*(t.float() for t in x[:3]), *x[3:])
+            for name, x in rows.items()}
+    want = {name: ref.flash_decode_ref(*x) for name, x in rows.items()}
+    print(json.dumps({"nvidia_smi": cs.nvidia_smi()}), flush=True)
+    for name in names:
+        lib, regs = libs[name]
+        bind(lib, bf16=True)
+        r = {"variant": name, "registers": regs}
+        for row, x in rows.items():
+            run = lambda: fd.flash_decode(*x)  # noqa: E731
+            got = run()
+            r[f"{row}_max_abs_err"] = float((got - want[row]).abs().max())
+            r[f"{row}_equals_fp32_form"] = bool(torch.equal(got, fp32[row]))
+            S, B = x[1].shape[1], x[1].shape[0]
+            for st in BF16_STAGES:
+                saved = fd.STAGES_BF16
+                fd.STAGES_BF16 = st or saved
+                try:
+                    plan = fd._plan(S, 8, 5, 128, fd.build.sm_count(dev),
+                                    torch.bfloat16)
+                    key = f"{row}_range{plan.range_slots}_stages{plan.stages}"
+                    r[f"{key}_ms"] = cs.device_profile(run, reps=20).get(
+                        "device_ms")
+                    if name == "timeline":
+                        n = B * 8 * fd.ranges(S, plan.range_slots)
+                        r[f"{key}_timeline"] = timeline(lib, run, n)
+                finally:
+                    fd.STAGES_BF16 = saved
+        fd._fns.clear()
+        print(json.dumps(r), flush=True)
+
+
 def main():
     import math
     import torch
@@ -174,6 +289,8 @@ def main():
     from repro_torch.kernels import ref
     if not torch.cuda.is_available():
         sys.exit("decode_variants: needs an NVIDIA GPU")
+    if sys.argv[1:2] == ["--bf16"]:
+        return main_bf16(sys.argv[2:] or list(BF16_VARIANTS))
     names = sys.argv[1:] or list(VARIANTS)
     libs = build(names)
     dev = torch.device("cuda")

@@ -15,11 +15,9 @@
 // with no valid slot gives what the oracle's softmax over S equal scores
 // gives: the mean of V over all S slots.
 // bf16 (flash_decode_fwd_bf16, the reference's default precision): q, k and
-// v bf16, each widened to fp32 (__bfloat162float, exact) as it is read into
-// the same fp32 ring and scaled query rows; everything after, and the fp32
-// output, as the fp32 form, which is the same code at another template
-// instance. A tile's bf16 rows are read with plain 8-byte loads, all of a
-// tile's in flight, then stored widened (not cp.async: simple first).
+// v bf16, a kernel of its own on the bf16 tensor cores (flash_decode_mma,
+// below), with the fp32 form's masks, plan, ranges and combine; the output
+// fp32.
 //
 // What bounds it on an H100: a valid slot's K and V rows (2 x D x 4 bytes)
 // serve 2 x 2 x G x D FLOP, 2.5 FLOP a byte at G = 5, which fp32 FMAs
@@ -92,6 +90,28 @@
 //    P V, and a 32-slot K+V tile of rows padded to 260 floats is 66.6 KB,
 //    so the ring holds at most 3 tiles (Smem::kStagesFit) within the 227 KB
 //    of shared memory a block may have, and an SM holds one block.
+//  * bf16 (flash_decode_mma): the fp32 design's tile loop is three block
+//    barriers a tile; with bf16's half-sized tiles it is the loop's work and
+//    its barriers, not the bytes, that set the pace (the first bf16 form
+//    widened each tile into the fp32 ring by plain loads: 0.067 ms over
+//    long_500k's 8192-slot ring, 2.2 x the fp32 form; a bf16 ring by
+//    cp.async, two tiles a step, still 0.022, and as fast with no K/V byte
+//    read: scripts/decode_variants.py --bf16). So each warp takes its own
+//    16-slot steps of the range (steps warp, warp + 8, ...), each through a
+//    ring of its own (K and V rows raw by cp.async, masked slots
+//    zero-filled), with no block barrier until the range ends: S = Q K^T
+//    as m16n8k16 bf16 MMAs (the G query rows, raw bf16, as the A operand's
+//    rows, the rest zero; K rows by ldmatrix), the scale after the sum; the
+//    online softmax on the accumulator fragments (a head's 16 scores on the
+//    4 lanes of its fragment row: two shuffles); P V with P (fp32) split
+//    into kPTerms = 3 bf16 terms (all of fp32's 24 bits) as the A operand
+//    straight from those fragments and V by ldmatrix.trans, each step into
+//    fresh registers then added to the fp32 sums. At the range's end the 8
+//    warps' (m, l, acc) meet in shared memory in warp order, and the
+//    range's result takes the fp32 form's path (one range: normalised; more:
+//    partials and the fixed-order combine). The sums run in another order
+//    than the fp32 form's: the output is held within 1e-5 of the plain
+//    version.
 //  * Measured and dropped (scripts/decode_variants.py, PERF.md): 4 warps,
 //    each a quarter of D and two heads, with strided slots in P V (one
 //    tile took 2.0 us of math in a block); P V done by each head's own
@@ -105,6 +125,10 @@
 
 #include <type_traits>
 #include <stdint.h>
+
+#ifdef FLASH_DECODE_BF16
+#include "bf16_mma.cuh"
+#endif
 
 namespace {
 
@@ -283,6 +307,134 @@ __device__ void mean_of_v(const Params& p, int b, int h, long long bh,
   }
 }
 
+// A range's end, from its (m, l) per head (m_s, l_s) and ``range_acc(e)``,
+// its unnormalised P V sums of element e = (head, float4 column): one range
+// normalised into out (no busy tile: V's mean); more, the partials to
+// scratch, and the last block of the (row, head group) to finish combines
+// every range in order. ``scratch`` holds the combine's weights (at least
+// kThreads * 4 and (kMaxRanges + 2) * kMaxG floats).
+template <int D, int G, typename T, typename RangeAcc>
+__device__ __forceinline__ void finish_range(const Params& p, int b, int h,
+                                             long long bh, int rg, bool busy,
+                                             const float* m_s,
+                                             const float* l_s, float* scratch,
+                                             int& last_s,
+                                             RangeAcc range_acc) {
+  constexpr int C = D / 4;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (p.ranges == 1) {                 // the whole row: normalise and store
+    if (!busy) {                       // no busy tile: no valid slot
+      mean_of_v<D, T>(p, b, h, bh, scratch);
+      return;
+    }
+    for (int e = tid; e < G * C; e += kThreads) {
+      const float4 a = range_acc(e);
+      const float d = fmaxf(l_s[e / C], 1e-20f);
+      reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
+          make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
+    }
+    return;
+  }
+
+  // this range's (m, l, acc) to scratch
+  const long long nparts = (long long)gridDim.z * gridDim.y * p.ranges;
+  float4* pacc = reinterpret_cast<float4*>(p.parts);      // (nparts, G, C)
+  float* pm = p.parts + nparts * G * D;                    // (nparts, G)
+  float* pl = pm + nparts * G;
+  const long long first = bh * p.ranges;                   // this group's range 0
+  for (int e = tid; e < G * C; e += kThreads)
+    pacc[(first + rg) * G * C + e] = range_acc(e);
+  if (tid < G) {
+    pm[(first + rg) * G + tid] = m_s[tid];
+    pl[(first + rg) * G + tid] = l_s[tid];
+  }
+  __syncthreads();
+  if (tid == 0) last_s = atomic_add_acq_rel(p.counts + bh, 1) == p.ranges - 1;
+  __syncthreads();
+  if (!last_s) return;
+  if (tid == 0) p.counts[bh] = 0;      // ready for the next launch
+
+  // the last block of the group: the first kR ranges' partials of its elements in
+  // flight first; meanwhile warp g takes head g's (m, l) of every range,
+  // M, each weight exp(m_r - M) once and the denominator in ascending
+  // order; then the elements, in ascending order of the ranges
+  const int nr = p.ranges;
+  constexpr int kE = (kMaxG * C + kThreads - 1) / kThreads;  // elements a thread
+  const float4* src = pacc + first * G * C;
+  int ee[kE];
+  float4 x[kR][kE];
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    ee[i] = min(tid + i * kThreads, G * C - 1);
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+      x[j][i] = __ldcg(src + (long long)min(j, nr - 1) * G * C + ee[i]);
+  }
+  float* w_s = scratch;                      // (nr, G) weights
+  float* big_m = w_s + kMaxRanges * kMaxG;   // (kMaxG) M
+  float* den = big_m + kMaxG;                // (kMaxG)
+  if (warp < G) {                      // lane: ranges lane, lane + 32, ...
+    const int g = warp;
+    constexpr int kPerLane = kMaxRanges / 32;
+    float mr[kPerLane], lr[kPerLane];
+    float mx = kNegInf;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int r = lane + 32 * k;
+      mr[k] = r < nr ? __ldcg(pm + (first + r) * G + g) : kNegInf;
+      lr[k] = r < nr ? __ldcg(pl + (first + r) * G + g) : 0.f;
+      mx = fmaxf(mx, mr[k]);
+    }
+    mx = warp_max(mx);
+    float d = 0.f;                     // every lane: the ranges in order
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int r = lane + 32 * k;
+      const float w = r < nr ? expf(mr[k] - mx) : 0.f;
+      if (r < nr) w_s[r * G + g] = w;
+      for (int src = 0; src < 32 && 32 * k + src < nr; ++src)
+        d = fmaf(__shfl_sync(0xffffffffu, w, src),
+                 __shfl_sync(0xffffffffu, lr[k], src), d);
+    }
+    if (lane == 0) {
+      den[g] = fmaxf(d, 1e-20f);
+      big_m[g] = mx;
+    }
+  }
+  __syncthreads();
+  if (big_m[0] == kNegInf) {           // no valid slot in the whole row
+    mean_of_v<D, T>(p, b, h, bh, scratch);  // over the weights, read no more
+    return;
+  }
+  float4 o[kE];
+#pragma unroll
+  for (int i = 0; i < kE; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < nr; r0 += kR) {
+    if (r0 > 0) {
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+#pragma unroll
+        for (int i = 0; i < kE; ++i)
+          x[j][i] = __ldcg(src + (long long)min(r0 + j, nr - 1) * G * C + ee[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      if (r0 + j >= nr) break;
+#pragma unroll
+      for (int i = 0; i < kE; ++i)
+        fma4(o[i], w_s[(r0 + j) * G + ee[i] / C], x[j][i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kE; ++i) {
+    const int e = tid + i * kThreads;
+    if (e >= G * C) break;
+    const float d = den[e / C];
+    reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
+        make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);
+  }
+}
+
 template <int D, int G, bool kCap, typename T>
 __global__ void __launch_bounds__(kThreads, Smem<D>::kMinBlocks)
 flash_decode_kernel(const Params p) {
@@ -362,38 +514,15 @@ flash_decode_kernel(const Params p) {
       const long long row0 = ((long long)b * p.S + s0 + t * kTile) * p.Hkv + h;
       const T* kb = static_cast<const T*>(p.k) + row0 * D + c * 4;
       const T* vb = static_cast<const T*>(p.v) + row0 * D + c * 4;
-      if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-        for (int n = 0; n < kCopies; ++n) {
-          const bool isv = n >= kCopies / 2;
-          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
-          const bool ok = (bits >> slot) & 1u;
-          const long long off = (long long)slot * p.Hkv * D;
-          cp_async16(dst + (isv ? L::kTileF : 0) + slot * L::kLd,
-                     ok ? (isv ? vb : kb) + off : p.k, ok ? 16 : 0);
-          if (n == kCopies / 2 - 1) cp_async_commit();
-        }
-      } else {
-        // bf16: every load of the tile in flight, then widened into the
-        // same fp32 ring (masked slots zero); two empty copy groups keep
-        // the waits' counts
-        float4 val[kCopies];
-#pragma unroll
-        for (int n = 0; n < kCopies; ++n) {
-          const bool isv = n >= kCopies / 2;
-          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
-          val[n] = (bits >> slot) & 1u
-              ? ld4((isv ? vb : kb) + (long long)slot * p.Hkv * D)
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int n = 0; n < kCopies; ++n) {
-          const bool isv = n >= kCopies / 2;
-          const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
-          *reinterpret_cast<float4*>(dst + (isv ? L::kTileF : 0) +
-                                     slot * L::kLd) = val[n];
-        }
-        cp_async_commit();
+      for (int n = 0; n < kCopies; ++n) {
+        const bool isv = n >= kCopies / 2;
+        const int slot = (tid + (isv ? n - kCopies / 2 : n) * kThreads) / C;
+        const bool ok = (bits >> slot) & 1u;
+        const long long off = (long long)slot * p.Hkv * D;
+        cp_async16(dst + (isv ? L::kTileF : 0) + slot * L::kLd,
+                   ok ? (isv ? vb : kb) + off : p.k, ok ? 16 : 0);
+        if (n == kCopies / 2 - 1) cp_async_commit();
       }
     } else {
       cp_async_commit();
@@ -498,121 +627,309 @@ flash_decode_kernel(const Params p) {
     return a;
   };
 
-  if (p.ranges == 1) {                 // the whole row: normalise and store
-    if (j == 0) {                      // no busy tile: no valid slot
-      mean_of_v<D, T>(p, b, h, bh, red);
-      return;
-    }
-    for (int e = tid; e < G * C; e += kThreads) {
-      const float4 a = range_acc(e);
-      const float d = fmaxf(l_s[e / C], 1e-20f);
-      reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
-          make_float4(a.x / d, a.y / d, a.z / d, a.w / d);
-    }
-    return;
-  }
+  finish_range<D, G, T>(p, b, h, bh, rg, j > 0, m_s, l_s, ring, last_s,
+                        range_acc);
+}
 
-  // this range's (m, l, acc) to scratch
-  const long long nparts = (long long)gridDim.z * gridDim.y * p.ranges;
-  float4* pacc = reinterpret_cast<float4*>(p.parts);      // (nparts, G, C)
-  float* pm = p.parts + nparts * G * D;                    // (nparts, G)
-  float* pl = pm + nparts * G;
-  const long long first = bh * p.ranges;                   // this group's range 0
-  for (int e = tid; e < G * C; e += kThreads)
-    pacc[(first + rg) * G * C + e] = range_acc(e);
-  if (tid < G) {
-    pm[(first + rg) * G + tid] = m_s[tid];
-    pl[(first + rg) * G + tid] = l_s[tid];
+#ifdef FLASH_DECODE_BF16
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+
+using bf16 = __nv_bfloat16;
+constexpr int kStep = 16;        // slots a warp takes at a time: P V's k
+constexpr int kPTerms = 3;       // bf16 terms of P in P V: fp32's 24 bits
+
+// The bf16 kernel's dynamic shared memory, in bytes: q's rows as bf16 (the
+// MMA's 16 rows, those past G zero), the tile masks, each warp's (m, l) a
+// head (then each warp's weight), the range's (m, l), then each warp's
+// ring of `stages` steps (K then V, 16 rows padded by 16 bytes, so that
+// ldmatrix's 8 rows of a matrix hit each bank once). At the range's end the
+// ring holds the warps' P V sums (fp32), and in the combine every range's
+// weights.
+template <int D>
+struct SmemB {
+  static constexpr int kLd = D + 8;                       // a row, in bf16
+  static constexpr int kStepB = 2 * kStep * kLd * 2;      // K and V of a step
+  static constexpr int kQ = 0;                            // (16, kLd) bf16
+  static constexpr int kMask = kQ + 16 * kLd * 2;         // (kMaxTiles) bits
+  static constexpr int kWm = kMask + kMaxTiles * 4;       // (kWarps, kMaxG)
+  static constexpr int kWl = kWm + kWarps * kMaxG * 4;    // (kWarps, kMaxG)
+  static constexpr int kM = kWl + kWarps * kMaxG * 4;     // (kMaxG)
+  static constexpr int kL = kM + kMaxG * 4;               // (kMaxG)
+  static constexpr int kRing = kL + kMaxG * 4;
+  static constexpr int kRedB = kWarps * kMaxG * D * 4;    // the warps' sums
+  static constexpr int kCombB = (kMaxRanges + 2) * kMaxG * 4;
+  static constexpr int bytes(int stages) {
+    return kRing + (kWarps * stages * kStepB > kRedB ? kWarps * stages * kStepB
+                                                     : kRedB);
+  }
+  // the deepest ring that fits the shared memory (1 step a warp at D = 256)
+  static constexpr int kStagesFit =
+      (kSmemMax - kRing) / (kWarps * kStepB) < kMaxStages
+          ? (kSmemMax - kRing) / (kWarps * kStepB) : kMaxStages;
+  // blocks an SM is asked to hold at a one-step ring (registers capped to
+  // fit): a decode step's short rows are more blocks than SMs
+  static constexpr int kMinBlocks = bytes(1) * 2 <= kSmemMax ? 2 : 1;
+  static_assert(kRing % 16 == 0, "the ring must be 16-byte aligned");
+  static_assert(kRedB >= kCombB && kRedB >= kThreads * 16,
+                "the ring must hold the combine's weights");
+  static_assert(kStagesFit >= 1 && bytes(kStagesFit) <= kSmemMax,
+                "a step a warp must fit the shared memory");
+};
+
+// grid as flash_decode_kernel's; q, k, v bf16; p.stages: each warp's ring
+template <int D, int G, bool kCap>
+__global__ void __launch_bounds__(kThreads, SmemB<D>::kMinBlocks)
+flash_decode_mma(const Params p) {
+  using L = SmemB<D>;
+  constexpr int KS = D / 16;           // k steps of Q K^T; 16-column P V steps
+  constexpr int kUnits = kStep * D / 8;   // 16-byte units of a step's K (or V)
+  extern __shared__ __align__(16) unsigned char sm[];
+  __shared__ int last_s;
+  bf16* qs = reinterpret_cast<bf16*>(sm + L::kQ);
+  unsigned* mask_s = reinterpret_cast<unsigned*>(sm + L::kMask);
+  float* wm = reinterpret_cast<float*>(sm + L::kWm);
+  float* wl = reinterpret_cast<float*>(sm + L::kWl);
+  float* m_s = reinterpret_cast<float*>(sm + L::kM);
+  float* l_s = reinterpret_cast<float*>(sm + L::kL);
+  float* scratch = reinterpret_cast<float*>(sm + L::kRing);
+
+  const int rg = blockIdx.x, b = blockIdx.z;
+  const int h = blockIdx.y / p.groups;           // the KV head
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;       // fragment row, column pair
+  const long long bh = (long long)b * gridDim.y + blockIdx.y;  // (row, group)
+  const int s0 = rg * p.range;
+  const int s1 = min(p.S, s0 + p.range);
+  const int ntiles = (s1 - s0 + kTile - 1) / kTile;
+  const int nsteps = 2 * ntiles;
+
+  // q's 16 rows (those past G zero), 16 bytes a load, in flight with the
+  // slot positions'
+  constexpr int kQU = 16 * D / 8;
+  constexpr int kQPer = (kQU + kThreads - 1) / kThreads;
+  uint4 qv[kQPer];
+#pragma unroll
+  for (int i = 0; i < kQPer; ++i) {
+    const int e = tid + i * kThreads, row = e / (D / 8);
+    qv[i] = e < kQU && row < G
+        ? __ldg(reinterpret_cast<const uint4*>(
+              static_cast<const bf16*>(p.q) + bh * G * D) + e)
+        : make_uint4(0u, 0u, 0u, 0u);
+  }
+  {  // the range's slot positions, then a bit per valid slot and tile
+    const int len = __ldg(p.lengths + b);
+    const int* sp = p.slot_pos + (long long)b * p.S;
+    constexpr int kPer = kMaxTiles / kWarps;
+    int pos[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int s = s0 + (i * kWarps + warp) * kTile + lane;
+      pos[i] = s < s1 ? __ldg(sp + s) : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = i * kWarps + warp;
+      const unsigned bits =
+          __ballot_sync(0xffffffffu, pos[i] >= 0 && pos[i] <= len);
+      if (lane == 0 && t < ntiles) mask_s[t] = bits;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQPer; ++i) {
+    const int e = tid + i * kThreads;
+    if (e < kQU)
+      *reinterpret_cast<uint4*>(qs + (e / (D / 8)) * L::kLd + (e % (D / 8)) * 8) =
+          qv[i];
   }
   __syncthreads();
-  if (tid == 0) last_s = atomic_add_acq_rel(p.counts + bh, 1) == p.ranges - 1;
-  __syncthreads();
-  if (!last_s) return;
-  if (tid == 0) p.counts[bh] = 0;      // ready for the next launch
+  bool busy = false;                   // a valid slot in the range
+  for (int t = 0; t < ntiles; ++t) busy |= mask_s[t] != 0u;
+  // Q as the A operand: rows g4 and g4 + 8 of its 16 columns at kk, from
+  // shared memory at every step (kept in registers they cost a second
+  // block an SM)
+  const bf16* qa_row = qs + (lane & 15) * L::kLd + (lane >> 4) * 8;
 
-  // the last block of the group: the first kR ranges' partials of its elements in
-  // flight first; meanwhile warp g takes head g's (m, l) of every range,
-  // M, each weight exp(m_r - M) once and the denominator in ascending
-  // order; then the elements, in ascending order of the ranges
-  const int nr = p.ranges;
-  constexpr int kE = (kMaxG * C + kThreads - 1) / kThreads;  // elements a thread
-  const float4* src = pacc + first * G * C;
-  int ee[kE];
-  float4 x[kR][kE];
+  // this warp's steps: warp, warp + kWarps, ... (16 slots from s0 + 16 i)
+  auto bits16 = [&](int i) {
+    return (mask_s[i >> 1] >> ((i & 1) * 16)) & 0xffffu;
+  };
+  auto next_step = [&](int i) {
+    while (i < nsteps && bits16(i) == 0u) i += kWarps;
+    return i;
+  };
+  unsigned char* wring = sm + L::kRing + warp * p.stages * L::kStepB;
+  const long long row0 = ((long long)b * p.S + s0) * p.Hkv + h;
+  // the warp's k-th busy step into ring slot k % stages, one copy group
+  // (an empty one past the last); unit e of K (then V) is row e / (D / 8)
+  int i_copy = next_step(warp);
+  auto issue = [&](int k) {
+    const int i = i_copy;
+    if (i < nsteps) {
+      i_copy = next_step(i + kWarps);
+      const unsigned bits = bits16(i);
+      bf16* dst = reinterpret_cast<bf16*>(wring + (k % p.stages) * L::kStepB);
 #pragma unroll
-  for (int i = 0; i < kE; ++i) {
-    ee[i] = min(tid + i * kThreads, G * C - 1);
+      for (int isv = 0; isv < 2; ++isv) {
+        const bf16* src = static_cast<const bf16*>(isv ? p.v : p.k) +
+                          (row0 + (long long)i * kStep * p.Hkv) * D;
 #pragma unroll
-    for (int j = 0; j < kR; ++j)
-      x[j][i] = __ldcg(src + (long long)min(j, nr - 1) * G * C + ee[i]);
-  }
-  float* w_s = ring;                         // (nr, G) weights
-  float* big_m = ring + kMaxRanges * kMaxG;  // (kMaxG) M
-  float* den = big_m + kMaxG;                // (kMaxG)
-  if (warp < G) {                      // lane: ranges lane, lane + 32, ...
-    const int g = warp;
-    constexpr int kPerLane = kMaxRanges / 32;
-    float mr[kPerLane], lr[kPerLane];
+        for (int n = 0; n < kUnits / 32; ++n) {
+          const int e = lane + 32 * n, slot = e / (D / 8), u = e % (D / 8);
+          const bool ok = (bits >> slot) & 1u;
+          cp_async16(dst + (isv * kStep + slot) * L::kLd + u * 8,
+                     ok ? src + (long long)slot * p.Hkv * D + u * 8 : p.k,
+                     ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < p.stages; ++k) issue(k);
+
+  // head g4's running max and this lane's share of its sum; its P V sums
+  // at columns 8 nt + 2 t4, + 1
+  float m_run = kNegInf, l_lane = 0.f;
+  float acc[2 * KS][2];
+#pragma unroll
+  for (int nt = 0; nt < 2 * KS; ++nt) acc[nt][0] = acc[nt][1] = 0.f;
+  int k = 0;
+  for (int i = next_step(warp); i < nsteps; i = next_step(i + kWarps), ++k) {
+    cp_async_wait(p.stages - 1);
+    __syncwarp();                      // step k landed, for every lane
+    const bf16* ks = reinterpret_cast<const bf16*>(wring + (k % p.stages) * L::kStepB);
+    const bf16* vs = ks + kStep * L::kLd;
+    // S = Q K^T: slots 2 t4, + 1 (s[0]) and 8 + 2 t4, + 1 (s[1]) of head g4
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], r[4];
+      ldsm_x4(qa, qa_row + kk * 16);
+      ldsm_x4(r, ks + ((lane >> 4) * 8 + (lane & 7)) * L::kLd + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], qa, r[0], r[1]);
+      mma_bf16(s[1], qa, r[2], r[3]);
+    }
+    const unsigned bits = bits16(i);
+    float v[4] = {s[0][0], s[0][1], s[1][0], s[1][1]};
     float mx = kNegInf;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int r = lane + 32 * k;
-      mr[k] = r < nr ? __ldcg(pm + (first + r) * G + g) : kNegInf;
-      lr[k] = r < nr ? __ldcg(pl + (first + r) * G + g) : 0.f;
-      mx = fmaxf(mx, mr[k]);
+    for (int q = 0; q < 4; ++q) {
+      const int slot = (q >> 1) * 8 + 2 * t4 + (q & 1);
+      float x = v[q] * p.scale;
+      if constexpr (kCap) x = tanhf(x / p.softcap) * p.softcap;
+      v[q] = (bits >> slot) & 1u ? x : kNegInf;
+      mx = fmaxf(mx, v[q]);
     }
-    mx = warp_max(mx);
-    float d = 0.f;                     // every lane: the ranges in order
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mn = fmaxf(m_run, mx);
+    const float a = expf(m_run - mn);
+    float pr[4];
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int r = lane + 32 * k;
-      const float w = r < nr ? expf(mr[k] - mx) : 0.f;
-      if (r < nr) w_s[r * G + g] = w;
-      for (int src = 0; src < 32 && 32 * k + src < nr; ++src)
-        d = fmaf(__shfl_sync(0xffffffffu, w, src),
-                 __shfl_sync(0xffffffffu, lr[k], src), d);
+    for (int q = 0; q < 4; ++q) pr[q] = expf(v[q] - mn);
+    l_lane = l_lane * a + ((pr[0] + pr[1]) + (pr[2] + pr[3]));
+    m_run = mn;
+    // P as the A operand in kPTerms bf16 terms: row g4 at k 2 t4, + 1 and
+    // 8 + 2 t4, + 1 (the S fragments' own places); row g4 + 8 zero
+    uint32_t lo[kPTerms], hi[kPTerms];
+    split_bf16(pr[0], pr[1], lo);
+    split_bf16(pr[2], pr[3], hi);
+#pragma unroll
+    for (int c2 = 0; c2 < KS; ++c2) {  // columns 16 c2 .. 16 c2 + 15
+      uint32_t r[4];
+      ldsm_x4_t(r, vs + (lane & 15) * L::kLd + c2 * 16 + (lane >> 4) * 8);
+      float f0[4] = {}, f1[4] = {};
+#pragma unroll
+      for (int e = kPTerms - 1; e >= 0; --e) {   // the small terms first
+        const uint32_t pa[4] = {lo[e], 0u, hi[e], 0u};
+        mma_bf16(f0, pa, r[0], r[1]);
+        mma_bf16(f1, pa, r[2], r[3]);
+      }
+      acc[2 * c2][0] = acc[2 * c2][0] * a + f0[0];
+      acc[2 * c2][1] = acc[2 * c2][1] * a + f0[1];
+      acc[2 * c2 + 1][0] = acc[2 * c2 + 1][0] * a + f1[0];
+      acc[2 * c2 + 1][1] = acc[2 * c2 + 1][1] * a + f1[1];
     }
-    if (lane == 0) {
-      den[g] = fmaxf(d, 1e-20f);
-      big_m[g] = mx;
+    __syncwarp();                      // every lane read ring slot k
+    issue(k + p.stages);
+  }
+  cp_async_wait(0);
+  float l = l_lane;                    // head g4's sum: its 4 lanes
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (t4 == 0 && g4 < G) {
+    wm[warp * kMaxG + g4] = m_run;
+    wl[warp * kMaxG + g4] = l;
+  }
+  __syncthreads();                     // every warp's ring is free
+  float* red = scratch;                // (kWarps, kMaxG, D) the warps' sums
+  if (g4 < G) {
+#pragma unroll
+    for (int nt = 0; nt < 2 * KS; ++nt)
+      *reinterpret_cast<float2*>(red + (warp * kMaxG + g4) * D + nt * 8 +
+                                 2 * t4) = make_float2(acc[nt][0], acc[nt][1]);
+  }
+  // head g's range max M over the warps, each warp's weight exp(m_w - M),
+  // the range's sum, the warps in order
+  if (tid < G) {
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kMaxG + tid]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(wm[w * kMaxG + tid] - M);
+      sum = fmaf(e, wl[w * kMaxG + tid], sum);
+      wm[w * kMaxG + tid] = e;
     }
+    m_s[tid] = M;
+    l_s[tid] = sum;
   }
   __syncthreads();
-  if (big_m[0] == kNegInf) {           // no valid slot in the whole row
-    mean_of_v<D, T>(p, b, h, bh, ring);  // over the weights, read no more
-    return;
-  }
-  float4 o[kE];
+  // the range's acc of element e = (g, float4 column): the warps in order
+  auto range_acc = [&](int e) {
+    const int g = e / (D / 4), cc = e % (D / 4);
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < kE; ++i) o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r0 = 0; r0 < nr; r0 += kR) {
-    if (r0 > 0) {
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-#pragma unroll
-        for (int i = 0; i < kE; ++i)
-          x[j][i] = __ldcg(src + (long long)min(r0 + j, nr - 1) * G * C + ee[i]);
-    }
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      if (r0 + j >= nr) break;
-#pragma unroll
-      for (int i = 0; i < kE; ++i)
-        fma4(o[i], w_s[(r0 + j) * G + ee[i] / C], x[j][i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kE; ++i) {
-    const int e = tid + i * kThreads;
-    if (e >= G * C) break;
-    const float d = den[e / C];
-    reinterpret_cast<float4*>(p.out + bh * G * D)[e] =
-        make_float4(o[i].x / d, o[i].y / d, o[i].z / d, o[i].w / d);
-  }
+    for (int w = 0; w < kWarps; ++w)
+      fma4(o, wm[w * kMaxG + g],
+           reinterpret_cast<const float4*>(red + (w * kMaxG + g) * D)[cc]);
+    return o;
+  };
+  finish_range<D, G, bf16>(p, b, h, bh, rg, busy, m_s, l_s, scratch, last_s,
+                           range_acc);
 }
+
+template <int D, int G, bool kCap>
+int launch_mma(const Params& p, int B, cudaStream_t st) {
+  using L = SmemB<D>;
+  if (p.stages > L::kStagesFit) return (int)cudaErrorInvalidValue;
+  static unsigned long long ready = 0;   // the shared-memory opt-in, once
+  int dev = 0;                           // per device
+  cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ready & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_mma<D, G, kCap>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes(L::kStagesFit));
+    if (e != cudaSuccess) return (int)e;
+    ready |= bit;
+  }
+  flash_decode_mma<D, G, kCap><<<dim3(p.ranges, p.Hkv * p.groups, B),
+                                  kThreads, L::bytes(p.stages), st>>>(p);
+  return (int)cudaGetLastError();
+}
+#endif  // FLASH_DECODE_BF16
 
 template <int D, int G, bool kCap, typename T>
 int launch(const Params& p, int B, cudaStream_t st) {
+#ifdef FLASH_DECODE_BF16
+  if constexpr (!std::is_same<T, float>::value) {
+    return launch_mma<D, G, kCap>(p, B, st);
+  } else
+#endif
+  {
   using L = Smem<D>;
   if (p.stages > L::kStagesFit) return (int)cudaErrorInvalidValue;
   static unsigned long long ready = 0;   // the shared-memory opt-in, once
@@ -630,6 +947,7 @@ int launch(const Params& p, int B, cudaStream_t st) {
   flash_decode_kernel<D, G, kCap, T><<<dim3(p.ranges, p.Hkv * p.groups, B),
                                        kThreads, L::bytes(p.stages), st>>>(p);
   return (int)cudaGetLastError();
+  }
 }
 
 // G, the query heads of a block, is a compile-time constant of the kernel,
@@ -661,10 +979,13 @@ int fwd(const T* q, const T* k, const T* v, const int* slot_pos,
         int* counts, long long count_ints, int B, int S, int Hkv, int G, int D,
         int range, int stages, int groups, float scale, float softcap,
         void* stream) {
+  // fp32: a ring of one tile holds a one-tile range only; bf16's ring is
+  // each warp's and holds one step at least
+  const bool one_ok = !std::is_same<T, float>::value || range == kTile;
   if (B < 1 || S < 1 || Hkv < 1 || G < 1 || groups < 1 || G % groups ||
       !(softcap >= 0.f) ||
       G / groups > kMaxG || stages < kMinStages ||
-      stages > kMaxStages || (stages < 2 && range != kTile) || range < kTile ||
+      stages > kMaxStages || (stages < 2 && !one_ok) || range < kTile ||
       range % kTile || range > kMaxTiles * kTile)
     return (int)cudaErrorInvalidValue;
   Params p = {};
@@ -727,9 +1048,10 @@ extern "C" int flash_decode_fwd(const float* q, const float* k,
 }
 #else
 
-// The same with q, k and v bf16 (16-byte aligned), widened to fp32 as they
-// are read; everything else, the plan and the fp32 output included, as
-// flash_decode_fwd. It is built from flash_decode_bf16.cu, this file with
+// The same with q, k and v bf16 (16-byte aligned), on the tensor cores
+// (flash_decode_mma); `stages` is each warp's ring of 16-slot steps (1 to 6,
+// 3 at D = 128, 1 at D = 256); the ranges, head groups and fp32 output as
+// flash_decode_fwd's. It is built from flash_decode_bf16.cu, this file with
 // FLASH_DECODE_BF16 defined, so that the two forms' template instances
 // compile in parallel.
 extern "C" int flash_decode_fwd_bf16(const void* q, const void* k,

@@ -65,8 +65,9 @@
 // names it there); the int8 and int4 banks are the same bytes. Kernel A's
 // bf16 form is this file's, another template instance: every value widened
 // to fp32 as it is staged (__bfloat162float, exact), fp32 sums, a bf16 row
-// read as 8 values a 16-byte unit. Kernel B's bf16 form is a kernel of its
-// own on the bf16 tensor cores (qmatmul_bf16.cu).
+// read as 8 values a 16-byte unit. Kernel B here is fp32 only: its bf16
+// form is a kernel of its own on the bf16 tensor cores, and so is the
+// FFN's fused small-M GLU (qmatmul_bf16.cu).
 // Tier widths (38, 78, 1037, 2073, ...) are not tile multiples: every edge
 // is masked (cp.async zero-fills). Rows whose bytes are not 16-byte aligned
 // (compact banks of odd width) take element-wise loads; the sums are the
@@ -504,8 +505,8 @@ template <int BM, int PREC, int LAYOUT>
 struct MmaSmem {
   static constexpr int kA = BM * kALd * 4;
   static constexpr int kBRowBytes = LAYOUT == kCol
-      ? (PREC == kFp ? kALd * 4 : PREC == kBf16 ? 80 : 48)  // B[n][k], k contiguous
-      : (PREC == kFp ? (kBN + 8) * 4 : PREC == kBf16 ? 144 : 80);  // B[k][n]
+      ? (PREC == kFp ? kALd * 4 : 48)              // B[n][k], k contiguous
+      : (PREC == kFp ? (kBN + 8) * 4 : 80);        // B[k][n]
   static constexpr int kBRows = LAYOUT == kCol ? kBN : kBK;
   static constexpr int kB = kBRows * kBRowBytes;
   static constexpr int kStage = kA + kB;
@@ -537,7 +538,6 @@ __device__ __forceinline__ float row_b(const unsigned char* Bs, int k, int n) {
   const unsigned char* r = Bs + k * RB;
   if (PREC == kFp) return reinterpret_cast<const float*>(r)[n];
   if (PREC == kInt8) return (float)(signed char)r[n];
-  if (PREC == kBf16) return __bfloat162float(reinterpret_cast<const bf16*>(r)[n]);
   return (float)nibble_at(r[n >> 1], n & 1);
 }
 
@@ -550,10 +550,6 @@ __device__ __forceinline__ void tile_b2(const unsigned char* Bs, int k, int n,
     const unsigned char* r = Bs + n * RB;
     if (PREC == kFp) {
       const float2 v = *reinterpret_cast<const float2*>(r + 4 * k);
-      b0 = v.x;
-      b1 = v.y;
-    } else if (PREC == kBf16) {
-      const float2 v = bf2(*reinterpret_cast<const uint32_t*>(r + 2 * k));
       b0 = v.x;
       b1 = v.y;
     } else if (PREC == kInt8) {
@@ -571,11 +567,11 @@ __device__ __forceinline__ void tile_b2(const unsigned char* Bs, int k, int n,
   b1 = row_b<PREC, RB>(Bs, k + 1, n);
 }
 
-// grid (ceil(N / 64), ceil(M / BM), R * splits); XT: x's type (bf16 x is
-// widened as it is staged, and is then exact in TF32)
-template <int BM, int PREC, int LAYOUT, typename XT>
+// grid (ceil(N / 64), ceil(M / BM), R * splits); fp32 x (the bf16 form is
+// qmatmul_bf16.cu's qmm_mma_bf16)
+template <int BM, int PREC, int LAYOUT>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
-qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
+qmm_mma_kernel(const float* __restrict__ x, const char* __restrict__ w,
                const float* __restrict__ scale, const int* __restrict__ idx,
                int M, int N, int K, long long ldw, int k_split, int splits,
                int vec_x, int vec_w, int accumulate, float* __restrict__ out,
@@ -587,11 +583,7 @@ qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
   constexpr int WTM = BM / WARPS_M, WTN = kBN / WARPS_N;
   constexpr int MT = WTM / 16, NT = WTN / 8;
   constexpr int BPE2 =                                  // 2 x bytes per value
-      PREC == kFp ? 8 : PREC == kBf16 ? 4 : PREC == kInt8 ? 2 : 1;
-  // A (x, or h times nothing) holds bf16 values, exact in TF32: its lo
-  // part is 0 and its MMA is skipped; h times an int tier's scale is not
-  constexpr bool kAExact = !std::is_same<XT, float>::value &&
-                           !(LAYOUT == kRow && is_int<PREC>());
+      PREC == kFp ? 8 : PREC == kInt8 ? 2 : 1;
   constexpr int UE = 32 / BPE2;                                  // values per 16 bytes
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int col_id[kBN];
@@ -626,14 +618,7 @@ qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
     unsigned char* base = smem + st * S::kStage;
     float* As = reinterpret_cast<float*>(base);
     unsigned char* Bs = base + S::kA;
-    if constexpr (!std::is_same<XT, float>::value) {   // bf16: widened
-      for (int e = tid; e < BM * kBK; e += kMmaThreads) {
-        const int mm = e / kBK, kk = e % kBK;
-        const int m = m0 + mm, k = k0 + kk;
-        As[mm * kALd + kk] =
-            m < M && k < kend ? to_f(x[(long long)m * K + k]) : 0.f;
-      }
-    } else if (vec_x) {                    // K % 4 == 0, x 16-byte aligned
+    if (vec_x) {                           // K % 4 == 0, x 16-byte aligned
       for (int e = tid; e < BM * (kBK / 4); e += kMmaThreads) {
         const int mm = e / (kBK / 4), kq = (e % (kBK / 4)) * 4;
         const int m = m0 + mm, k = k0 + kq;
@@ -673,16 +658,6 @@ qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
                     ok ? w + (long long)r * ldw + (long long)k * 4 : w,
                     ok ? 4 : 0);
         }
-      } else if (PREC == kBf16) {
-        for (int e = tid; e < kBN * kBK; e += kMmaThreads) {
-          const int nn = e / kBK, kk = e % kBK;
-          const int r = col_id[nn], k = k0 + kk;
-          reinterpret_cast<unsigned short*>(Bs + nn * RB)[kk] =
-              (r >= 0 && k < kend)
-                  ? __ldg(reinterpret_cast<const unsigned short*>(
-                        w + (long long)r * ldw) + k)
-                  : (unsigned short)0;
-        }
       } else {
         for (int e = tid; e < kBN * kRowBytes; e += kMmaThreads) {
           const int nn = e / kRowBytes, b = e % kRowBytes;
@@ -715,16 +690,6 @@ qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
           const long long r = ok ? row_id[j - kbeg] : 0;
           cp_async4(Bs + kk * RB + nn * 4, ok ? w + r * ldw + (long long)c * 4 : w,
                     ok ? 4 : 0);
-        }
-      } else if (PREC == kBf16) {
-        for (int e = tid; e < kBK * kBN; e += kMmaThreads) {
-          const int kk = e / kBN, nn = e % kBN;
-          const int j = k0 + kk, c = n0 + nn;
-          const bool ok = j < kend && c < N;
-          const long long r = ok ? row_id[j - kbeg] : 0;
-          reinterpret_cast<unsigned short*>(Bs + kk * RB)[nn] = ok
-              ? __ldg(reinterpret_cast<const unsigned short*>(w + r * ldw) + c)
-              : (unsigned short)0;
         }
       } else {
         for (int e = tid; e < kBK * kRowBytes; e += kMmaThreads) {
@@ -793,19 +758,17 @@ qmm_mma_kernel(const XT* __restrict__ x, const char* __restrict__ w,
         if (PREC == kFp) {
           split_tf32(b0, bhi[jn][0], blo[jn][0]);
           split_tf32(b1, bhi[jn][1], blo[jn][1]);
-        } else {            // |q| <= 127 and bf16: exact in TF32
+        } else {            // |q| <= 127: exact in TF32
           bhi[jn][0] = __float_as_uint(b0);
           bhi[jn][1] = __float_as_uint(b1);
         }
       }
       // one pass per term, small terms first: the MT * NT MMAs of a pass
       // are independent, so a sum never waits on the MMA just issued
-      if (!kAExact) {
 #pragma unroll
-        for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-          for (int jn = 0; jn < NT; ++jn) mma_tf32(part[i][jn], alo[i], bhi[jn]);
-      }
+        for (int jn = 0; jn < NT; ++jn) mma_tf32(part[i][jn], alo[i], bhi[jn]);
       if (PREC == kFp) {
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -906,20 +869,20 @@ int launch_gemv(int layout, const Args& a) {
   return 0;
 }
 
-template <int BM, int PREC, int LAYOUT, typename XT>
+template <int BM, int PREC, int LAYOUT>
 int launch_mma(const Args& a) {
   using S = MmaSmem<BM, PREC, LAYOUT>;
   static bool ready = false;
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_mma_kernel<BM, PREC, LAYOUT, XT>,
+        qmm_mma_kernel<BM, PREC, LAYOUT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, S::kTotal);
     if (e != cudaSuccess) return (int)e;
     ready = true;
   }
   dim3 grid((a.N + kBN - 1) / kBN, (a.M + BM - 1) / BM, a.R * a.splits);
-  qmm_mma_kernel<BM, PREC, LAYOUT, XT><<<grid, kMmaThreads, S::kTotal, a.st>>>(
-      static_cast<const XT*>(a.x), a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
+  qmm_mma_kernel<BM, PREC, LAYOUT><<<grid, kMmaThreads, S::kTotal, a.st>>>(
+      static_cast<const float*>(a.x), a.w, a.scale, a.idx, a.M, a.N, a.K, a.ldw, a.k_split, a.splits,
       a.vec_x, a.vec_w, a.accumulate, a.out, a.parts);
   return 0;
 }
@@ -936,11 +899,11 @@ int dispatch(int layout, int kernel, int tile, const Args& a) {
     return (int)cudaErrorInvalidValue;
   }
   if (tile == 16)
-    return layout == kCol ? launch_mma<16, PREC, kCol, XT>(a)
-                          : launch_mma<16, PREC, kRow, XT>(a);
+    return layout == kCol ? launch_mma<16, PREC, kCol>(a)
+                          : launch_mma<16, PREC, kRow>(a);
   if (tile == 64)
-    return layout == kCol ? launch_mma<64, PREC, kCol, XT>(a)
-                          : launch_mma<64, PREC, kRow, XT>(a);
+    return layout == kCol ? launch_mma<64, PREC, kCol>(a)
+                          : launch_mma<64, PREC, kRow>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,11 @@
 // Gathered quantized matmul with bf16 x and a bf16 fp tier, built as a
 // library of its own: kernel A is qmatmul.cu's at x = bf16 (its template
 // instances, QMATMUL_BF16 defined), kernel B a kernel of its own on the bf16
-// tensor cores.
+// tensor cores, and the FFN's small-M form (M <= 4 a row) three kernels of
+// its own: the gate and up products with the activation, every tier in one
+// launch (`qmm_glu_bf16`), the down products' partial sums (kernel A's row
+// form), and one fixed-order sum of every tier's partials into the bf16
+// output (`qmm_down_sum_bf16`).
 //
 // Replaces: src/repro/kernels/qmatmul.py::_qmm_kernel at bf16 inputs (the
 // reference's default precision; the Pallas kernel widens x and the bank to
@@ -58,6 +62,38 @@
 //    78, 1037, 2073, ...) are not tile multiples: every edge is masked
 //    (cp.async zero-fills). The split's partials are summed by qmatmul.cu's
 //    sum_splits in split order: no atomics, every result deterministic.
+// The fused GLU (`qmm_glu_kernel`, below; M <= 4 a row): one launch for the
+// three tiers, the fp tier's blocks first, then int8's and int4's (a
+// launch a tier took 29.1 us of device time a layer's FFN at M = 1, each
+// with its own ramp, staging and tail). In a tier, a warp takes one
+// active neuron, its gate row and its up row together (kernel A's col form
+// gave a warp two neurons of one product: 65 blocks of 8 warps at 1037
+// neurons, half the card idle; here 130 blocks, one an SM), a lane reading
+// 16-byte units lane, lane + 32, ... of both rows, kGluUnroll (2) units of
+// each in flight and as many more loading while these are summed (4 took
+// 24.9 us a layer's FFN at M = 1, 2 19.4: fewer registers, more blocks an
+// SM; scripts/bf16_variants.py `glu:unroll*`). The first units are
+// issued before x is staged (kernel A's col form staged x by scalar loads,
+// widened one at a time, before any weight load), and x is read in 16-byte
+// units of 8 values. The int tiers' values become fp32 by the exponent
+// trick (a byte or nibble, offset to unsigned, under the exponent of 2^23,
+// less 2^23 + offset: exact; no I2F). What bounds the int tiers is their
+// weight loads, not the conversion (scripts/bf16_variants.py: no faster
+// without it, `glu:no_convert`; twice as fast with no weight byte read,
+// `glu:no_weights`). Each lane's sums run over the same units in the
+// same order as the col form's, and the warp reduces them with the same
+// shuffles, so gate and up are its products bit for bit. The epilogue
+// rounds each product to bf16 and applies the activation with every op
+// rounded to bf16, as models/common's _silu and _gelu_tanh and F.relu
+// compute it at bf16 (expf, tanhf and IEEE division, as PyTorch's own
+// kernels), so h equals activation(gate.to(bf16)) * up.to(bf16) bit for
+// bit; h is written in bf16 for the down product. That composition took 29
+// elementwise launches a layer's FFN beside the 6 col launches: 41 kernels
+// in all (5 now). The down products (kernel A's row form) write
+// their splits' partials into one buffer, and one launch sums every tier's
+// in tier and split order, the order in which the per-tier sums added into
+// a zeroed fp32 output, and rounds to bf16 once: the same bits, without the
+// zeroing, the three per-tier sums and the final cast.
 // Measured and not taken (scripts/bf16_variants.py): two blocks an SM with
 // more registers, 128-deep tiles and a 4-deep ring were each slower on the
 // layer's FFN (1.02, 1.09, 1.07 ms against 0.96 in one run); blocks of 128
@@ -474,6 +510,307 @@ int launch_mma_bf16(const Args& a) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The small-M FFN: fused GLU, the down products' partials, their sum
+
+enum GluAct { kSilu = 0, kGelu = 1, kRelu = 2 };
+constexpr int kGluMaxM = 4;        // rows of M a launch takes (tiles 1, 4)
+constexpr int kGluUnroll = 2;      // 16-byte units of each row in flight a lane
+
+// v rounded to bf16 (to nearest, ties to even) and widened back
+__device__ __forceinline__ float rbf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// the activation of a bf16 value x, every op rounded to bf16 as
+// models/common computes it at bf16: silu x * (1 / (1 + exp(-x))) (the
+// reciprocal, then its product by 1, exact); gelu's tanh form with its
+// constants rounded to bf16 first, x * (0.5 * (1 + tanh(c (x + k x^3))));
+// relu max(x, 0), NaN kept
+template <int ACT>
+__device__ __forceinline__ float act_bf16(float x) {
+  if (ACT == kSilu) {
+    const float e = rbf(expf(-x));
+    const float r = rbf(__fdiv_rn(1.0f, rbf(1.0f + e)));
+    return rbf(x * r);
+  } else if (ACT == kGelu) {
+    const float c = 0.796875f;          // bf16(sqrt(2 / pi))
+    const float k = 0.044677734375f;    // bf16(0.044715)
+    const float x3 = rbf(rbf(x * x) * x);
+    const float t = rbf(c * rbf(x + rbf(k * x3)));
+    return rbf(x * rbf(0.5f * rbf(1.0f + rbf(tanhf(t)))));
+  } else {
+    return x != x ? x : fmaxf(x, 0.f);
+  }
+}
+
+// value i (0..3) of a word whose bytes were offset to unsigned (b ^ 0x80,
+// or a nibble's n ^ 8 in a byte of its own): 2^23 + u as a float's bits,
+// less 2^23 + bias, exact
+__device__ __forceinline__ float ubyte_f(uint32_t u, int i, float bias) {
+  return __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - bias;
+}
+
+// acc[j][m] += one 16-byte unit (k0 .. k0 + E) of row j (gate, up) against
+// x[m]: the col form's unit_dot, its products in the same order, the int
+// values widened by the exponent trick
+template <int PREC, int MAXM>
+__device__ __forceinline__ void glu_unit(const uint4 (&v)[kNpw],
+                                         const float* xs, int k0, int ldx,
+                                         int M, float (&acc)[kNpw][MAXM]) {
+  if constexpr (PREC == kBf16) {
+    unit_dot<PREC, MAXM>(v, xs, k0, ldx, M, acc);
+  } else {
+    constexpr int kPerWord = PREC == kInt8 ? 4 : 8;
+    constexpr float kBias = PREC == kInt8 ? 8388736.f : 8388616.f;
+    // four values of k at a time: each row's as fp32, then their products
+    // with every row of x (each sum still over k in order)
+#pragma unroll
+    for (int q = 0; q < 4 * kPerWord; q += 4) {
+      float w[kNpw][4];
+#pragma unroll
+      for (int j = 0; j < kNpw; ++j) {
+        const int wi = q / kPerWord;
+        const uint32_t word =
+            wi == 0 ? v[j].x : wi == 1 ? v[j].y : wi == 2 ? v[j].z : v[j].w;
+        if (PREC == kInt8) {
+          const uint32_t u = word ^ 0x80808080u;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) w[j][i] = ubyte_f(u, i, kBias);
+        } else {                           // nibbles q % 8 .. + 3
+          const uint32_t u = word ^ 0x88888888u;
+          const uint32_t lo = u & 0x0F0F0F0Fu, hi = (u >> 4) & 0x0F0F0F0Fu;
+          const int b0 = (q % 8) / 2;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            w[j][2 * i] = ubyte_f(lo, b0 + i, kBias);
+            w[j][2 * i + 1] = ubyte_f(hi, b0 + i, kBias);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m) {
+        if (m >= M) break;
+        const float4 a =
+            *reinterpret_cast<const float4*>(xs + m * ldx + swz(k0 + q));
+#pragma unroll
+        for (int j = 0; j < kNpw; ++j) {
+          float s = acc[j][m];
+          s = fmaf(a.x, w[j][0], s);
+          s = fmaf(a.y, w[j][1], s);
+          s = fmaf(a.z, w[j][2], s);
+          s = fmaf(a.w, w[j][3], s);
+          acc[j][m] = s;
+        }
+      }
+    }
+  }
+}
+
+// x[:, kc:kc+klen] widened into xs (permuted as the col form's): 16-byte
+// loads of 8 values where vec_x (K % 8 == 0, x 16-byte aligned)
+__device__ __forceinline__ void stage_x_bf16(const bf16* x, float* xs, int M,
+                                             int K, int kc, int klen,
+                                             int kc_len, int vec_x) {
+  if (vec_x) {
+    const int q8 = klen / 8;
+    for (int i = threadIdx.x; i < M * q8; i += kGemvThreads) {
+      const int m = i / q8, kk = (i - m * q8) * 8;
+      const uint4 u =
+          __ldg(reinterpret_cast<const uint4*>(x + (long long)m * K + kc + kk));
+      const float2 a = bf2(u.x), b = bf2(u.y), c = bf2(u.z), d = bf2(u.w);
+      float* row = xs + m * kc_len;
+      *reinterpret_cast<float4*>(row + swz(kk)) = make_float4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<float4*>(row + swz(kk + 4)) =
+          make_float4(c.x, c.y, d.x, d.y);
+    }
+  } else {
+    for (int i = threadIdx.x; i < M * klen; i += kGemvThreads) {
+      const int m = i / klen, kk = i - m * klen;
+      xs[m * kc_len + swz(kk)] = to_f(x[(long long)m * K + kc + kk]);
+    }
+  }
+}
+
+// one tier of the fused GLU: its banks (wg, wu: f rows of K values, ldw
+// bytes apart), scales (int tiers), active set idx (R, N) or null, and its
+// h (R, M, N) bf16 (gate_out, up_out: the fp32 products, or null)
+struct GluTier {
+  const char* wg;
+  const char* wu;
+  const float* sg;
+  const float* su;
+  const int* idx;
+  bf16* h;
+  float* gate_out;
+  float* up_out;
+  long long ldw;
+  int N, vec_w, blocks;              // blocks: ceil(N / 8), 0 when empty
+};
+// the launch: x (R, M, K) bf16 and the fp, int8 and int4 tiers, in order
+struct GluArgs {
+  const bf16* x;
+  GluTier t[3];
+  int M, K, kc_len, vec_x;
+};
+
+// block blk of one tier (row blockIdx.y): warp w takes neuron 8 blk + w
+template <int PREC, int MAXM, int ACT>
+__device__ __forceinline__ void glu_block(const GluArgs& a, const GluTier& t,
+                                          int blk, float* xs) {
+  constexpr int E = Unit<PREC>::kElems;
+  const int M = a.M, K = a.K, N = t.N, kc_len = a.kc_len;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.y;
+  const bf16* x = a.x + (long long)row * M * K;
+  const int* idx = t.idx ? t.idx + (long long)row * N : nullptr;
+  const int n = blk * kGemvWarps + warp;
+  const bool ok = n < N;                   // uniform across the warp
+  const int rid = ok ? (idx ? idx[n] : n) : 0;
+  const char* wr[kNpw] = {t.wg + (long long)rid * t.ldw,
+                          t.wu + (long long)rid * t.ldw};
+  float acc[kNpw][MAXM];
+#pragma unroll
+  for (int j = 0; j < kNpw; ++j)
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) acc[j][m] = 0.f;
+
+  for (int kc = 0; kc < K; kc += kc_len) {
+    const int klen = min(kc_len, K - kc);
+    __syncthreads();                       // the last chunk's reads are done
+    if (t.vec_w) {                         // K % E == 0, rows 16-byte aligned
+      const int u0 = kc / E, nu = klen / E;
+      uint4 v[kGluUnroll][kNpw];
+      auto fetch = [&](int u) {
+#pragma unroll
+        for (int q = 0; q < kGluUnroll; ++q)
+#pragma unroll
+          for (int j = 0; j < kNpw; ++j) {
+            const int uu = u + 32 * q;
+            v[q][j] = (ok && uu < nu)
+                ? __ldg(reinterpret_cast<const uint4*>(wr[j]) + u0 + uu)
+                : make_uint4(0u, 0u, 0u, 0u);
+          }
+      };
+      fetch(lane);                         // in flight while x is staged
+      stage_x_bf16(x, xs, M, K, kc, klen, kc_len, a.vec_x);
+      __syncthreads();
+      for (int u = lane; u < nu; u += 32 * kGluUnroll) {
+        uint4 cur[kGluUnroll][kNpw];
+#pragma unroll
+        for (int q = 0; q < kGluUnroll; ++q)
+#pragma unroll
+          for (int j = 0; j < kNpw; ++j) cur[q][j] = v[q][j];
+        if (u + 32 * kGluUnroll < nu) fetch(u + 32 * kGluUnroll);
+#pragma unroll
+        for (int q = 0; q < kGluUnroll; ++q) {
+          const int uu = u + 32 * q;
+          if (uu < nu) glu_unit<PREC, MAXM>(cur[q], xs, uu * E, kc_len, M, acc);
+        }
+      }
+    } else {
+      stage_x_bf16(x, xs, M, K, kc, klen, kc_len, a.vec_x);
+      __syncthreads();
+      for (int kk = lane; kk < klen; kk += 32) {
+        float wv[kNpw];
+#pragma unroll
+        for (int j = 0; j < kNpw; ++j)
+          wv[j] = ok ? load_elem<PREC>(wr[j], kc + kk) : 0.f;
+#pragma unroll
+        for (int m = 0; m < MAXM; ++m) {
+          if (m >= M) break;
+          const float xv = xs[m * kc_len + swz(kk)];
+#pragma unroll
+          for (int j = 0; j < kNpw; ++j) acc[j][m] = fmaf(xv, wv[j], acc[j][m]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNpw; ++j)
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+      float v = acc[j][m];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      acc[j][m] = v;
+    }
+  if (lane != 0 || !ok) return;
+  const float s0 = (is_int<PREC>() && t.sg) ? t.sg[rid] : 1.f;
+  const float s1 = (is_int<PREC>() && t.su) ? t.su[rid] : 1.f;
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    const float g = acc[0][m] * s0, u = acc[1][m] * s1;
+    const long long o = ((long long)row * M + m) * N + n;
+    if (t.gate_out) {
+      t.gate_out[o] = g;
+      t.up_out[o] = u;
+    }
+    t.h[o] = __float2bfloat16_rn(act_bf16<ACT>(rbf(g)) * rbf(u));
+  }
+}
+
+// grid (the tiers' blocks, R): blocks 0 .. of the fp tier, then the int8
+// tier's, then the int4 tier's
+template <int MAXM, int ACT>
+__global__ void __launch_bounds__(kGemvThreads)
+qmm_glu_kernel(const GluArgs a) {
+  __shared__ __align__(16) float xs[kXsFloats];
+  int b = blockIdx.x;
+  if (b < a.t[0].blocks) {
+    glu_block<kBf16, MAXM, ACT>(a, a.t[0], b, xs);
+    return;
+  }
+  b -= a.t[0].blocks;
+  if (b < a.t[1].blocks) {
+    glu_block<kInt8, MAXM, ACT>(a, a.t[1], b, xs);
+    return;
+  }
+  glu_block<kInt4, MAXM, ACT>(a, a.t[2], b - a.t[1].blocks, xs);
+}
+
+template <int MAXM>
+int launch_glu(int act, const GluArgs& a, int R, cudaStream_t st) {
+  const dim3 grid(a.t[0].blocks + a.t[1].blocks + a.t[2].blocks, R);
+  switch (act) {
+    case kSilu:
+      qmm_glu_kernel<MAXM, kSilu><<<grid, kGemvThreads, 0, st>>>(a);
+      return 0;
+    case kGelu:
+      qmm_glu_kernel<MAXM, kGelu><<<grid, kGemvThreads, 0, st>>>(a);
+      return 0;
+    case kRelu:
+      qmm_glu_kernel<MAXM, kRelu><<<grid, kGemvThreads, 0, st>>>(a);
+      return 0;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[r, e] = bf16(sum over the tiers t, in order, of the sum over their
+// splits z, in order, of parts_t[r, z, e]), from 0: parts holds the tiers'
+// blocks (R, splits_t, count) one after another
+__global__ void sum_tiers_bf16(const float* __restrict__ parts, int R,
+                               long long count, int s0, int s1, int s2,
+                               bf16* __restrict__ out) {
+  const long long total = (long long)R * count;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / count, e = i % count;
+    float s = 0.f;
+    const float* p = parts;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int st = t == 0 ? s0 : t == 1 ? s1 : s2;
+      const float* q = p + r * st * count + e;
+      for (int z = 0; z < st; ++z) s += q[(long long)z * count];
+      p += (long long)R * st * count;
+    }
+    out[i] = __float2bfloat16_rn(s);
+  }
+}
+
 template <int PREC>
 int dispatch_bf16(int layout, int kernel, int tile, const Args& a) {
   if (kernel == 0) {
@@ -491,6 +828,16 @@ int dispatch_bf16(int layout, int kernel, int tile, const Args& a) {
   if (tile == 64)
     return layout == kCol ? launch_mma_bf16<64, PREC, kCol>(a)
                           : launch_mma_bf16<64, PREC, kRow>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// kernel A's row form at bf16 h, every split's partial to a.parts
+template <int PREC>
+int launch_gemv_row_bf16(int tile, const Args& a) {
+  switch (tile) {
+    case 1: return launch_gemv<PREC, 1, bf16>(kRow, a);
+    case 4: return launch_gemv<PREC, 4, bf16>(kRow, a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -529,6 +876,87 @@ extern "C" int qmm_gathered_bf16(const void* x, const void* w,
                         kernel, tile, splits, k_split,
                         kernel == 1 ? (int)(vec_x && K % 8 == 0) : vec_x,
                         vec_w, accumulate, out, parts, stream);
+}
+
+// The fused GLU of an FFN's tiers in one launch, small M: x (R, M, K)
+// bf16; for tier t = 0, 1, 2 (fp: bf16 rows; int8; int4 packed along K) its
+// banks wg[t], wu[t] (rows ldw[t] bytes apart; vec_w[t]: 16-byte aligned),
+// per-neuron scales sg[t], su[t] (int tiers), idx[t] (R, N[t]) or null, and
+// h[t] (R, M, N[t]) bf16 = act(bf16(gate)) * bf16(up), each op rounded to
+// bf16 (act 0 silu, 1 gelu (tanh), 2 relu); gate_out[t], up_out[t] (R, M,
+// N[t]) fp32 or null. N[t] = 0 leaves a tier out. tile = M's bound (1 or
+// 4), kc_len the K chunk of x staged (kernels/qmatmul._plan's col form).
+// Returns a cudaError_t.
+extern "C" int qmm_glu_bf16(const void* x, const void* const* wg,
+                            const void* const* wu, const float* const* sg,
+                            const float* const* su, const int* const* idx,
+                            const int* N, const long long* ldw,
+                            const int* vec_w, void* const* h,
+                            float* const* gate_out, float* const* up_out,
+                            int R, int M, int K, int act, int tile,
+                            int kc_len, int vec_x, void* stream) {
+  if (R < 1 || R > 65535 || M < 1 || M > tile || M > kGluMaxM || K < 1 ||
+      kc_len < 32 || kc_len % 32 || (long long)M * kc_len > kXsFloats)
+    return (int)cudaErrorInvalidValue;
+  GluArgs a{static_cast<const bf16*>(x), {}, M, K, kc_len, vec_x};
+  for (int i = 0; i < 3; ++i) {
+    if (N[i] < 0 || (gate_out[i] == nullptr) != (up_out[i] == nullptr) ||
+        (N[i] > 0 && (!wg[i] || !wu[i] || !h[i])))
+      return (int)cudaErrorInvalidValue;
+    a.t[i] = GluTier{static_cast<const char*>(wg[i]),
+                     static_cast<const char*>(wu[i]), sg[i], su[i], idx[i],
+                     static_cast<bf16*>(h[i]), gate_out[i], up_out[i], ldw[i],
+                     N[i], vec_w[i], (N[i] + kGemvWarps - 1) / kGemvWarps};
+  }
+  if (a.t[0].blocks + a.t[1].blocks + a.t[2].blocks == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = tile == 1 ? launch_glu<1>(act, a, R, st)
+                : tile == 4 ? launch_glu<4>(act, a, R, st)
+                : (int)cudaErrorInvalidValue;
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// The down product of one tier into its block of partials, small M: kernel
+// A's row form with h (R, M, K) bf16 over w's rows idx (R, K) (precision as
+// qmm_gathered_bf16's), its `splits` partials (R, splits, M, N) fp32 written
+// to parts (one split: the product itself), not summed. Returns a
+// cudaError_t.
+extern "C" int qmm_down_parts_bf16(const void* h, const void* w,
+                                   const float* scale, const int* idx, int R,
+                                   int M, int N, int K, long long ldw,
+                                   int precision, int tile, int splits,
+                                   int k_split, int vec_w, float* parts,
+                                   void* stream) {
+  if (R < 1 || (long long)R * splits > 65535 || splits < 1 ||
+      k_split > kRowIds || (long long)M * k_split > kRowHs || !parts)
+    return (int)cudaErrorInvalidValue;
+  Args a{h, (const char*)w, scale, idx, R, M, N, K, ldw, k_split, splits,
+         0, vec_w, 0, parts, parts, (cudaStream_t)stream};
+  const int err =
+      precision == kFp ? launch_gemv_row_bf16<kBf16>(tile, a)
+      : precision == kInt8 ? launch_gemv_row_bf16<kInt8>(tile, a)
+      : precision == kInt4 ? launch_gemv_row_bf16<kInt4>(tile, a)
+      : (int)cudaErrorInvalidValue;
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// out (R, count) bf16 = the tiers' partials summed in tier and split order
+// from 0 and rounded once: parts holds (R, s_t, count) fp32 for t = 0, 1, 2
+// one after another (s_t = 0: the tier is empty). Returns a cudaError_t.
+extern "C" int qmm_down_sum_bf16(const float* parts, int R, long long count,
+                                 int s0, int s1, int s2, void* out,
+                                 void* stream) {
+  if (R < 1 || count < 1 || s0 < 0 || s1 < 0 || s2 < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)R * count;
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  sum_tiers_bf16<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      parts, R, count, s0, s1, s2, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
 }
 
 // The number of bf16 terms h x scale takes in kernel B's int tiers' row

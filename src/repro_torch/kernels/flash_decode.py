@@ -5,8 +5,10 @@
 ``flash_decode`` launches it on CUDA tensors only, one launch a call; the
 plain version is ``kernels/ref.py``'s ``flash_decode_ref`` and the device
 dispatch lives in ``kernels/ops.py``. q, k and v are all fp32 or all bf16
-(``flash_decode_fwd_bf16``, widened as they are read, the same plan); the
-output is fp32 either way, as the Pallas kernel's.
+(``flash_decode_fwd_bf16``: a kernel of its own on the bf16 tensor cores,
+each warp streaming its own 16-slot steps of the range through a ring of
+its own; the same ranges and head groups); the output is fp32 either way,
+as the Pallas kernel's.
 """
 from __future__ import annotations
 
@@ -38,8 +40,16 @@ MAX_G = 2 * MAX_HEADS
 #: beats two with half as many tiles, and both beat a wave and a bit)
 BLOCKS_PER_SM = 1
 #: cp.async ring depth, in tiles (1 to 6; no deeper than the longest range,
-#: nor than the shared memory holds at the head dim: :func:`max_stages`)
+#: nor than the shared memory holds at the head dim and dtype:
+#: :func:`max_stages`)
 STAGES = 3
+#: bf16: each warp's ring depth, in steps of ``BF16_STEP`` slots (no deeper
+#: than the warp's steps of a range, nor than :func:`max_stages` of D)
+STAGES_BF16 = 2
+#: bf16: the warps of a block, each taking steps warp, warp + WARPS, ... of
+#: a range, and the slots of a step
+WARPS = 8
+BF16_STEP = 16
 #: slots per range when > 0 (a multiple of TILE), whatever the rule says
 RANGE_SLOTS = 0
 #: query heads of a block when > 0 (it must divide G), whatever the rule says
@@ -81,27 +91,37 @@ def head_groups(G: int) -> int:
     return groups
 
 
-def max_stages(D: int) -> int:
-    """The deepest ring a block's shared memory holds at head dim D (the
-    kernel's ``Smem<D>::kStagesFit``): its fixed part (G query rows, the
-    partial scores, p, the softmax state and the tile masks) and two
-    32-slot tiles of rows padded to D + 4 floats a stage; 6 at most, 3 at
-    D = 256."""
+def max_stages(D: int, dtype=torch.float32) -> int:
+    """The deepest ring a block's shared memory holds at head dim D for K
+    and V of ``dtype``. fp32 (the kernel's ``Smem<D>::kStagesFit``): its
+    fixed part (G query rows, the partial scores, p, the softmax state and
+    the tile masks) and two 32-slot tiles of rows padded to D + 4 floats a
+    stage; 6 at most, 3 at D = 256. bf16 (``SmemB<D>::kStagesFit``): each
+    warp's ring, a stage a 16-slot step of K and V in rows padded to D + 8
+    values for each of the 8 warps, beside the bf16 query rows, the masks
+    and the warps' (m, l); 6, 6, 3 and 1 at D = 32, 64, 128, 256."""
+    if dtype == torch.bfloat16:       # bytes: the kernel's SmemB<D>
+        row = (D + 8) * 2
+        fixed = 16 * row + 4 * MAX_RANGE_TILES + 4 * 2 * (WARPS + 1) * MAX_HEADS
+        return min(6, (SMEM_BYTES - fixed) // (WARPS * 2 * BF16_STEP * row))
     fixed = MAX_HEADS * D + MAX_HEADS * MAX_HEADS * TILE + MAX_HEADS * TILE \
         + 3 * MAX_HEADS + MAX_RANGE_TILES
     return min(6, (SMEM_BYTES // 4 - fixed) // (2 * TILE * (D + 4)))
 
 
-def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
-    """A block's range, ring and head groups from one row's shape and the
-    card's SM count, never from B, the lengths or the slot positions: G's
-    query heads in :func:`head_groups` blocks; ranges of a whole number of
-    tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one row (every KV
-    head and head group) on every SM and no more, within the kernel's
-    limits (``RANGE_SLOTS`` > 0 sets the range instead); a ring of
-    ``STAGES`` tiles, or of a range's tiles or :func:`max_stages` of D where
-    that is shorter (and of 2 at least for more than one tile). D changes
-    the plan only by that cap, and G up to MAX_HEADS not at all."""
+def _plan(S: int, Hkv: int, G: int, D: int, sms: int,
+          dtype=torch.float32) -> Plan:
+    """A block's range, ring and head groups from one row's shape (and
+    dtype) and the card's SM count, never from B, the lengths or the slot
+    positions: G's query heads in :func:`head_groups` blocks; ranges of a
+    whole number of tiles, as many as fit ``BLOCKS_PER_SM`` blocks of one
+    row (every KV head and head group) on every SM and no more, within the
+    kernel's limits (``RANGE_SLOTS`` > 0 sets the range instead); a ring of
+    ``STAGES`` tiles, or of a range's tiles or :func:`max_stages` of D
+    where that is shorter (and of 2 at least for more than one tile); bf16,
+    each warp's ring of ``STAGES_BF16`` steps, or of its steps of a range or
+    :func:`max_stages` of D where that is shorter. D and the dtype change
+    the plan only by the ring, and G up to MAX_HEADS not at all."""
     groups = head_groups(G)
     tiles = math.ceil(S / TILE)
     if RANGE_SLOTS:
@@ -109,6 +129,10 @@ def _plan(S: int, Hkv: int, G: int, D: int, sms: int) -> Plan:
     else:
         per = math.ceil(tiles / max(1, BLOCKS_PER_SM * sms // (Hkv * groups)))
     per = min(max(per, math.ceil(tiles / MAX_RANGES)), tiles, MAX_RANGE_TILES)
+    if dtype == torch.bfloat16:
+        steps = math.ceil(per * TILE / BF16_STEP / WARPS)   # a warp's, at most
+        return Plan(per * TILE, max(1, min(STAGES_BF16, steps,
+                                           max_stages(D, dtype))), groups)
     # a ring of one stage holds a one-tile range only
     return Plan(per * TILE, max(min(STAGES, per, max_stages(D)), min(2, per)),
                 groups)
@@ -205,7 +229,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Hkv, G, D), dtype=torch.float32, device=q.device)
     if B == 0 or S == 0:
         return out.zero_()
-    plan = _plan(S, Hkv, G, D, build.sm_count(q.device))
+    plan = _plan(S, Hkv, G, D, build.sm_count(q.device), q.dtype)
     n = ranges(S, plan.range_slots)
     parts = counts = None
     if n > 1:

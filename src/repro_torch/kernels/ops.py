@@ -11,12 +11,14 @@ from typing import Dict
 import torch
 
 from repro_torch.core.quantize import quantize_int4, quantize_int8
+from repro_torch.kernels import qmatmul as qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels.atu_update import atu_update as atu_update_kernel
 from repro_torch.kernels.chunk_attention import chunk_attention as chunk_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.qmatmul import qmatmul_gathered
+from repro_torch.kernels.qmatmul import (ffn_down_bf16, glu_bf16,
+                                         qmatmul_gathered)
 from repro_torch.models.common import activation, chunked_attention
 
 #: (kernel precision, tier name in tier_sizes, bank suffix), in rank order
@@ -40,8 +42,11 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
     At bf16 the gate and up products are rounded to bf16 before the
     activation and the product h, as the reference's einsums round them, h
     goes to the down kernel in bf16, and the sum is rounded to bf16 once at
-    the end. The kernel has no backward: an input that requires grad
-    raises there."""
+    the end. A bf16 FFN whose rows take kernel A (M <= 4 a row) runs the
+    same arithmetic, to the bit, in 5 launches: one fused GLU for the tiers
+    (``glu_bf16``, every activation of ``models.common``), then the three
+    down products and their sum (``ffn_down_bf16``). The kernel has no
+    backward: an input that requires grad raises there."""
     if _on_cpu(x):
         return ref.mp_ffn_gathered_ref(x, banks, idx, sizes, act_name)
     if torch.is_grad_enabled() and (x.requires_grad or any(
@@ -55,6 +60,10 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
         x3, idx2 = x, idx
     x3 = x3.contiguous()
     idx32 = idx2.to(torch.int32)
+    M = x3.shape[1]
+    if x.dtype == torch.bfloat16 and M <= min(qmm.GEMV_MAX_M, qmm.GLU_MAX_M):
+        return _mp_ffn_fused(x3, banks, idx32, sizes, act_name).reshape(
+            B, S, d)
     act = activation(act_name)
     y = torch.zeros(x3.shape, dtype=torch.float32, device=x.device)
     start = 0
@@ -75,6 +84,29 @@ def mp_ffn(x, banks: Dict[str, torch.Tensor], idx, sizes: Dict[str, int],
             call("wu", x3, "col").to(x.dtype)
         call("wd", h, "row", out=y)
     return y.reshape(B, S, d).to(x.dtype)
+
+
+def _mp_ffn_fused(x3, banks, idx32, sizes, act_name):
+    """:func:`mp_ffn` of bf16 x3 (R, M, d) at small M over idx32 (R, k): one
+    fused GLU launch for the tiers, then their down products summed in one
+    more. Returns (R, M, d) bf16."""
+    start, tiers, downs = 0, [], []
+    for precision, tier, suffix in _TIERS:
+        n = sizes[tier]
+        if n == 0:
+            continue
+        t_idx = idx32[:, start:start + n].contiguous()
+        start += n
+        sg, su, sd = ((None,) * 3 if precision == "fp" else
+                      (banks[f"{w}{suffix}_s"] for w in ("wg", "wu", "wd")))
+        tiers.append((precision, banks[f"wg{suffix}"], banks[f"wu{suffix}"],
+                      sg, su, t_idx))
+        downs.append((banks[f"wd{suffix}"], sd, t_idx, precision))
+    if not tiers:
+        return torch.zeros(x3.shape, dtype=x3.dtype, device=x3.device)
+    hs = glu_bf16(x3, tiers, act=act_name)
+    return ffn_down_bf16([(h, w, s, i, p) for h, (w, s, i, p)
+                          in zip(hs, downs)])
 
 
 def make_compact_banks(wg, wu, wd, sizes: Dict[str, int], idx) -> Dict:

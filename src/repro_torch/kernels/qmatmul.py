@@ -9,6 +9,14 @@ on the tensor cores for larger M.
 bf16 too; ``qmm_gathered_bf16`` in ``csrc/qmatmul_bf16.cu``, whose kernel B
 runs on the bf16 tensor cores, the same plan), the output fp32 either way,
 as the Pallas kernel's.
+
+A bf16 FFN at small M (kernel A's rows) takes three kernels of its own
+(``csrc/qmatmul_bf16.cu``): :func:`glu_bf16`, one launch for every tier's
+gate and up products and the activation, writing h in bf16, and
+:func:`ffn_down_bf16`, the tiers' down products (kernel A's row form)
+into one buffer of partials and one launch that sums them in a fixed order
+into the bf16 output. Their plain versions are ``kernels/ref.py``'s
+``qmm_glu_ref`` and ``ffn_down_ref``.
 """
 from __future__ import annotations
 
@@ -26,8 +34,12 @@ launches = 0
 launches_gemv = 0
 #: launches of kernel B (tensor cores, ``qmm_mma_kernel``)
 launches_mma = 0
-#: launches of either kernel with bf16 x (``qmm_gathered_bf16``)
+#: launches of either kernel with bf16 x (``qmm_gathered_bf16``, and the
+#: down products of :func:`ffn_down_bf16`, kernel A's row form)
 launches_bf16 = 0
+#: launches of the fused bf16 GLU (``qmm_glu_bf16``; none of them count
+#: above)
+launches_glu = 0
 
 PRECISIONS = {"fp": 0, "int8": 1, "int4": 2}
 LAYOUTS = {"col": 0, "row": 1}
@@ -44,6 +56,10 @@ _ROW_IDS, _ROW_HS = 1024, 4096    # kernel A row: a split's staged ids, h
 _MMA_ROW_SPAN = 2560              # kernel B row: a split's staged ids
 _BK = 32
 _BN = 64
+#: the activations the fused GLU computes, by the C entry's code
+GLU_ACTS = {"silu": 0, "gelu": 1, "relu": 2}
+#: rows of M a fused GLU launch takes at most (its compiled M bounds: 1, 4)
+GLU_MAX_M = 4
 
 _fns = {}
 
@@ -61,6 +77,24 @@ def _kernel(bf16: bool = False):
         fn.restype = ctypes.c_int
         _fns[bf16] = fn
     return fn
+
+
+def _ffn_kernels():
+    """The small-M bf16 FFN's C entry points: (``qmm_glu_bf16``,
+    ``qmm_down_parts_bf16``, ``qmm_down_sum_bf16``)."""
+    fns = _fns.get("ffn")
+    if fns is None:
+        lib = build.load("qmatmul_bf16")
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        glu, parts, total = (lib.qmm_glu_bf16, lib.qmm_down_parts_bf16,
+                             lib.qmm_down_sum_bf16)
+        glu.argtypes = [P] * 12 + [I, I, I, I, I, I, I, P]
+        parts.argtypes = [P, P, P, P, I, I, I, I, L, I, I, I, I, I, P, P]
+        total.argtypes = [P, I, L, I, I, I, P, P]
+        for fn in (glu, parts, total):
+            fn.restype = ctypes.c_int
+        fns = _fns["ffn"] = (glu, parts, total)
+    return fns
 
 
 def bf16_row_terms() -> int:
@@ -198,3 +232,171 @@ def qmatmul_gathered(x: torch.Tensor, w: torch.Tensor,
     else:
         launches_mma += 1
     return out
+
+
+def _bank_checks(x, w, scale, precision: str, width: int):
+    """A tier's bank beside bf16 x: its dtype and layout, (f, width) values
+    (int4: width / 2 bytes), and its scale for an int tier."""
+    wdt = torch.bfloat16 if precision == "fp" else torch.int8
+    _require(w.device == x.device and w.dtype == wdt and w.dim() == 2
+             and w.is_contiguous(),
+             f"{precision} weights must be contiguous 2-D {wdt} on {x.device}")
+    _require(w.shape[1] * (2 if precision == "int4" else 1) == width,
+             f"w {tuple(w.shape)} does not match {width} values a row")
+    if precision == "fp":
+        _require(scale is None, "the fp tier takes no scale")
+    else:
+        _require(scale is not None and scale.device == x.device
+                 and scale.dtype == torch.float32 and scale.dim() == 1
+                 and scale.is_contiguous() and scale.numel() == w.shape[0],
+                 f"scale must be a contiguous float32 ({w.shape[0]},) vector")
+
+
+def _rows_and_idx(x, idx, bank: int):
+    """(R, M, K) of x (M, K) or (R, M, K), and the active count n, with
+    idx (n,) or (R, n) int32 on x's device, or None (every row of a bank
+    of ``bank``)."""
+    _require(x.dtype == torch.bfloat16 and x.dim() in (2, 3)
+             and x.is_contiguous(),
+             f"x must be contiguous bf16 (M, K) or (R, M, K), got {x.dtype} "
+             f"{tuple(x.shape)}")
+    rows = x.dim() == 3
+    R, M, K = x.shape if rows else (1, *x.shape)
+    if idx is None:
+        return R, M, K, bank
+    _require(idx.device == x.device and idx.dtype == torch.int32
+             and idx.dim() == (2 if rows else 1) and idx.is_contiguous()
+             and (not rows or idx.shape[0] == R),
+             "idx must be a contiguous int32 (n,) vector, or (R, n) for "
+             "x (R, M, K), on the same device")
+    return R, M, K, idx.shape[-1]
+
+
+def glu_bf16(x: torch.Tensor, tiers, *, act: str = "silu",
+             products: bool = False) -> list:
+    """The gate and up products and the activation of an FFN's tiers in one
+    launch (``qmm_glu_bf16``): x (M, K) or (R, M, K) bf16 with M <=
+    GLU_MAX_M; ``tiers``, in the order fp, int8, int4 (any left out), each
+    (precision, wg, wu, sg, su, idx): the tier's neuron-major banks (fp:
+    bf16 (f, K); int8 (f, K); int4 (f, K/2)), their per-neuron scales (int
+    tiers) and the active neurons as ``qmatmul_gathered`` takes them.
+    Returns, a tier each, h = activation(bf16(gate)) * bf16(up), bf16 (M,
+    n) or (R, M, n), every op of the activation rounded to bf16
+    (``models.common``'s); with ``products`` (h, gate, up), the fp32
+    products it rounded. Raises before any launch on what the kernel does
+    not take."""
+    global launches_glu
+    _require(act in GLU_ACTS, f"the fused GLU takes {sorted(GLU_ACTS)}, "
+                              f"not {act!r}")
+    _require(x.is_cuda, "x must be a CUDA tensor")
+    order = [PRECISIONS.get(t[0], -1) for t in tiers]
+    _require(1 <= len(tiers) <= len(PRECISIONS) and min(order) >= 0
+             and order == sorted(set(order)),
+             f"tiers {[t[0] for t in tiers]}: each of {list(PRECISIONS)} at "
+             f"most once, in that order")
+    R = M = K = None
+    outs, slots = [], [None] * len(PRECISIONS)
+    for precision, wg, wu, sg, su, idx in tiers:
+        R, M, K, N = _rows_and_idx(x, idx, wg.shape[0])
+        _require(1 <= M <= GLU_MAX_M, f"the fused GLU takes M <= "
+                                      f"{GLU_MAX_M}, not {M}")
+        for w, s in ((wg, sg), (wu, su)):
+            _bank_checks(x, w, s, precision, K)
+        _require(wu.shape == wg.shape, "wg and wu must be one shape")
+        shape = (R, M, N) if x.dim() == 3 else (M, N)
+        h = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+        gate = up = None
+        if products:
+            gate, up = (torch.empty(shape, dtype=torch.float32,
+                                    device=x.device) for _ in range(2))
+        outs.append((h, gate, up) if products else h)
+        slots[PRECISIONS[precision]] = (wg, wu, sg, su, idx, N, h, gate, up)
+    if R == 0 or K == 0 or all(t is None or t[5] == 0 for t in slots):
+        for out in outs:
+            (out[0] if products else out).zero_()
+        return outs
+    _, tile, _, k_chunk = _plan(M, max(t[5] for t in slots if t), K, "col",
+                                x.device)
+
+    def arr(ctype, values):
+        return (ctype * len(values))(*values)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    empty = (None,) * 5 + (0, None, None, None)
+    cols = list(zip(*(t or empty for t in slots)))
+    wgs, wus = cols[0], cols[1]
+    ldw = [w.shape[1] * w.element_size() if w is not None else 0 for w in wgs]
+    vec_w = [int(w is not None and w.data_ptr() % 16 == 0
+                 and u.data_ptr() % 16 == 0 and b % 16 == 0)
+             for w, u, b in zip(wgs, wus, ldw)]
+    err = _ffn_kernels()[0](
+        x.data_ptr(), arr(P, [ptr(w) for w in wgs]),
+        arr(P, [ptr(u) for u in wus]), arr(P, [ptr(s) for s in cols[2]]),
+        arr(P, [ptr(s) for s in cols[3]]), arr(P, [ptr(i) for i in cols[4]]),
+        arr(I, cols[5]), arr(L, ldw), arr(I, vec_w),
+        arr(P, [ptr(h) for h in cols[6]]), arr(P, [ptr(g) for g in cols[7]]),
+        arr(P, [ptr(u) for u in cols[8]]), R, M, K, GLU_ACTS[act], tile,
+        k_chunk, int(x.data_ptr() % 16 == 0 and K % 8 == 0),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"qmm_glu_bf16({act})")
+    launches_glu += 1
+    return outs
+
+
+def ffn_down_bf16(terms) -> torch.Tensor:
+    """The down products of an FFN's tiers, summed, in bf16: ``terms``, in
+    tier order, (h, w, scale, idx, precision) with h (M, n) or (R, M, n)
+    bf16 (M <= GLU_MAX_M) and ``w`` the tier's neuron-major down bank (f,
+    N) (int4 (f, N/2)). Each term's product runs through kernel A's row
+    form into its own block of partials (its K split as ``_plan`` gives it),
+    and one more launch (``qmm_down_sum_bf16``) adds every block, in term
+    and split order from 0, and rounds the sum to bf16 once. Returns (M, N)
+    or (R, M, N) bf16."""
+    global launches, launches_gemv, launches_bf16
+    _require(1 <= len(terms) <= len(PRECISIONS),
+             f"{len(terms)} terms: one to three tiers")
+    h0 = terms[0][0]
+    _require(h0.is_cuda, "h must be a CUDA tensor")
+    w0, p0 = terms[0][1], terms[0][4]
+    N = w0.shape[1] * (2 if p0 == "int4" else 1)
+    plans = []
+    for h, w, scale, idx, precision in terms:
+        _require(precision in PRECISIONS, f"precision {precision!r}")
+        R, M, K, n = _rows_and_idx(h, idx, w.shape[0])
+        _require(h.dim() == h0.dim() and h.shape[:-1] == h0.shape[:-1],
+                 "every term's h must have the first term's rows")
+        _require(n == K, f"h has K={K} but the gather selects {n} rows")
+        _require(1 <= M <= GLU_MAX_M, f"the down sum takes M <= "
+                                      f"{GLU_MAX_M}, not {M}")
+        _bank_checks(h, w, scale, precision, N)
+        kern, tile, splits, k_split = _plan(M, N, K, "row", h.device)
+        _require(kern == "gemv", "the down sum takes kernel A's row form")
+        plans.append((tile, splits, k_split))
+    R, M = (h0.shape[0], h0.shape[1]) if h0.dim() == 3 else (1, h0.shape[0])
+    shape = (R, M, N) if h0.dim() == 3 else (M, N)
+    y = torch.empty(shape, dtype=torch.bfloat16, device=h0.device)
+    if R == 0 or N == 0:
+        return y
+    splits = [p[1] for p in plans] + [0] * (3 - len(plans))
+    parts = torch.empty(R * M * N * sum(splits), dtype=torch.float32,
+                        device=h0.device)
+    stream = torch.cuda.current_stream(h0.device).cuda_stream
+    _, down, total = _ffn_kernels()
+    at = 0
+    for (h, w, scale, idx, precision), (tile, s, k_split) in zip(terms,
+                                                                 plans):
+        ldw = w.shape[1] * w.element_size()
+        vec_w = w.data_ptr() % 16 == 0 and ldw % 16 == 0
+        err = down(h.data_ptr(), w.data_ptr(),
+                   None if scale is None else scale.data_ptr(),
+                   None if idx is None else idx.data_ptr(), R, M, N,
+                   h.shape[-1], ldw, PRECISIONS[precision], tile, s, k_split,
+                   int(vec_w), parts[at:].data_ptr(), stream)
+        build.check(err, f"qmm_down_parts_bf16({precision})")
+        at += R * s * M * N
+        launches += 1
+        launches_gemv += 1
+        launches_bf16 += 1
+    err = total(parts.data_ptr(), R, M * N, *splits, y.data_ptr(), stream)
+    build.check(err, "qmm_down_sum_bf16")
+    return y

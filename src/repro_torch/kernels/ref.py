@@ -62,6 +62,36 @@ def qmm_gathered_ref(x, w, scale=None, idx=None, *, precision: str = "fp",
     return out.add_(y) if out is not None else y
 
 
+def glu_bf16_ref(gate, up, act_name: str):
+    """The fused GLU's epilogue over its fp32 products: h = activation(
+    bf16(gate)) * bf16(up), each op of the activation rounded to bf16
+    (``models.common``'s forms), bf16."""
+    return activation(act_name)(gate.to(torch.bfloat16)) * \
+        up.to(torch.bfloat16)
+
+
+def qmm_glu_ref(x, tiers, *, act_name: str = "silu"):
+    """Plain version of ``kernels/qmatmul.glu_bf16``: for each (precision,
+    wg, wu, sg, su, idx) tier the gate and up products as
+    :func:`qmm_gathered_ref` computes them (fp32), then
+    :func:`glu_bf16_ref`. Returns a bf16 (M, n) or (R, M, n) h a tier."""
+    return [glu_bf16_ref(
+        qmm_gathered_ref(x, wg, sg, idx, precision=precision),
+        qmm_gathered_ref(x, wu, su, idx, precision=precision), act_name)
+        for precision, wg, wu, sg, su, idx in tiers]
+
+
+def ffn_down_ref(terms):
+    """Plain version of ``kernels/qmatmul.ffn_down_bf16``: each (h, w,
+    scale, idx, precision) term's row-form product (:func:`qmm_gathered_ref`,
+    fp32), summed in term order from 0 and rounded to bf16 once."""
+    y = 0.0
+    for h, w, scale, idx, precision in terms:
+        y = y + qmm_gathered_ref(h, w, scale, idx, precision=precision,
+                                 layout="row")
+    return y.to(torch.bfloat16)
+
+
 def mp_ffn_gathered_ref(x, banks: Dict[str, torch.Tensor], idx,
                         sizes: Dict[str, int], act_name: str):
     """The sparse mixed-precision GLU FFN as ``repro/core/mp_ffn.py`` computes

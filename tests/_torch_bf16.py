@@ -69,6 +69,47 @@ def inputs(cfg):
     return tokens, prefix
 
 
+#: the families whose first layer's GLU the reference also computes (the
+#: fused launch's plain version is held to it): silu and gelu
+GLU_ARCHS = ("qwen2.5-14b", "recurrentgemma-2b")
+
+
+def reference_glu(jcfg, jp) -> dict:
+    """The first layer's gate and up products and GLU h at bf16, as the
+    reference's ``mp_ffn_apply`` computes them for each tier (its weights
+    dequantized to bf16, the einsums, the activation, the product), over a
+    seeded x (B, S, d) and active set (rng 5): every array as fp32."""
+    from repro.core import mp_ffn as JM
+    from repro.core.quantize import unpack_int4
+    from repro.models.common import activation
+    banks = jax.tree.map(lambda a: a[0],
+                         jp["layers"]["pattern"][0]["ffn"]["banks"])
+    rng = np.random.default_rng(5)
+    d, f = banks["wg_fp"].shape
+    sizes = JM.tier_sizes(f, jcfg)
+    x = jnp.asarray(rng.standard_normal((B, S, d)).astype(np.float32),
+                    jnp.bfloat16)
+    idx = rng.permutation(f)[:sizes["k"]].astype(np.int32)
+    i16, i8 = idx[:sizes["fp16"]], idx[sizes["fp16"]:sizes["fp16"] + sizes["int8"]]
+    i4 = idx[sizes["fp16"] + sizes["int8"]:]
+    bf = jnp.bfloat16
+    out = {"glu_x": np.asarray(x.astype(jnp.float32)), "glu_idx": idx}
+    for w in ("wg", "wu"):
+        tiers = {"fp": jnp.take(banks[f"{w}_fp"], i16, axis=1).astype(bf),
+                 "int8": jnp.take(banks[f"{w}_i8"], i8, axis=1).astype(bf)
+                 * banks[f"{w}_i8_s"][i8].astype(bf),
+                 "int4": unpack_int4(jnp.take(banks[f"{w}_i4"], i4, axis=1),
+                                     0).astype(bf)
+                 * banks[f"{w}_i4_s"][i4].astype(bf)}
+        for tier, wt in tiers.items():
+            out[f"glu_{w}_{tier}"] = jnp.einsum("bsd,dk->bsk", x, wt)
+    act = activation(jcfg.ffn_act)
+    for tier in ("fp", "int8", "int4"):
+        out[f"glu_h_{tier}"] = act(out[f"glu_wg_{tier}"]) * out[f"glu_wu_{tier}"]
+    return {k: np.asarray(v.astype(jnp.float32)) if hasattr(v, "astype")
+            and k != "glu_idx" else v for k, v in out.items()}
+
+
 def reference_run(arch: str) -> dict:
     """The reference's logits of every step and its first layer's active
     sets, as numpy (fp32 logits): the prompt (with the vlm prefix at
@@ -90,6 +131,8 @@ def reference_run(arch: str) -> dict:
         if idx:
             out[f"{tag}_idx"] = np.asarray(idx[0][0])
     keep("prefill", logits, aux)
+    if arch in GLU_ARCHS:
+        out.update(reference_glu(jcfg, jp))
     for step in range(DECODES):
         nxt = np.asarray(jnp.argmax(logits[..., -1, :], axis=-1)).astype(
             np.int32)[..., None]

@@ -295,6 +295,39 @@ def test_build_case_bf16_matches_reference_arguments(shape, variant,
                     (tuple(x.shape), _dtype_name(x)), p
 
 
+@pytest.mark.parametrize("arch", H.GLU_ARCHS)
+def test_fused_glu_plain_version_bit_equal_at_bf16(reference, arch):
+    """The fused GLU launch's plain version (``kernels/ref.py``): over the
+    port's fp tier it gives the reference's bf16 h bit for bit (the
+    reference's einsum, rounded once, then its activation with every op at
+    bf16: silu for qwen2.5-14b, gelu for recurrentgemma-2b; the reference
+    run with ``--xla_allow_excess_precision=false``); and its epilogue over
+    the reference's own gate and up products gives the reference's h at
+    every tier (the int tiers' products differ by design: the kernels scale
+    the fp32 sum, the reference multiplies by weights dequantized to
+    bf16)."""
+    from repro_torch.kernels import ref as R
+    want = _reference_arrays(reference, arch)
+    _, cfg, tp = _port_params(arch)
+    banks = tp["layers"][0]["ffn"]["banks"]
+    bf = torch.bfloat16
+    x = torch.from_numpy(want["glu_x"]).to(bf)
+    k16 = want["glu_wg_fp"].shape[-1]
+    i16 = torch.from_numpy(want["glu_idx"][:k16].copy())
+    h = R.qmm_glu_ref(x.reshape(-1, x.shape[-1]),
+                      [("fp", banks["wg_fp"], banks["wu_fp"], None, None,
+                        i16)], act_name=cfg.ffn_act)[0].reshape(
+                          *x.shape[:2], k16)
+    assert h.dtype == bf
+    np.testing.assert_array_equal(h.float().numpy(), want["glu_h_fp"])
+    for tier in ("fp", "int8", "int4"):
+        got = R.glu_bf16_ref(torch.from_numpy(want[f"glu_wg_{tier}"]),
+                             torch.from_numpy(want[f"glu_wu_{tier}"]),
+                             cfg.ffn_act)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      want[f"glu_h_{tier}"], err_msg=tier)
+
+
 @pytest.mark.parametrize("kernel", ["qmatmul", "flash_decode",
                                     "flash_attention"])
 def test_plain_versions_take_bf16_as_the_reference_oracles(kernel):

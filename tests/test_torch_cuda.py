@@ -1243,6 +1243,194 @@ def test_flash_decode_bf16_matches_plain(dev, B, S, Hkv, G, D, ring, cap):
     _close(got, ref.flash_decode_ref(q, k, v, slots, lengths, softcap=cap))
 
 
+def _decode_bf16(dev, B, S, Hkv, G, D, seed, ring=True):
+    """bf16 q, k, v and a ring's slot positions: slot i of row b holds
+    position lengths[b] - ((lengths[b] - i) mod S), every slot valid, the
+    ring wrapped at a different slot in each row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn(B, Hkv, G, D, generator=g, device=dev).to(bf)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(bf)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=dev).to(bf)
+    lengths = (S + 5 + 37 * torch.arange(B, device=dev)).to(torch.int32)
+    slot = torch.arange(S, device=dev, dtype=torch.int32)[None]
+    if ring:
+        slots = lengths[:, None] - torch.remainder(lengths[:, None] - slot, S)
+    else:
+        slots = slot.repeat(B, 1)
+    return q, k, v, slots.to(torch.int32).contiguous(), lengths
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else \
+        t.view(torch.int16)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("G,S", [(1, 300), (5, 2048), (7, 999), (16, 4100)])
+def test_flash_decode_bf16_ring_matches_plain_and_the_fp32_form(dev, D, G, S):
+    """The bf16 form on the tensor cores over a wrapped ring at D = 32 to
+    256 and G = 1 to 16 (two head groups of 8 at G = 16): within 1e-5 of
+    the plain version and of the fp32 form run on the widened inputs (its
+    sums run in another order: Q K^T and P V as MMAs, each warp its own
+    slots)."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    q, k, v, slots, lengths = _decode_bf16(dev, 2, S, 2, G, D, seed=D + G)
+    before = fd.launches_bf16
+    got = fd.flash_decode(q, k, v, slots, lengths)
+    assert fd.launches_bf16 == before + 1
+    _close(got, ref.flash_decode_ref(q, k, v, slots, lengths))
+    _close(got, fd.flash_decode(q.float(), k.float(), v.float(), slots,
+                                lengths))
+
+
+@pytest.mark.parametrize("S", [145, 8192])
+def test_flash_decode_bf16_masked_slots_change_no_bit(dev, S):
+    """NaN and Inf in the K and V of masked slots (empty, or past the
+    length) leave every output bit as it was; a row with no valid slot
+    gives V's mean over the whole buffer, as the plain version does."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    q, k, v, slots, lengths = _decode_bf16(dev, 3, S, 8, 5, 128, seed=S,
+                                           ring=False)
+    lengths = torch.tensor([S - 20, S // 2, S - 1], dtype=torch.int32,
+                           device=dev)
+    slots[0, 3:40:2] = -1
+    clean = fd.flash_decode(q, k, v, slots, lengths)
+    masked = (slots < 0) | (slots > lengths[:, None])
+    k2, v2 = k.clone(), v.clone()
+    k2[masked] = float("nan")
+    v2[masked] = float("inf")
+    assert torch.equal(_bits(fd.flash_decode(q, k2, v2, slots, lengths)),
+                       _bits(clean))
+    none = torch.full_like(slots, -1)
+    got = fd.flash_decode(q, k, v, none, lengths)
+    _close(got, ref.flash_decode_ref(q, k, v, none, lengths))
+    assert torch.equal(_bits(got), _bits(fd.flash_decode(
+        q.float(), k.float(), v.float(), none, lengths)))
+
+
+@pytest.mark.parametrize("S,G,D", [(145, 5, 128), (8192, 5, 128),
+                                   (2048, 10, 256), (209, 1, 64)])
+def test_flash_decode_bf16_row_alone_equals_it_in_a_group(dev, S, G, D):
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, slots, lengths = _decode_bf16(dev, 4, S, 2, G, D, seed=S + D)
+    group = fd.flash_decode(q, k, v, slots, lengths)
+    for b in range(4):
+        alone = fd.flash_decode(q[b:b + 1].contiguous(),
+                                k[b:b + 1].contiguous(),
+                                v[b:b + 1].contiguous(),
+                                slots[b:b + 1].contiguous(), lengths[b:b + 1])
+        assert torch.equal(_bits(alone[0]), _bits(group[b]))
+
+
+@pytest.mark.parametrize("prec", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("n", [38, 78, 1037, 2073])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
+@pytest.mark.parametrize("R,M,aligned", [(1, 1, True), (4, 1, True),
+                                         (1, 4, True), (1, 1, False)])
+def test_glu_bf16_matches_plain_and_the_composition(dev, prec, n, act, R, M,
+                                                    aligned):
+    """The fused GLU at odd tier widths, per-row sets and M = 4, and with x
+    not 16-byte aligned: gate and up within 1e-5 of the plain products and
+    equal to kernel A's col form's bit for bit; h bit-equal to the PyTorch
+    composition over them (``activation(gate.to(bf16)) * up.to(bf16)``)."""
+    from repro_torch.core.quantize import quantize_int4, quantize_int8
+    from repro_torch.kernels import qmatmul as qm
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(n + M)
+    f, K = 2500, 320
+    ws = []
+    for _ in range(2):
+        w = torch.randn(f, K, generator=g, device=dev) / 8
+        ws.append((w.to(torch.bfloat16), None) if prec == "fp" else
+                  quantize_int8(w, 1) if prec == "int8" else
+                  quantize_int4(w, 1))
+    (wg, sg), (wu, su) = ws
+    idx = torch.stack([torch.randperm(f, generator=g, device=dev)[:n]
+                       for _ in range(R)]).to(torch.int32)
+    buf = torch.randn(R * M * K + 1, generator=g, device=dev).to(
+        torch.bfloat16)
+    x = (buf[:-1] if aligned else buf[1:]).view(R, M, K)
+    if R == 1:
+        x, idx = x[0], idx[0]
+    assert (x.data_ptr() % 16 == 0) == aligned
+    before = qm.launches_glu
+    tier = [(prec, wg, wu, sg, su, idx)]
+    (h, gate, up), = qm.glu_bf16(x, tier, act=act, products=True)
+    assert qm.launches_glu == before + 1 and h.dtype == torch.bfloat16
+    for got, w, s in ((gate, wg, sg), (up, wu, su)):
+        _close(got, ref.qmm_gathered_ref(x, w, s, idx, precision=prec))
+        assert torch.equal(_bits(got), _bits(qm.qmatmul_gathered(
+            x, w, s, idx, precision=prec)))
+    assert torch.equal(_bits(h), _bits(ref.glu_bf16_ref(gate, up, act)))
+    assert torch.equal(_bits(h), _bits(qm.glu_bf16(x, tier, act=act)[0]))
+
+
+@pytest.mark.parametrize("R,M", [(1, 1), (4, 1), (1, 4)])
+def test_glu_bf16_three_tiers_in_one_launch(dev, R, M):
+    """The three tiers in one launch (blocks of the fp tier, then int8's,
+    then int4's) give each tier's h and products as the tier alone does,
+    bit for bit, at odd widths."""
+    from repro_torch.core.quantize import quantize_int4, quantize_int8
+    from repro_torch.kernels import qmatmul as qm
+    g = torch.Generator(device=dev).manual_seed(R + M)
+    f, K = 2500, 320
+    tiers = []
+    for prec, n in (("fp", 78), ("int8", 1037), ("int4", 2073)):
+        ws = []
+        for _ in range(2):
+            w = torch.randn(f, K, generator=g, device=dev) / 8
+            ws.append((w.to(torch.bfloat16), None) if prec == "fp" else
+                      quantize_int8(w, 1) if prec == "int8" else
+                      quantize_int4(w, 1))
+        idx = torch.stack([torch.randperm(f, generator=g, device=dev)[:n]
+                           for _ in range(R)]).to(torch.int32)
+        tiers.append((prec, ws[0][0], ws[1][0], ws[0][1], ws[1][1],
+                      idx if R > 1 else idx[0]))
+    x = torch.randn(R, M, K, generator=g, device=dev).to(torch.bfloat16)
+    x = x if R > 1 else x[0]
+    before = qm.launches_glu
+    together = qm.glu_bf16(x, tiers, act="gelu", products=True)
+    assert qm.launches_glu == before + 1
+    for tier, got in zip(tiers, together):
+        (alone,) = qm.glu_bf16(x, [tier], act="gelu", products=True)
+        for a, b in zip(got, alone):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("R", [None, 4])
+def test_fused_ffn_equals_the_composition_bit_for_bit(dev, monkeypatch, R):
+    """``ops.mp_ffn`` at bf16 and M = 1: the fused path (one GLU launch,
+    the down products and one sum) gives the bits of the composition
+    it replaces (col products, the activation in PyTorch, the row form into
+    a zeroed fp32 output, one cast), with shared and per-row sets."""
+    from repro_torch.core.quantize import build_neuron_banks, to_neuron_major
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qmatmul as qm
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, f = 512, 3000
+    banks = to_neuron_major(build_neuron_banks(*(
+        (torch.randn(s, generator=g, device=dev) / 16).to(torch.bfloat16)
+        for s in ((d, f), (d, f), (f, d)))))
+    sizes = {"fp16": 225, "int8": 225, "int4": 449, "k": 899}
+    x = torch.randn(4 if R else 2, 1, d, generator=g, device=dev).to(
+        torch.bfloat16)
+    idx = torch.stack([torch.randperm(f, generator=g, device=dev)[:899]
+                       for _ in range(4)])
+    idx = idx if R else idx[0]
+    for act in qm.GLU_ACTS:
+        before = qm.launches_glu
+        got = ops.mp_ffn(x, banks, idx, sizes, act)
+        assert qm.launches_glu == before + 1
+        monkeypatch.setattr(qm, "GLU_MAX_M", 0)        # the composition
+        want = ops.mp_ffn(x, banks, idx, sizes, act)
+        monkeypatch.setattr(qm, "GLU_MAX_M", 4)
+        assert qm.launches_glu == before + 1
+        assert torch.equal(_bits(got), _bits(want))
+
+
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,window,cap", [
     (4, 128, 40, 8, 128, 0, 0.0), (2, 300, 14, 2, 64, 64, 0.0),
     (2, 200, 10, 1, 256, 0, 0.0), (4, 128, 48, 8, 128, 0, 30.0)])

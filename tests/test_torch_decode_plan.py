@@ -30,8 +30,8 @@ from repro_torch.models import transformer as T
 
 
 def test_plan_takes_one_rows_shape_only():
-    assert list(inspect.signature(fd._plan).parameters) == ["S", "Hkv", "G",
-                                                            "D", "sms"]
+    assert list(inspect.signature(fd._plan).parameters) == [
+        "S", "Hkv", "G", "D", "sms", "dtype"]
 
 
 def test_main_path_plans():
@@ -393,3 +393,60 @@ def test_head_dim_256_caps_the_ring():
     with pytest.raises(ValueError, match="CUDA"):
         _decode(q=torch.zeros(2, 1, 10, 256), k=torch.zeros(2, 40, 1, 256),
                 v=torch.zeros(2, 40, 1, 256))
+
+
+#: (S, Hkv, G, D) of every decode row the paths give the kernel: the serve
+#: step and the server's bucket (qwen2.5-14b and its kin, mistral's G = 12,
+#: internvl2's G = 7 at D = 64, command-r's G = 8), the 4 K, 32 K and
+#: long_500k 8192-slot rows, recurrentgemma-2b's D = 256 (the serve step
+#: and the window's 2048-slot ring), musicgen's G = 1 at D = 64
+PATH_ROWS = [(145, 8, 5, 128), (128, 8, 5, 128), (145, 8, 12, 128),
+             (145, 2, 7, 64), (145, 8, 8, 128), (4096, 8, 5, 128),
+             (32768, 8, 5, 128), (8192, 8, 5, 128), (145, 1, 10, 256),
+             (2048, 1, 10, 256), (209, 32, 1, 64), (145, 8, 6, 128)]
+
+
+@pytest.mark.parametrize("S,Hkv,G,D", PATH_ROWS)
+@pytest.mark.parametrize("stages", [1, 3, 6])
+def test_bf16_plan_is_the_fp32_plan_but_the_ring(S, Hkv, G, D, stages):
+    """bf16 K and V: the same ranges and head groups as fp32 (one row's
+    shape); the ring is each warp's, in 16-slot steps: ``STAGES_BF16``, no
+    deeper than the warp's steps of a range (steps warp, warp + 8, ...) nor
+    than ``max_stages(D, bf16)`` (8 warps' steps of K and V beside the
+    block's fixed part: 6, 6, 3, 1 at D = 32 to 256), and 1 at least."""
+    assert [fd.max_stages(D, torch.bfloat16) for D in (32, 64, 128, 256)] \
+        == [6, 6, 3, 1]
+    saved = fd.STAGES_BF16
+    try:
+        fd.STAGES_BF16 = stages
+        p32 = fd._plan(S, Hkv, G, D, 132)
+        p16 = fd._plan(S, Hkv, G, D, 132, torch.bfloat16)
+    finally:
+        fd.STAGES_BF16 = saved
+    assert (p16.range_slots, p16.groups) == (p32.range_slots, p32.groups)
+    steps = math.ceil(p16.range_slots / fd.BF16_STEP / fd.WARPS)
+    assert p16.stages == max(1, min(stages, steps,
+                                    fd.max_stages(D, torch.bfloat16)))
+    assert 1 <= p16.stages <= fd.max_stages(D, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", [145, 8192])
+def test_bf16_plan_is_the_same_for_any_batch_and_any_lengths(monkeypatch, S):
+    """The bf16 entry point gets one row's plan whatever B and the lengths,
+    the fp32 plan's range."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(fd, "_kernel", lambda bf16=False: (
+        lambda *a: calls.append((bf16,) + a[:-1]) or 0))
+    rng = np.random.default_rng(1)
+    for B in (1, 3):
+        q = torch.zeros(B, 8, 5, 128, dtype=torch.bfloat16)
+        kv = torch.zeros(B, S, 8, 128, dtype=torch.bfloat16)
+        slots = torch.arange(S, dtype=torch.int32)[None].repeat(B, 1)
+        lengths = torch.from_numpy(rng.integers(0, S, B).astype(np.int32))
+        fd.flash_decode(q, kv, kv, slots, lengths)
+    want = fd._plan(S, 8, 5, 128, 132, torch.bfloat16)
+    assert [c[0] for c in calls] == [True, True]
+    assert {c[12:] for c in calls} == {
+        (S, 8, 5, 128, want.range_slots, want.stages, 1, 1 / math.sqrt(128),
+         0.0)}
+    assert want.range_slots == fd._plan(S, 8, 5, 128, 132).range_slots
